@@ -17,14 +17,28 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      holds equal to the JAX package's verifier), and both kernels must have
      launched during the run;
   5. the same for the deep fixture recursive_proof_16_15;
-  6. timing: warm proofs/s of verify_batch at B=1024 for both fixtures.
+  6. timing: warm proofs/s of verify_batch at B=1024 for both fixtures;
+  7. prover, recursion-chain level 1: the demo circuit's proof on CUDA must
+     equal the port's CPU proof byte for byte (a quick first check); then
+     the level-1 circuit (recursive_proof_16_15 verified five times) is
+     built on the host and proved on CUDA with the port's `prove`; its m31x8
+     bytes must equal those of the committed artifact
+     examples/data/level1-5.pkl (sha256 a51ea3f3...), and K1 must have
+     launched while proving; prints the wall time, each stage's time, K1's
+     launches and the peak device memory;
+  8. the same for level 2 (level1-5.pkl verified once, largest domain
+     2**23) against examples/data/level2-1.pkl (sha256 7476baa5...);
+  9. grind: the port's grind_device on CUDA at 24 bits on a seeded digest
+     must find the host native scan's nonce; prints both times.
 The last three lines are the nvidia-smi line, a JSON line describing the
 kernels, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -43,6 +57,13 @@ KAT = [
     1659717477, 2080202267, 1269806256, 1287849264,
 ]
 FIXTURES = ("small_proof", "recursive_proof_16_15")
+# sha256 of the m31x8 bytes of each chain level's artifact (docs/chain_artifacts.txt)
+LEVEL_SHA256 = {
+    1: "a51ea3f3d96636750c573b2d46846d9f9e47ecb955fc510c63cec1f0c76be49b",
+    2: "7476baa51d927962fd8ab7b766409b39f5a2fc8009ff6c2bb2e04ca2078c73a3",
+}
+PROVER_LEAF_ROWS = 1 << 23  # K1's largest call in phase 8: the level-2 composition leaves
+GRIND_BITS = 24
 
 
 class SmokeError(RuntimeError):
@@ -125,6 +146,18 @@ def check_kernels(torch, dev, n_queries: int) -> dict:
         print(f"{name} {tuple(main.shape)}: kernel {ms:.4f} ms ({n_main / ms / 1e3:.4g} Mperm/s), "
               f"plain {plain_ms:.4f} ms ({n_main / plain_ms / 1e3:.4g} Mperm/s)")
         result[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    # K1 at the prover's largest call, made on the card from a seed
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    leaf = torch.randint(0, P, (PROVER_LEAF_ROWS, 16), generator=gen, device=dev, dtype=torch.int64)
+    k, p = poseidon_cuda.permute_rows(leaf), poseidon2.permute_plain(leaf)
+    torch.cuda.synchronize()
+    require(torch.equal(k, p), f"permute_rows differs from its plain version at {tuple(leaf.shape)}")
+    leaf_ms = cuda_ms(torch, lambda: poseidon_cuda.permute_rows(leaf), 10)
+    leaf_plain = cuda_ms(torch, lambda: poseidon2.permute_plain(leaf), 1)
+    print(f"permute_rows {tuple(leaf.shape)} (prover leaves): bit-exact vs plain; kernel {leaf_ms:.4f} ms "
+          f"({PROVER_LEAF_ROWS / leaf_ms / 1e3:.4g} Mperm/s), plain {leaf_plain:.4f} ms")
+    result["permute_rows"].update(prover_shape_ms=leaf_ms, prover_shape_plain_ms=leaf_plain)
     return result
 
 
@@ -203,12 +236,95 @@ def proofs_per_s(torch, dev, name: str, runs: int = 5) -> float:
     return BATCH / med
 
 
+def check_demo_proof(torch, dev) -> None:
+    """Phase 7, first: the demo circuit proved on CUDA and on the CPU (plain
+    permutations) by the port; the bytes must agree."""
+    from recursive_stwo_tpu_torch.models import flagship
+    from recursive_stwo_tpu_torch.prover.prove import prove
+
+    trace = flagship.demo_trace()
+    config = flagship.DEMO_CONFIG
+    t = time.perf_counter()
+    on_card = flagship.proof_bytes(prove(trace, config, device=dev))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    on_cpu = flagship.proof_bytes(prove(trace, config, device="cpu"))
+    require(on_card == on_cpu, "demo proof on CUDA differs from the CPU run")
+    print(f"demo circuit: proof on CUDA ({card_s:.2f} s) equals the CPU run "
+          f"({time.perf_counter() - t:.2f} s), {len(on_card)} bytes")
+
+
+def prove_level(torch, dev, level: int) -> dict:
+    """Phases 7 and 8: prove chain level `level` on CUDA and hold its bytes
+    against the committed artifact.  Returns K1's launches while proving."""
+    from recursive_stwo_tpu_torch.models import flagship
+    from recursive_stwo_tpu_torch.ops import poseidon_cuda
+    from recursive_stwo_tpu_torch.prover.prove import prove
+
+    t = time.perf_counter()
+    trace, config, path = flagship.chain_level_trace(level)
+    expected = flagship.artifact_bytes(path)
+    require(hashlib.sha256(expected).hexdigest() == LEVEL_SHA256[level],
+            f"level {level}: {path} does not hash to {LEVEL_SHA256[level]}")
+    print(f"level {level}: circuit built on the host in {time.perf_counter() - t:.2f} s; {config}")
+
+    stages = []
+    clock = [0.0]
+
+    def progress(msg: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages.append((msg, now - clock[0]))
+        clock[0] = now
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    poseidon_cuda.reset_launches()
+    start = clock[0] = time.perf_counter()
+    proof = prove(trace, config, progress=progress, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = dict(poseidon_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    got = flagship.proof_bytes(proof)
+    require(got == expected, f"level {level}: proof bytes differ from {path}")
+    require(launches["permute_rows"] > 0, f"level {level}: K1 never launched while proving")
+    print(f"level {level}: proof equals {os.path.basename(path)} byte for byte "
+          f"({len(got)} bytes, sha256 {hashlib.sha256(got).hexdigest()})")
+    print(f"level {level}: proving wall {wall:.3f} s; peak device memory {peak / 2**30:.3f} GiB "
+          f"({peak} bytes); kernel launches {launches}")
+    for msg, secs in stages:
+        print(f"level {level}:   {secs:8.3f} s  {msg}")
+    return launches
+
+
+def check_grind(torch, dev) -> None:
+    """Phase 9: grind_device on CUDA against the host native scan."""
+    from recursive_stwo_tpu_torch.ops import poseidon_cuda
+    from recursive_stwo_tpu_torch.prover import channel
+
+    digest = np.random.default_rng(SEED).integers(0, P, 8).astype(np.uint32)
+    before = poseidon_cuda.LAUNCHES["permute_rows"]
+    t = time.perf_counter()
+    nonce = channel.grind_device(digest, GRIND_BITS, device=dev)
+    card_s = time.perf_counter() - t
+    blocks = poseidon_cuda.LAUNCHES["permute_rows"] - before
+    t = time.perf_counter()
+    host = channel.grind_host(digest, GRIND_BITS)
+    host_s = time.perf_counter() - t
+    require(nonce == host, f"grind_device found {nonce}, the host scan {host}")
+    print(f"grind at {GRIND_BITS} bits: nonce {nonce} on CUDA in {card_s:.3f} s ({blocks} blocks of 2**22), "
+          f"host native scan {host_s:.3f} s")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a GPU", file=sys.stderr)
         return 1
+    start = time.perf_counter()
     dev = torch.device("cuda")
     smi = card_line()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -236,6 +352,10 @@ def main() -> int:
         rate = proofs_per_s(torch, dev, name)
         print(f"{name}: {rate:.1f} proofs/s at B={BATCH} on {smi}")
 
+    check_demo_proof(torch, dev)
+    prover_launches = {level: prove_level(torch, dev, level) for level in (1, 2)}
+    check_grind(torch, dev)
+
     require("jax" not in sys.modules, "jax was imported")
     replaces = {
         "permute_rows": "recursive_stwo_tpu/ops/poseidon_pallas.py:46",
@@ -243,9 +363,11 @@ def main() -> int:
     }
     report = [
         dict(name=k, route="cuda", source="recursive_stwo_tpu_torch/csrc/poseidon2.cu",
-             replaces=replaces[k], launches=launches[FIXTURES[0]][k], **kernels[k])
+             replaces=replaces[k], launches=launches[FIXTURES[0]][k],
+             prover_launches=prover_launches[1][k], **kernels[k])
         for k in replaces
     ]
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

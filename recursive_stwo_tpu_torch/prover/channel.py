@@ -1,0 +1,72 @@
+"""Poseidon31 Fiat-Shamir channel of the prover, with the PoW grind on K1.
+
+`PoseidonChannel` is the JAX package's host channel (prover/channel.py:73-149)
+with `grind_pow` routed as the JAX package routes it (:115-131): at
+GRIND_DEVICE_BITS bits or more on a CUDA device, `grind_device`; otherwise
+the host native scan.
+
+`grind_device` is the twin of `_grind_batch_jit` / `grind_device` (:20-70).
+A nonce n is absorbed as the limbs (n mod 2**22, n >> 22 mod 2**21,
+n >> 43 mod 2**21).  Blocks of 2**block_log nonces (block_log <= 22) start
+at multiples of their size, so inside a block only limb 0 moves, by the
+block's iota: each block's states are built on the device from the iota and
+two scalar limbs, permuted by K1, and the first hit in the block is the
+smallest nonce overall.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from recursive_stwo_tpu.prover.channel import PoseidonChannel as HostPoseidonChannel
+from recursive_stwo_tpu.utils import native
+
+from ..core import poseidon2
+
+GRIND_DEVICE_BITS = 22
+_LIMB0 = 22
+_LIMB = 21
+
+
+def grind_device(digest, pow_bits: int, block_log: int = 22, device="cuda") -> int:
+    """Smallest nonce whose absorption leaves digest word 0 with `pow_bits`
+    low zero bits.  `block_log` is the nonces per permutation batch (small
+    in the CPU tests)."""
+    if not 0 <= block_log <= _LIMB0:
+        raise ValueError(f"block_log {block_log} outside [0, {_LIMB0}]")
+    device = torch.device(device)
+    n = 1 << block_log
+    mask = (1 << pow_bits) - 1
+    iota = torch.arange(n, dtype=torch.int64, device=device)
+    tail = torch.as_tensor(np.asarray(digest, np.int64), device=device)
+    base = 0
+    while True:
+        states = torch.zeros((n, 16), dtype=torch.int64, device=device)
+        states[:, 0] = iota + (base & ((1 << _LIMB0) - 1))
+        states[:, 1] = (base >> _LIMB0) & ((1 << _LIMB) - 1)
+        states[:, 2] = (base >> (_LIMB0 + _LIMB)) & ((1 << _LIMB) - 1)
+        states[:, 8:] = tail
+        hits = torch.nonzero((poseidon2.permute(states)[:, 8] & mask) == 0)
+        if hits.numel():
+            return base + int(hits[0, 0])
+        base += n
+
+
+def grind_host(digest, pow_bits: int) -> int:
+    """The host native scan (recursive_stwo_tpu/utils/native.py `grind`),
+    as the JAX package's channel calls it below the device threshold."""
+    if not native.available():
+        raise RuntimeError("the host PoW scan needs the native library (recursive_stwo_tpu/utils/native.py)")
+    return native.grind(np.asarray(digest, np.uint32), pow_bits)
+
+
+class PoseidonChannel(HostPoseidonChannel):
+    def __init__(self, device):
+        super().__init__()
+        self.device = torch.device(device)
+
+    def grind_pow(self, pow_bits: int) -> int:
+        if pow_bits >= GRIND_DEVICE_BITS and self.device.type == "cuda":
+            return grind_device(self.digest, pow_bits, device=self.device)
+        return grind_host(self.digest, pow_bits)

@@ -1,0 +1,102 @@
+"""Merkle commitment over mixed-size columns, on the device.
+
+Twin of device_prove.py:49-146 (`_absorb_columns`, `_commit_levels`,
+`_merge_t`, `DeviceTree`).  Every permutation is on (n, 16) rows, 8 column
+words beside 8 digest words or two child digests side by side: kernel K1's
+own layout (`core/poseidon2.permute`, which takes the plain version on the
+CPU).  Hash semantics are commit._hash_leaf_level / _hash_node_level's.
+Each level is hashed in blocks of ROWS rows.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from recursive_stwo_tpu.prover.commit import CommittedTree
+
+from ..core import poseidon2
+from .arrays import to_numpy
+
+# rows hashed per K1 call: bounds a level's temporaries to a few hundred MB
+# (a 2**26-leaf level hashed at once needs three (2**26, 16) int64 tensors,
+# 24 GiB)
+ROWS = 1 << 22
+
+
+def absorb_columns(cols: torch.Tensor) -> torch.Tensor:
+    """(n_cols, n) M31 columns -> (n, 8) running digests, 8 columns a step."""
+    n_cols, n = cols.shape
+    digest = torch.zeros((n, 8), dtype=torch.int64, device=cols.device)
+    for ci in range(0, n_cols, 8):
+        chunk = cols[ci : ci + 8].T
+        chunk = torch.nn.functional.pad(chunk, (0, 8 - chunk.shape[1]))
+        digest = poseidon2.permute(torch.cat([chunk, digest], dim=1))[:, 8:]
+    return digest
+
+
+def _level(children, cols, n: int) -> torch.Tensor:
+    """One tree level of n nodes: the leaf level (children None) absorbs its
+    columns and hashes [0; digest]; a node level hashes its child pairs,
+    then [h; digest] if columns of this size are merged in.  Rows are hashed
+    ROWS at a time, so the (rows, 16) temporaries stay small."""
+    ref = cols if children is None else children
+    out = torch.empty((n, 8), dtype=torch.int64, device=ref.device)
+    for s in range(0, n, ROWS):
+        e = min(n, s + ROWS)
+        if children is None:
+            digest = absorb_columns(cols[:, s:e])
+            h = poseidon2.permute(torch.cat([torch.zeros_like(digest), digest], dim=1))[:, :8]
+        else:
+            h = poseidon2.permute(children[2 * s : 2 * e].reshape(e - s, 16))[:, :8]
+            if cols is not None and cols.shape[0]:
+                h = poseidon2.permute(torch.cat([h, absorb_columns(cols[:, s:e])], dim=1))[:, :8]
+        out[s:e] = h
+    return out
+
+
+def commit_levels(cols_by_log: Dict[int, torch.Tensor]) -> List[torch.Tensor]:
+    """Every tree level as an (2**L, 8) tensor, leaf level first."""
+    max_log = max(cols_by_log)
+    levels = [_level(None, cols_by_log[max_log], 1 << max_log)]
+    for L in range(max_log - 1, -1, -1):
+        levels.append(_level(levels[-1], cols_by_log.get(L), 1 << L))
+    return levels
+
+
+def merge_by_log(pairs) -> Dict[int, torch.Tensor]:
+    """Concatenate same-log column groups in call order (`_merge_t`)."""
+    out: Dict[int, list] = {}
+    for log, cols in pairs:
+        out.setdefault(log, []).append(cols)
+    return {log: parts[0] if len(parts) == 1 else torch.cat(parts) for log, parts in out.items()}
+
+
+class DeviceTree(CommittedTree):
+    """CommittedTree whose columns and levels stay on the device; the
+    decommit plans are the base class's, and only the rows they name are
+    copied to the host."""
+
+    def __init__(self, columns_by_log: Dict[int, torch.Tensor], levels=None):
+        self.columns_by_log = {int(L): c for L, c in columns_by_log.items()}
+        self.max_log = max(self.columns_by_log)
+        self.levels = commit_levels(self.columns_by_log) if levels is None else levels
+        if self.levels[-1].shape[0] != 1:
+            raise ValueError("the last level must hold the root alone")
+
+    @property
+    def root(self) -> np.ndarray:
+        return to_numpy(self.levels[-1][0])
+
+    def _index(self, indices, like: torch.Tensor) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(indices, np.int64), device=like.device)
+
+    def level_rows(self, level_idx: int, indices) -> np.ndarray:
+        level = self.levels[level_idx]
+        return to_numpy(level[self._index(indices, level)])
+
+    def column_rows(self, log_size: int, indices) -> np.ndarray:
+        cols = self.columns_by_log[log_size]
+        return to_numpy(cols[:, self._index(indices, cols)])

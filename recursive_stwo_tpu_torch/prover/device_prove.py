@@ -1,0 +1,170 @@
+"""The device-resident PlonkWithPoseidon prover.
+
+Twin of recursive_stwo_tpu/prover/device_prove.py::prove_device (:630-861):
+the same stages in the same order with the same channel mixing, so the
+proof is byte-identical to the JAX package's.  One code path at every size:
+the JAX package's fused-stage programs and its per-table split for large
+domains (`RSTPU_DEVICE_BIG_LOG`, :668-675) exist to fit a TPU's HBM or XLA's
+fusion and have no counterpart here.  Every Poseidon2 permutation (Merkle
+commits, the PoW grind at 22 bits or more) runs on kernel K1 on CUDA.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from recursive_stwo_tpu.core import circle as ccircle
+from recursive_stwo_tpu.proof.containers import PcsConfig, PlonkWithPoseidonProof
+from recursive_stwo_tpu.prover import air
+from recursive_stwo_tpu.prover.prove import _add_const, _assemble_samples, _factors_at_point, _oods_point
+from recursive_stwo_tpu.verifier.spec import PLONK_LOG_EXPAND, POSEIDON_LOG_EXPAND, VerifierSpec
+
+from ..verifier import composition as vcomp
+from . import circle_fft
+from .arrays import to_device, trace_to_torch
+from .channel import PoseidonChannel
+from .commit import DeviceTree, merge_by_log
+from .composition import composition_stage, qm31_scalar
+from .fri import _mix_felts, fri_tail
+from .interaction import interaction_columns
+from .quotients import quotients_stage
+from .sample import sample
+
+
+def _domain_order(rows: torch.Tensor, log_size: int) -> torch.Tensor:
+    """Row-order columns -> bit-reversed circle-domain order."""
+    return rows[..., to_device(air.coset_to_domain_perm(log_size), rows.device)]
+
+
+def prove_device(trace: dict, config: PcsConfig, progress=None, device="cuda") -> PlonkWithPoseidonProof:
+    device = torch.device(device)
+    plog = progress or logging.getLogger(__name__).debug
+    blowup = config.fri_config.log_blowup_factor
+
+    # ---- AIR columns (host, row order), uploaded once ----
+    ta = trace_to_torch(trace, device)
+    lp, lq = ta.log_plonk, ta.log_poseidon
+    bound = max(lp + PLONK_LOG_EXPAND, lq + POSEIDON_LOG_EXPAND)
+    spec = VerifierSpec(
+        log_size_plonk=lp,
+        log_size_poseidon=lq,
+        pow_bits=config.pow_bits,
+        log_last_layer_degree_bound=config.fri_config.log_last_layer_degree_bound,
+        log_blowup_factor=blowup,
+        n_queries=config.fri_config.n_queries,
+        n_inner_layers=bound - 2 - config.fri_config.log_last_layer_degree_bound,
+    )
+    if spec.n_inner_layers != spec.expected_n_inner_layers:
+        raise ValueError("the FRI config does not fit the trace's log sizes")
+    channel = PoseidonChannel(device)
+    plog(f"trace uploaded (log sizes {lp}/{lq}, composition bound {bound})")
+
+    # ---- trees 0 + 1 (no channel draw between them) ----
+    coeffs, ldes = {}, {}
+    for key, rows, log in (
+        ("p_pre", ta.plonk_pre, lp),
+        ("p_tr", ta.plonk_tr, lp),
+        ("q_pre", ta.pos_pre, lq),
+        ("q_tr", ta.pos_tr, lq),
+    ):
+        coeffs[key] = circle_fft.interpolate(_domain_order(rows, log))
+        ldes[key] = circle_fft.lde(coeffs[key], log + blowup)
+    tree0 = DeviceTree(merge_by_log([(lp + blowup, ldes["p_pre"]), (lq + blowup, ldes["q_pre"])]))
+    tree1 = DeviceTree(merge_by_log([(lp + blowup, ldes["p_tr"]), (lq + blowup, ldes["q_tr"])]))
+    del ldes  # the trees hold the LDEs (merged into one block per log when lp == lq)
+    channel.mix_root(tree0.root)
+    plog("tree0 (preprocessed) committed")
+    channel.mix_one_felt([lp, 0, 0, 0])
+    channel.mix_one_felt([lq, 0, 0, 0])
+    channel.mix_root(tree1.root)
+    plog("tree1 (trace) committed")
+
+    z4, alpha4 = channel.draw_felts()
+    lookup = (qm31_scalar(z4), qm31_scalar(alpha4))
+
+    # ---- interaction columns + tree 2 ----
+    int_p, plonk_total = interaction_columns(ta.plonk_pre, ta.plonk_tr, lookup, vcomp.evaluate_plonk)
+    int_q, pos_total = interaction_columns(ta.pos_pre, ta.pos_tr, lookup, vcomp.evaluate_poseidon)
+    c_int_p = circle_fft.interpolate(_domain_order(int_p, lp))
+    c_int_q = circle_fft.interpolate(_domain_order(int_q, lq))
+    del ta, int_p, int_q
+    plog("interaction columns generated")
+    channel.mix_two_felts(plonk_total, pos_total)
+    tree2 = DeviceTree(
+        merge_by_log(
+            [(lp + blowup, circle_fft.lde(c_int_p, lp + blowup)), (lq + blowup, circle_fft.lde(c_int_q, lq + blowup))]
+        )
+    )
+    channel.mix_root(tree2.root)
+    plog("tree2 (interaction) committed")
+
+    random_coeff4 = channel.draw_felt()
+
+    # ---- composition polynomial + tree 3 ----
+    split_coeffs, comp_lde, t3_levels = composition_stage(
+        spec,
+        (
+            ((coeffs["p_pre"], coeffs["p_tr"], c_int_p), qm31_scalar(plonk_total), lp, vcomp.evaluate_plonk),
+            ((coeffs["q_pre"], coeffs["q_tr"], c_int_q), qm31_scalar(pos_total), lq, vcomp.evaluate_poseidon),
+        ),
+        lookup,
+        qm31_scalar(random_coeff4),
+    )
+    plog("composition evals computed")
+    tree3 = DeviceTree({bound - 1 + blowup: comp_lde}, levels=t3_levels)
+    del comp_lde
+    channel.mix_root(tree3.root)
+    plog("tree3 (composition) committed")
+
+    oods = _oods_point(channel.draw_felt())
+
+    # ---- OODS samples (device sums, host factors) ----
+    col_coeffs = {
+        (0, "p"): coeffs["p_pre"],
+        (0, "q"): coeffs["q_pre"],
+        (1, "p"): coeffs["p_tr"],
+        (1, "q"): coeffs["q_tr"],
+        (2, "p"): c_int_p,
+        (2, "q"): c_int_q,
+        (3, "c"): split_coeffs,
+    }
+    shifted = {log: _add_const(oods, ccircle.point_neg(ccircle.CanonicCoset(log).step())) for log in (lp, lq)}
+    samples_at = {}
+    for key, cfs in col_coeffs.items():
+        t, tag = key
+        deg_log = cfs.shape[1].bit_length() - 1
+        samples_at[(key, 0)] = sample(cfs, _factors_at_point(deg_log, oods))
+        if t == 2:
+            point = shifted[lp if tag == "p" else lq]
+            samples_at[(key, -1)] = sample(cfs, _factors_at_point(deg_log, point))
+    del coeffs, col_coeffs, c_int_p, c_int_q, split_coeffs
+    sampled_values = _assemble_samples(spec, lp, lq, bound, samples_at)
+    plog("OODS samples computed")
+    _mix_felts(channel, [s for tree in sampled_values for col in tree for s in col])
+
+    after_coeff4 = channel.draw_felt()
+
+    # ---- FRI first layer: quotients on the commitment domains ----
+    # group column order is spec.group_columns': tree-major within each log,
+    # plonk before poseidon inside a merged block
+    trees = [tree0, tree1, tree2, tree3]
+    blocks_by_log = {}
+    for tree in trees:
+        for log, block in tree.columns_by_log.items():
+            blocks_by_log.setdefault(log, []).append(block)
+    samples_flat = np.concatenate([col for tree in sampled_values for col in tree]).astype(np.uint32)
+    first_cols, first_levels = quotients_stage(spec, blocks_by_log, samples_flat, oods, after_coeff4)
+    del blocks_by_log
+
+    stark_proof = fri_tail(spec, config, channel, trees, first_cols, first_levels, sampled_values, plog)
+    return PlonkWithPoseidonProof(
+        log_size_plonk=lp,
+        log_size_poseidon=lq,
+        plonk_total_sum=np.array(plonk_total, np.uint32),
+        poseidon_total_sum=np.array(pos_total, np.uint32),
+        config=config,
+        stark_proof=stark_proof,
+    )

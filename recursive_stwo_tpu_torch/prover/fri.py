@@ -1,0 +1,179 @@
+"""FRI commit phase with device-resident layers, and the proof's tail.
+
+Twins of device_prove.py:572-623 (`_fold_line_jit`, `_join_commit_jit`) and
+of `_fri_tail_device` (:864-980).  The folds and commits run on the device;
+the last-layer interpolation, the query draws, the decommit plans and the
+witness plans are the JAX package's host code.  A witness plan names the
+positions it gathers; here the plan runs on the identity evaluation
+(`_plan_positions`) and only those rows are gathered on the device.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from recursive_stwo_tpu.core.qm31 import QM31
+from recursive_stwo_tpu.cs import scalar
+from recursive_stwo_tpu.proof.containers import FriLayerProof, FriProof, StarkProof
+from recursive_stwo_tpu.prover import fri as host_fri
+
+from ..core import qm31 as q
+from .arrays import to_device, to_numpy
+from .commit import DeviceTree
+from .composition import qm31_scalar
+
+
+def _fold(l: QM31, r: QM31, inv: torch.Tensor, alpha: QM31) -> QM31:
+    """(l + r) + alpha * (l - r) * inv."""
+    return q.q_add(q.q_add(l, r), q.q_mul(q.q_mul_m31(q.q_sub(l, r), inv), alpha))
+
+
+def _halves(g: torch.Tensor):
+    return QM31(*g[:, 0::2]), QM31(*g[:, 1::2])
+
+
+def fold_line(g: torch.Tensor, alpha: QM31, log_size: int) -> torch.Tensor:
+    """(4, 2**n) line evaluations on half_odds(n) -> (4, 2**(n-1))."""
+    xinv = to_device(host_fri.line_fold_xinv(log_size), g.device)
+    return torch.stack(list(_fold(*_halves(g), xinv, alpha)))
+
+
+def fold_circle(g: torch.Tensor, alpha: QM31, log_size: int) -> torch.Tensor:
+    """(4, 2**n) circle-domain evaluations -> (4, 2**(n-1)) line evaluations."""
+    yinv = to_device(host_fri.circle_fold_yinv(log_size), g.device)
+    return torch.stack(list(_fold(*_halves(g), yinv, alpha)))
+
+
+def _plan_positions(witness_fn, n: int, *args) -> np.ndarray:
+    """The evaluation positions a host witness function reads, in its order."""
+    idx = np.arange(n, dtype=np.uint32)
+    return witness_fn(QM31(idx, idx, idx, idx), *args)[:, 0].astype(np.int64)
+
+
+def _gather(g: torch.Tensor, positions: np.ndarray) -> np.ndarray:
+    """(k, 4) host rows of (4, N) device limbs."""
+    idx = torch.as_tensor(positions, device=g.device)
+    return to_numpy(g[:, idx].T).reshape(-1, 4)
+
+
+def first_layer_witness(first_cols: Dict[int, torch.Tensor], raw_queries: List[int], max_log: int) -> np.ndarray:
+    rows = [
+        _gather(
+            first_cols[L],
+            _plan_positions(lambda ev: host_fri.first_layer_witness({L: ev}, raw_queries, max_log), 1 << L),
+        )
+        for L in sorted(first_cols, reverse=True)
+    ]
+    return np.concatenate(rows).reshape(-1, 4)
+
+
+def inner_layer_witness(g: torch.Tensor, queries: List[int]) -> np.ndarray:
+    return _gather(g, _plan_positions(host_fri.inner_layer_witness, g.shape[1], queries))
+
+
+def _mix_felts(channel, felts) -> None:
+    for k in range(0, len(felts), 2):
+        chunk = felts[k : k + 2]
+        if len(chunk) == 1:
+            channel.mix_one_felt(chunk[0])
+        else:
+            channel.mix_two_felts(chunk[0], chunk[1])
+
+
+def fri_tail(spec, config, channel, trees, first_cols: Dict[int, torch.Tensor], first_levels, sampled_values, plog) -> StarkProof:
+    """FRI phase over device-resident layers (mirrors prove._fri_tail);
+    first_cols: L -> (4, 2**L) first-layer quotient limbs."""
+    plog("FRI first-layer quotients computed")
+    first_tree = DeviceTree(first_cols, levels=first_levels)
+    channel.mix_root(first_tree.root)
+    alphas = [qm31_scalar(channel.draw_felt())]
+    M = spec.max_first_layer_log
+
+    inner_trees: List[DeviceTree] = []
+    inner_evals: List[torch.Tensor] = []
+    g = None
+    level = M - 1
+    for i in range(spec.n_inner_layers):
+        L = M - i
+        if L in first_cols:
+            # the group joining here folds with alphas[M - L] = alphas[i]
+            fold_in = fold_circle(first_cols[L], alphas[i], L)
+            if g is None:
+                g = fold_in
+            else:
+                a2 = qm31_scalar(scalar.q_mul(alphas[i], alphas[i]))
+                g = torch.stack(list(q.q_add(q.q_mul(QM31(*g), a2), QM31(*fold_in))))
+        tree_i = DeviceTree({level: g})
+        inner_trees.append(tree_i)
+        inner_evals.append(g)
+        channel.mix_root(tree_i.root)
+        alphas.append(qm31_scalar(channel.draw_felt()))
+        g = fold_line(g, alphas[i + 1], level)
+        level -= 1
+
+    # ---- last layer (host: the folded evaluations are small by now) ----
+    last_bound = config.fri_config.log_last_layer_degree_bound
+    n_last = 1 << last_bound
+    g_host = to_numpy(g)
+    last_full = host_fri.line_interpolate(QM31(*g_host), level)
+    keep = np.arange(n_last) << (level - last_bound)
+    mask = np.zeros(1 << level, bool)
+    mask[keep] = True
+    if last_full[~mask].any():
+        raise ValueError("folded evaluations exceed the last-layer degree bound")
+    last_poly = last_full[keep]
+    _mix_felts(channel, last_poly)
+
+    # ---- PoW + queries ----
+    plog("FRI layers committed; grinding PoW")
+    nonce = channel.grind_pow(config.pow_bits)
+    plog("PoW ground")
+    channel.mix_u64(nonce)
+    raw_queries: List[int] = []
+    for _ in range(-(-config.fri_config.n_queries // 8)):
+        a, b = channel.draw_felts()
+        raw_queries.extend(int(x) for x in a)
+        raw_queries.extend(int(x) for x in b)
+    raw_queries = [v & ((1 << M) - 1) for v in raw_queries[: config.fri_config.n_queries]]
+
+    # ---- decommitments (host plans, device gathers) ----
+    queried_values, decommitments = [], []
+    for tree in trees:
+        vals, dec = tree.decommit([v >> (M - tree.max_log) for v in raw_queries])
+        queried_values.append(vals)
+        decommitments.append(dec)
+
+    first_layer = FriLayerProof(
+        fri_witness=first_layer_witness(first_cols, raw_queries, M),
+        decommitment=host_fri.decommit_pair(first_tree, raw_queries),
+        commitment=first_tree.root,
+    )
+    inner_layers = []
+    cur_queries = [v >> 1 for v in raw_queries]
+    for tree_i, g_i in zip(inner_trees, inner_evals):
+        inner_layers.append(
+            FriLayerProof(
+                fri_witness=inner_layer_witness(g_i, cur_queries),
+                decommitment=host_fri.decommit_pair(tree_i, cur_queries),
+                commitment=tree_i.root,
+            )
+        )
+        cur_queries = [v >> 1 for v in cur_queries]
+    plog("decommitments gathered")
+
+    return StarkProof(
+        commitments=np.stack([t.root for t in trees]),
+        sampled_values=sampled_values,
+        decommitments=decommitments,
+        queried_values=queried_values,
+        proof_of_work=nonce,
+        fri_proof=FriProof(
+            first_layer=first_layer,
+            inner_layers=inner_layers,
+            last_layer_poly=last_poly,
+            last_layer_log_size=last_bound,
+        ),
+    )

@@ -1,0 +1,169 @@
+"""Time and peak device memory of the port's prover, per stage, on CUDA.
+
+    python -m recursive_stwo_tpu_torch.tools.prover_memory LOG_PLONK LOG_POSEIDON PRESET
+    python -m recursive_stwo_tpu_torch.tools.prover_memory --level {1,2}
+        [--repeat K] [--profile]
+
+The first form builds a circuit of chained Poseidon2 permutations and QM31
+products whose plonk and poseidon tables pad to 2**LOG_PLONK and
+2**LOG_POSEIDON rows (the chain's log sizes are in docs/chain_log.jsonl),
+proves it with the preset's PcsConfig (models/flagship.PRESETS) and checks
+the proof with the port's verifier.  The second proves recursion-chain level
+1 or 2 (models/flagship.chain_level_trace) and holds the m31x8 bytes against
+the committed artifact.
+
+Each of the K proofs prints one JSON line: its wall time, and the time and
+peak of `torch.cuda.max_memory_allocated()` in each prover stage.  The first
+proof in the process is cold (host tables built per log size); the later
+ones are warm.  `--profile` adds one more proof under `torch.profiler` and
+prints its device time: all kernels, K1 (`permute_rows`), the `% p`
+(`remainder`) kernels, copies, and the launch counts.  It needs a GPU; an
+out-of-memory error ends it with that error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from recursive_stwo_tpu.cs.system import PlonkWithPoseidonCS
+from recursive_stwo_tpu.gadgets.fields import QM31Var
+from recursive_stwo_tpu.gadgets.poseidon import Poseidon2Half
+from recursive_stwo_tpu.prover.air import ROWS_PER_INV
+from recursive_stwo_tpu.verifier import hints
+from recursive_stwo_tpu.verifier.spec import VerifierSpec
+
+from ..models import flagship
+from ..prover.prove import prove
+from ..verifier import verify
+from ..verifier.arrays import to_torch
+
+
+def shaped_trace(log_plonk: int, log_poseidon: int) -> dict:
+    """A valid trace whose tables pad to the given log sizes: each Poseidon2
+    permutation takes 6 poseidon rows and 1 plonk row, each QM31 product 1
+    plonk row."""
+    n_perms = (1 << (log_poseidon - 1)) // ROWS_PER_INV + 1
+    if log_plonk <= (n_perms + 64).bit_length():
+        raise ValueError(f"log_plonk {log_plonk} is too small for {n_perms} permutations")
+    cs = PlonkWithPoseidonCS()
+    left = Poseidon2Half.new_witness(cs, list(range(8)))
+    right = Poseidon2Half.new_witness(cs, list(range(8, 16)))
+    for _ in range(n_perms):
+        left = Poseidon2Half.permute_get_rate(left, right)
+    x = QM31Var.new_witness(cs, (1, 2, 3, 4))
+    while len(cs.a_wire) <= 1 << (log_plonk - 1):
+        x = x * x
+    cs.pad()
+    cs.check_arithmetics()
+    cs.populate_logup_arguments()
+    cs.check_poseidon_invocations()
+    return cs.generate_trace()
+
+
+def _stage_clock(stages: list):
+    clock = [time.perf_counter()]
+
+    def progress(msg: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages.append(dict(stage=msg, s=round(now - clock[0], 4), peak_bytes=torch.cuda.max_memory_allocated(),
+                           held_bytes=torch.cuda.memory_allocated()))
+        torch.cuda.reset_peak_memory_stats()
+        clock[0] = now
+
+    return progress
+
+
+def _device_time(prof) -> dict:
+    """Device time of one profiled proof, from the CUDA-side events only (a
+    CPU op's own device total would count its kernels a second time)."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def ms(es) -> float:
+        return round(sum(e.self_device_time_total for e in es) / 1e3, 3)
+
+    copies = [e for e in events if e.key.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in events if e not in copies]
+    k1 = [e for e in kernels if "permute_rows" in e.key]
+    rem = [e for e in kernels if "remainder" in e.key.lower()]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(
+        kernel_ms=ms(kernels), kernel_launches=sum(e.count for e in kernels),
+        k1_ms=ms(k1), k1_launches=sum(e.count for e in k1),
+        remainder_ms=ms(rem), remainder_launches=sum(e.count for e in rem),
+        copy_ms=ms(copies), copies=sum(e.count for e in copies),
+        top=[dict(kernel=e.key[:100], ms=ms([e]), launches=e.count) for e in top],
+    )
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("shape", nargs="*", metavar="LOG_PLONK LOG_POSEIDON PRESET")
+    ap.add_argument("--level", type=int, choices=sorted(flagship.CHAIN_LEVELS))
+    ap.add_argument("--repeat", type=int, default=1, help="proofs in this process (the first is cold)")
+    ap.add_argument("--profile", action="store_true", help="one more proof under torch.profiler")
+    args = ap.parse_args()
+    if (args.level is None) == (len(args.shape) == 0) or len(args.shape) not in (0, 3):
+        ap.error("give LOG_PLONK LOG_POSEIDON PRESET, or --level")
+    if args.shape and args.shape[2] not in flagship.PRESETS:
+        ap.error(f"PRESET is one of {sorted(flagship.PRESETS)}")
+    if not torch.cuda.is_available():
+        raise SystemExit("prover_memory needs a CUDA device")
+
+    if args.level is None:
+        config = flagship.PRESETS[args.shape[2]]
+        trace = shaped_trace(int(args.shape[0]), int(args.shape[1]))
+        expected, label = None, dict(preset=args.shape[2])
+    else:
+        trace, config, path = flagship.chain_level_trace(args.level)
+        expected, label = flagship.artifact_bytes(path), dict(level=args.level)
+
+    def check(proof) -> None:
+        if expected is not None:
+            if flagship.proof_bytes(proof) != expected:
+                raise SystemExit(f"level {args.level}: the proof bytes differ from {path}")
+            return
+        spec = VerifierSpec.from_proof(proof)
+        checks = verify.verify_batch(spec, to_torch(hints.prepare(spec, [proof]), "cuda"), flagship.CHAIN_INPUTS)
+        if not bool(checks["ok"].all()):
+            raise SystemExit(f"the proof was rejected: {[k for k, v in checks.items() if not bool(v.all())]}")
+
+    device = dict(name=torch.cuda.get_device_name(0))
+    for run in range(args.repeat):
+        stages = []
+        progress = _stage_clock(stages)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        proof = prove(trace, config, progress=progress, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        check(proof)
+        spec = VerifierSpec.from_proof(proof)
+        print(json.dumps(dict(
+            **label, run=run, cold=run == 0, log_plonk=proof.log_size_plonk, log_poseidon=proof.log_size_poseidon,
+            max_domain_log=max(spec.all_log_sizes), correct=True, wall_s=round(wall, 4),
+            peak_bytes=max(s["peak_bytes"] for s in stages), device=device, stages=stages,
+        )), flush=True)
+
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            proof = prove(trace, config, device="cuda")
+            torch.cuda.synchronize()
+            traced = time.perf_counter() - start
+        check(proof)
+        print(json.dumps(dict(**label, profiled=True, traced_wall_s=round(traced, 4), device=device,
+                              **_device_time(prof))), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -4,8 +4,8 @@ point, batched over proofs.
 Twin of the PlonkWithPoseidon half of recursive_stwo_tpu/verifier/
 composition.py: the same constraints in the same emission order, the 16-word
 poseidon state as stacked (B, 16) QM31 tensors, and Horner accumulation over
-all emitted constraints.  The reference's `lax.scan`s (14 partial rounds,
-Horner) are Python loops here.
+all emitted constraints as they are emitted (`HornerSink`).  The reference's
+`lax.scan`s (14 partial rounds, Horner) are Python loops here.
 """
 
 from __future__ import annotations
@@ -29,9 +29,29 @@ from . import points as points_mod
 from .quotients import q_modsum
 
 
+class HornerSink:
+    """Constraint sink: `append` folds each column of a (B, n) QM31 block
+    into acc = ((c0*rc + c1)*rc + c2)..., lane by lane in emission order, so
+    no list of constraints is held."""
+
+    def __init__(self, rc: QM31, n: int):
+        self.rc = rc
+        self.n = n
+        self.acc = None
+
+    def append(self, block: QM31) -> None:
+        shapes = {tuple(x.shape) for x in block}
+        if len(shapes) != 1 or len(block.a.shape) != 2 or block.a.shape[0] != self.n:
+            raise ValueError(f"constraint block of shapes {shapes}, expected ({self.n}, k)")
+        for t in range(block.a.shape[-1]):
+            c = _lane(block, t)
+            # the first step is 0 * rc + c = c
+            self.acc = c if self.acc is None else q.q_add(q.q_mul(self.acc, self.rc), c)
+
+
 class _Eval:
-    """EvalAtRowVar equivalent; constraints are collected (already scaled by
-    this component's 1/vanishing) and Horner-accumulated at the end."""
+    """EvalAtRowVar equivalent; constraints go (already scaled by this
+    component's 1/vanishing) to a `HornerSink`."""
 
     def __init__(
         self,
@@ -41,7 +61,7 @@ class _Eval:
         total_sum: QM31,
         denom_inverse: QM31,
         log_size: int,
-        constraints: List[QM31],
+        constraints: HornerSink,
     ):
         self.spec = spec
         self.samples = samples_flat
@@ -321,15 +341,6 @@ def evaluate_poseidon(ev: _Eval, lookup):
 # top level
 # ---------------------------------------------------------------------------
 
-def _horner(constraints: List[QM31], rc: QM31) -> QM31:
-    """acc = ((c0*rc + c1)*rc + c2)... over stacked (B, n_i) blocks."""
-    all_c = QM31(*(torch.cat([blk[i] for blk in constraints], dim=-1) for i in range(4)))
-    acc = q.q_zero(all_c.a[..., 0])
-    for t in range(all_c.a.shape[-1]):
-        acc = q.q_add(q.q_mul(acc, rc), _lane(all_c, t))
-    return acc
-
-
 def composition_check(
     spec: VerifierSpec,
     samples_flat: torch.Tensor,
@@ -341,7 +352,7 @@ def composition_check(
 ) -> torch.Tensor:
     """(B,) bool: evaluated composition equals the committed split values."""
     oods_x, _ = oods
-    constraints: List[QM31] = []
+    constraints = HornerSink(random_coeff, samples_flat.shape[0])
 
     denom_inv_plonk = q.q_inv(
         points_mod.coset_vanishing_canonic(oods_x, spec.log_size_plonk)
@@ -362,7 +373,7 @@ def composition_check(
     )
     evaluate_poseidon(ev, lookup)
 
-    computed = _horner(constraints, random_coeff)
+    computed = constraints.acc
 
     def comp_sample(col):
         s = samples_flat[:, spec.sample_offsets[3][col]]

@@ -71,3 +71,26 @@ def test_verify_batch_on_cuda_matches_host_reference(cuda):
     for k in ref:
         assert np.array_equal(np.asarray(ref[k]), got[k].cpu().numpy()), k
     assert sorted(k for k, v in got.items() if not v[2]) == ["ok", "tree1"]
+
+
+def test_prove_on_cuda_matches_host(cuda, monkeypatch):
+    from recursive_stwo_tpu.prover.prove import prove as r_prove
+    from recursive_stwo_tpu_torch.prover.prove import prove as t_prove
+
+    trace = flagship.demo_trace()
+    poseidon_cuda.reset_launches()
+    got = t_prove(trace, flagship.DEMO_CONFIG, device=cuda)
+    torch.cuda.synchronize()
+    assert poseidon_cuda.LAUNCHES["permute_rows"] > 0
+    # the JAX package's host flow (its device flow would take jax to the GPU)
+    monkeypatch.setenv("RSTPU_DEVICE_PROVER", "0")
+    assert flagship.proof_bytes(got) == flagship.proof_bytes(r_prove(trace, flagship.DEMO_CONFIG))
+
+
+@pytest.mark.parametrize("pow_bits", [12, 22])
+def test_grind_device_on_cuda_matches_native_scan(cuda, pow_bits):
+    from recursive_stwo_tpu.utils import native
+    from recursive_stwo_tpu_torch.prover.channel import grind_device
+
+    digest = np.random.default_rng(pow_bits).integers(0, P, 8).astype(np.uint32)
+    assert grind_device(digest, pow_bits, device=cuda) == native.grind(digest, pow_bits)
