@@ -8,8 +8,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
   2. build: nvcc builds the Poseidon2-16 kernels from csrc/ (seconds);
   3. kernels vs plain: both kernels against their plain PyTorch versions on
      the card and on the host CPU, bit for bit, at 2**20 states and at the
-     main path's shapes, plus the Poseidon2-16 known-answer test; kernel and
-     plain-version times;
+     main path's shapes, plus the Poseidon2-16 known-answer test; each of
+     K1's schedules at 1, 7, 8, 1023, 1024, 2**20 + 3 and 2**23 rows; kernel
+     times (device time under torch.profiler, and back to back under CUDA
+     events), plain-version times, and each time beside its bound;
   4. main path, small_proof at B=1024: the port's verify_batch on CUDA over
      a batch with a flipped sibling hash and a flipped nonce, and again with
      a wrong public input; every named check of every slot must equal the
@@ -63,6 +65,9 @@ LEVEL_SHA256 = {
     2: "7476baa51d927962fd8ab7b766409b39f5a2fc8009ff6c2bb2e04ca2078c73a3",
 }
 PROVER_LEAF_ROWS = 1 << 23  # K1's largest call in phase 8: the level-2 composition leaves
+# K1's schedules are each held to the plain version at these row counts:
+# tails of a warp's 8 rows and a block's 32, and the prover's largest call
+ROWS_CHECKED = (1, 7, 8, 1023, 1024, (1 << 20) + 3, PROVER_LEAF_ROWS)
 GRIND_BITS = 24
 
 
@@ -83,25 +88,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean device milliseconds of fn over reps calls, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def check_kernels(torch, dev, n_queries: int) -> dict:
-    """Phase 3.  Returns per-kernel {max_abs_err, ms, plain_ms} at the main
-    path's shapes."""
+    """Phase 3.  Returns per-kernel {max_abs_err, ms, events_ms, plain_ms,
+    bound_ms, bound_by} at the main path's shapes: ms is the kernel's mean
+    device time under torch.profiler, events_ms the CUDA-event time of
+    back-to-back calls (the wrapper's host cost included)."""
     from recursive_stwo_tpu_torch.core import poseidon2
     from recursive_stwo_tpu_torch.ops import poseidon_cuda
+    from recursive_stwo_tpu_torch.tools.kernel_times import cuda_ms, profiled_ms
 
     n = 1 << 20
     x = np.random.default_rng(SEED).integers(0, P, (n, 16), dtype=np.int64)
@@ -135,29 +129,45 @@ def check_kernels(torch, dev, n_queries: int) -> dict:
         require(np.array_equal(k_rows.cpu().numpy(), host), f"{name} differs from the host reference")
         require(k_rows[0].tolist() == KAT, f"{name} fails the known-answer test")
 
-        big_ms = cuda_ms(torch, lambda: fns["kernel"](big), 20)
-        big_plain = cuda_ms(torch, lambda: fns["plain"](big), 2)
-        ms = cuda_ms(torch, lambda: fns["kernel"](main), reps)
-        plain_ms = cuda_ms(torch, lambda: fns["plain"](main), 10)
         n_main = main.numel() // 16
+        bound, bound_by = poseidon_cuda.bound_ms(n_main)
+        big_bound, big_by = poseidon_cuda.bound_ms(n)
+        big_ms = profiled_ms(torch, lambda: fns["kernel"](big), 20, name)
+        big_plain = cuda_ms(torch, lambda: fns["plain"](big), 2)
+        ms = profiled_ms(torch, lambda: fns["kernel"](main), reps, name)
+        events_ms = cuda_ms(torch, lambda: fns["kernel"](main), reps)
+        plain_ms = cuda_ms(torch, lambda: fns["plain"](main), 10)
         print(f"{name}: bit-exact vs plain and host at {tuple(big.shape)} and {tuple(main.shape)}; KAT ok")
-        print(f"{name} {tuple(big.shape)}: kernel {big_ms:.4f} ms ({n / big_ms / 1e3:.4g} Mperm/s), "
-              f"plain {big_plain:.4f} ms ({n / big_plain / 1e3:.4g} Mperm/s)")
-        print(f"{name} {tuple(main.shape)}: kernel {ms:.4f} ms ({n_main / ms / 1e3:.4g} Mperm/s), "
-              f"plain {plain_ms:.4f} ms ({n_main / plain_ms / 1e3:.4g} Mperm/s)")
-        result[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        print(f"{name} {tuple(big.shape)}: kernel {big_ms:.4f} ms device ({n / big_ms / 1e3:.4g} Mperm/s; "
+              f"bound {big_bound:.4f} ms by {big_by}), plain {big_plain:.4f} ms")
+        print(f"{name} {tuple(main.shape)}: kernel {ms:.4f} ms device, {events_ms:.4f} ms per call back to back "
+              f"({n_main / ms / 1e3:.4g} Mperm/s; bound {bound:.6f} ms by {bound_by}), plain {plain_ms:.4f} ms")
+        result[name] = dict(max_abs_err=err, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+                            bound_ms=bound, bound_by=bound_by, library_ms=None)
 
-    # K1 at the prover's largest call, made on the card from a seed
+    # every K1 schedule bit for bit at tail sizes and at the prover's largest
+    # call (2**23 rows, the level-2 composition leaves), made on the card from
+    # a seed, and the KAT in row 0
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    leaf = torch.randint(0, P, (PROVER_LEAF_ROWS, 16), generator=gen, device=dev, dtype=torch.int64)
-    k, p = poseidon_cuda.permute_rows(leaf), poseidon2.permute_plain(leaf)
-    torch.cuda.synchronize()
-    require(torch.equal(k, p), f"permute_rows differs from its plain version at {tuple(leaf.shape)}")
-    leaf_ms = cuda_ms(torch, lambda: poseidon_cuda.permute_rows(leaf), 10)
-    leaf_plain = cuda_ms(torch, lambda: poseidon2.permute_plain(leaf), 1)
-    print(f"permute_rows {tuple(leaf.shape)} (prover leaves): bit-exact vs plain; kernel {leaf_ms:.4f} ms "
-          f"({PROVER_LEAF_ROWS / leaf_ms / 1e3:.4g} Mperm/s), plain {leaf_plain:.4f} ms")
-    result["permute_rows"].update(prover_shape_ms=leaf_ms, prover_shape_plain_ms=leaf_plain)
+    for rows_n in ROWS_CHECKED:
+        s = torch.randint(0, P, (rows_n, 16), generator=gen, device=dev, dtype=torch.int64)
+        s[-1] = P - 1
+        s[0] = torch.arange(16, device=dev)
+        plain = poseidon2.permute_plain(s)
+        for sched in poseidon_cuda.ROWS_SCHEDULES:
+            k = poseidon_cuda.permute_rows_schedule(s, sched)
+            torch.cuda.synchronize()
+            require(torch.equal(k, plain), f"permute_rows ({sched}) differs from its plain version at {rows_n} rows")
+            require(k[0].tolist() == KAT, f"permute_rows ({sched}) fails the known-answer test at {rows_n} rows")
+        del plain
+    print(f"permute_rows: schedules {poseidon_cuda.ROWS_SCHEDULES} bit-exact vs plain at {ROWS_CHECKED} rows; KAT ok")
+    leaf_ms = profiled_ms(torch, lambda: poseidon_cuda.permute_rows(s), 10, "permute_rows")
+    leaf_plain = cuda_ms(torch, lambda: poseidon2.permute_plain(s), 1)
+    leaf_bound, _ = poseidon_cuda.bound_ms(PROVER_LEAF_ROWS)
+    print(f"permute_rows {tuple(s.shape)} (prover leaves): kernel {leaf_ms:.4f} ms device "
+          f"({PROVER_LEAF_ROWS / leaf_ms / 1e3:.4g} Mperm/s; bound {leaf_bound:.4f} ms), plain {leaf_plain:.4f} ms")
+    result["permute_rows"].update(prover_shape_ms=leaf_ms, prover_shape_plain_ms=leaf_plain,
+                                  prover_shape_bound_ms=leaf_bound)
     return result
 
 
@@ -357,6 +367,7 @@ def main() -> int:
     check_grind(torch, dev)
 
     require("jax" not in sys.modules, "jax was imported")
+    require(not any(m.split(".")[0] == "recursive_stwo_tpu" for m in sys.modules), "the JAX package was imported")
     replaces = {
         "permute_rows": "recursive_stwo_tpu/ops/poseidon_pallas.py:46",
         "permute_wordmajor": "recursive_stwo_tpu/ops/poseidon_pallas.py:182",

@@ -2,16 +2,15 @@
 
 Twin of the array half of recursive_stwo_tpu/core/circle.py (a point is a
 pair (x, y) of same-shape tensors).  The integer host helpers (point_at_index,
-Coset, ...) are the reference's own and are imported from it.
+Coset, ...) are in the host copy, circle_host.py.
 """
 
 from __future__ import annotations
 
 import torch
 
-from recursive_stwo_tpu.core.circle import M31_CIRCLE_LOG_ORDER, _gen_power_of_two
-
 from . import m31
+from .circle_host import M31_CIRCLE_LOG_ORDER, _gen_power_of_two
 
 
 def apoint_add(p, q):

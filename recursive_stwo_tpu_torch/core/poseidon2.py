@@ -2,7 +2,7 @@
 
 Twin of recursive_stwo_tpu/core/poseidon2.py.  Round structure: initial
 MDS16, 4 full rounds, 14 partial rounds, 4 full rounds, x**5 S-box; the
-round constants are the reference's own arrays.
+round constants are the host copy's arrays (poseidon2_host.py).
 
 `permute_plain` is the plain PyTorch version.  `permute` (states on the last
 axis) and `permute_wordmajor` ((L, 16, N) states, word-major) dispatch on the
@@ -14,14 +14,13 @@ from __future__ import annotations
 
 import torch
 
-from recursive_stwo_tpu.core.poseidon2 import (
+from . import m31
+from .poseidon2_host import (
     FIRST_FOUR_ROUND_RC,
     LAST_FOUR_ROUNDS_RC,
     MAT_DIAG16_M_1,
     PARTIAL_ROUNDS_RC,
 )
-
-from . import m31
 
 
 def mds16(s: torch.Tensor) -> torch.Tensor:
@@ -71,6 +70,8 @@ def permute(state: torch.Tensor) -> torch.Tensor:
     from ..ops import poseidon_cuda
 
     flat = state.reshape(-1, 16).contiguous()
+    if flat.data_ptr() % 16:  # a view at an odd word: the kernel reads 16-byte vectors
+        flat = flat.clone()
     return poseidon_cuda.permute_rows(flat).reshape(state.shape)
 
 

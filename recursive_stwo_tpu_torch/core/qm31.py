@@ -1,7 +1,7 @@
 """CM31 / QM31 extension fields over M31 on int64 tensors.
 
 Twin of recursive_stwo_tpu/core/qm31.py, with the same structure-of-arrays
-tuples (the CM31 / QM31 NamedTuples are the reference's own containers):
+tuples (the CM31 / QM31 NamedTuples of the host copy, qm31_host.py):
 
   CM31 = M31[i] / (i**2 + 1)
   QM31 = CM31[u] / (u**2 - (2 + i)),  (a, b, c, d) = (a + b i) + (c + d i) u
@@ -11,9 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from recursive_stwo_tpu.core.qm31 import CM31, QM31
-
 from . import m31
+from .qm31_host import CM31, QM31
 
 
 # ---------------------------------------------------------------------------

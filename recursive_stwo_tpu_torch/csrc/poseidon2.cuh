@@ -122,7 +122,75 @@ __device__ __forceinline__ void partial_round(uint32_t s[16], uint32_t rc) {
   for (int i = 1; i < 16; ++i) s[i] = add(total, mul_pow2(s[i], i + 1));
 }
 
+// ---------------------------------------------------------------------------
+// Quad form: one state spread over four neighbouring lanes of a warp (lanes
+// 4k..4k+3, so the quad index q is lane & 3).  Lane q holds words 4q..4q+3,
+// which is exactly block q of mds16's circ(2*M4, M4, M4, M4).  A sum over the
+// four blocks is two xor-shuffles; every lane of the warp must take part.
+// ---------------------------------------------------------------------------
+
+// Sum of v over the four lanes of this lane's quad, the same on all four.
+__device__ __forceinline__ uint32_t quad_sum(uint32_t v) {
+  v = add(v, __shfl_xor_sync(0xFFFFFFFFu, v, 1));
+  return add(v, __shfl_xor_sync(0xFFFFFFFFu, v, 2));
+}
+
+// mds16 on the quad: the M4 of this lane's block locally (mds16's first
+// loop for g = q), then t[g][pos] + sum over g' of t[g'][pos].
+__device__ __forceinline__ void quad_mds16(uint32_t s[4]) {
+  uint32_t x0 = s[0], x1 = s[1], x2 = s[2], x3 = s[3];
+  uint32_t t0 = add(x0, x1);
+  uint32_t t1 = add(x2, x3);
+  uint32_t t2 = add(add(x1, x1), t1);
+  uint32_t t3 = add(add(x3, x3), t0);
+  uint32_t t1d = add(t1, t1);
+  uint32_t t0d = add(t0, t0);
+  uint32_t t4 = add(add(t1d, t1d), t3);
+  uint32_t t5 = add(add(t0d, t0d), t2);
+  uint32_t t[4] = {add(t3, t5), t5, add(t2, t4), t4};
+#pragma unroll
+  for (int pos = 0; pos < 4; ++pos) s[pos] = add(t[pos], quad_sum(t[pos]));
+}
+
+// rc: this lane's four round constants, words 4q..4q+3 of the round.
+__device__ __forceinline__ void quad_full_round(uint32_t s[4], uint4 rc) {
+  s[0] = pow5(add(s[0], rc.x));
+  s[1] = pow5(add(s[1], rc.y));
+  s[2] = pow5(add(s[2], rc.z));
+  s[3] = pow5(add(s[3], rc.w));
+  quad_mds16(s);
+}
+
+// partial_round on the quad.  Word 0's S-box is computed on every lane and
+// kept on q = 0 only (a select, not a branch); word w = 4q + i then takes
+// total + w's diagonal term: 3 s for w = 0, the rotation by w + 1 otherwise.
+__device__ __forceinline__ void quad_partial_round(uint32_t s[4], int q, uint32_t rc) {
+  uint32_t s0 = pow5(add(s[0], rc));
+  s[0] = q == 0 ? s0 : s[0];
+  uint32_t total = quad_sum(add(add(s[0], s[1]), add(s[2], s[3])));
+  uint32_t d0 = q == 0 ? add(add(s[0], s[0]), s[0]) : mul_pow2(s[0], 4 * q + 1);
+  s[0] = add(total, d0);
+  s[1] = add(total, mul_pow2(s[1], 4 * q + 2));
+  s[2] = add(total, mul_pow2(s[2], 4 * q + 3));
+  s[3] = add(total, mul_pow2(s[3], 4 * q + 4));
+}
+
 }  // namespace poseidon2_m31
+
+// The whole permutation on one state held by a quad of lanes: lane q gives
+// and gets words 4q..4q+3.  rc_full[r][q] are lane q's constants of full
+// round r (the four first rounds, then the four last).
+__device__ __forceinline__ void poseidon2_m31_permute_quad(uint32_t s[4], int q,
+                                                           const uint4 (*rc_full)[4]) {
+  using namespace poseidon2_m31;
+  quad_mds16(s);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) quad_full_round(s, rc_full[r][q]);
+#pragma unroll
+  for (int r = 0; r < 14; ++r) quad_partial_round(s, q, PARTIAL_ROUNDS_RC[r]);
+#pragma unroll
+  for (int r = 4; r < 8; ++r) quad_full_round(s, rc_full[r][q]);
+}
 
 // The whole permutation on 16 canonical words held in registers.
 __device__ __forceinline__ void poseidon2_m31_permute16(uint32_t s[16]) {

@@ -1,11 +1,13 @@
 """Flagship model: the batched PlonkWithPoseidon proof verifier, and the
 recursion chain's first two levels for the prover.
 
-Twin of recursive_stwo_tpu/models/flagship.py.  Fixture loading and host hint
-preparation are the reference's own (numpy); `verifier_step` puts a batch on
-a torch device and returns the verifier step over it.  `chain_level_trace`
-builds the circuit of chain level 1 or 2 on the host (no jax) with the
-expected proof artifact beside it.
+Twin of recursive_stwo_tpu/models/flagship.py.  Fixture loading
+(`load_fixture`, copied) and host hint preparation run in numpy;
+`verifier_step` puts a batch on a torch device and returns the verifier step
+over it.  `chain_level_trace` builds the circuit of chain level 1 or 2 on the
+host with the expected proof artifact beside it.  `load_artifact` reads the
+chain's pickled proofs, whose classes are named by their JAX-package paths,
+into the port's copies of those classes.
 """
 
 from __future__ import annotations
@@ -17,23 +19,34 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from recursive_stwo_tpu.cs import scalar
-from recursive_stwo_tpu.cs.system import PlonkWithPoseidonCS
-from recursive_stwo_tpu.gadgets.fields import QM31Var
-from recursive_stwo_tpu.gadgets.poseidon import Poseidon2Half
-from recursive_stwo_tpu.models.flagship import load_fixture
-from recursive_stwo_tpu.proof.containers import FriConfig, PcsConfig
-from recursive_stwo_tpu.proof.serialize import serialize_plonk_with_poseidon_proof
-from recursive_stwo_tpu.recursion.pipeline import build_verifier_circuit
-from recursive_stwo_tpu.verifier import hints
-
-from ..verifier import verify
+from ..cs import scalar
+from ..cs.system import PlonkWithPoseidonCS
+from ..gadgets.fields import QM31Var
+from ..gadgets.poseidon import Poseidon2Half
+from ..proof.containers import FriConfig, PcsConfig
+from ..proof.parse import parse_plonk_with_poseidon_proof
+from ..proof.serialize import serialize_plonk_with_poseidon_proof
+from ..recursion.pipeline import build_verifier_circuit
+from ..verifier import hints, verify
 from ..verifier.arrays import ProofArrays, map_arrays, to_torch
+from ..verifier.spec import VerifierSpec
+
+REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# the committed stwo fixtures, data files of the JAX package
+TESTDATA = os.path.join(REPO_DIR, "recursive_stwo_tpu", "testdata")
 
 FIXTURE_INPUTS = {
     "small_proof": verify.INPUTS_ONE,
     "recursive_proof_16_15": verify.INPUTS_RECURSIVE,
 }
+
+
+@lru_cache(maxsize=None)
+def load_fixture(name: str = "small_proof"):
+    with open(os.path.join(TESTDATA, f"{name}.bin"), "rb") as f:
+        proof = parse_plonk_with_poseidon_proof(f.read())
+    spec = VerifierSpec.from_proof(proof)
+    return proof, spec
 
 
 @lru_cache(maxsize=None)
@@ -51,7 +64,6 @@ def tiled_batch(pa: ProofArrays, batch: int) -> ProofArrays:
     )
 
 
-REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CHAIN_DATA = os.path.join(REPO_DIR, "examples", "data")
 # every chain proof carries the verifier circuit's three bootstrap public
 # inputs (examples/recursion_chain.py:43)
@@ -73,12 +85,34 @@ CHAIN_LEVELS = {
 }
 
 
+# JAX-package modules whose classes a chain artifact may name, and the
+# port's copies of them
+_ARTIFACT_MODULES = {"recursive_stwo_tpu.proof.containers": "recursive_stwo_tpu_torch.proof.containers"}
+
+
+class _ArtifactUnpickler(pickle.Unpickler):
+    """Reads a class of the JAX package's proof containers as the port's
+    copy of it, and refuses any other name of that package."""
+
+    def find_class(self, module: str, name: str):
+        if module.partition(".")[0] == "recursive_stwo_tpu":
+            if module not in _ARTIFACT_MODULES:
+                raise pickle.UnpicklingError(f"{module}.{name} has no copy in the port")
+            module = _ARTIFACT_MODULES[module]
+        return super().find_class(module, name)
+
+
+def load_artifact(path: str):
+    """A committed artifact of the recursion chain (a pickled proof,
+    examples/recursion_chain.py:79-80), with the port's proof classes."""
+    with open(path, "rb") as f:
+        return _ArtifactUnpickler(f).load()
+
+
 def _chain_input(name: str):
     if name in FIXTURE_INPUTS:
         return load_fixture(name)[0]
-    # a committed artifact of the recursion chain (examples/recursion_chain.py:79-80)
-    with open(os.path.join(CHAIN_DATA, f"{name}.pkl"), "rb") as f:
-        return pickle.load(f)
+    return load_artifact(os.path.join(CHAIN_DATA, f"{name}.pkl"))
 
 
 def chain_level_trace(level: int):
@@ -129,8 +163,7 @@ def proof_bytes(proof) -> bytes:
 
 def artifact_bytes(path: str) -> bytes:
     """m31x8 bytes of a committed chain artifact (a pickled proof)."""
-    with open(path, "rb") as f:
-        return proof_bytes(pickle.load(f))
+    return proof_bytes(load_artifact(path))
 
 
 def verifier_step(name: str = "small_proof", batch: int = 4, device="cuda"):

@@ -78,8 +78,9 @@ def load() -> ctypes.CDLL:
                 _compile(path)
             lib = ctypes.CDLL(path)
             vp, i64 = ctypes.c_void_p, ctypes.c_int64
-            lib.p2_permute_rows.argtypes = [vp, vp, i64, vp]
-            lib.p2_permute_rows.restype = ctypes.c_int
+            for name in ("p2_permute_rows_quad", "p2_permute_rows_tile"):
+                getattr(lib, name).argtypes = [vp, vp, i64, vp]
+                getattr(lib, name).restype = ctypes.c_int
             lib.p2_permute_wordmajor.argtypes = [vp, vp, i64, i64, vp]
             lib.p2_permute_wordmajor.restype = ctypes.c_int
             _lib = lib

@@ -14,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from recursive_stwo_tpu.prover import air
+from . import air
 
 
 class TraceArrays(NamedTuple):

@@ -1,7 +1,7 @@
 """Poseidon31 Fiat-Shamir channel of the prover, with the PoW grind on K1.
 
-`PoseidonChannel` is the JAX package's host channel (prover/channel.py:73-149)
-with `grind_pow` routed as the JAX package routes it (:115-131): at
+`PoseidonChannel` is the host channel (channel_host.py, a copy of
+recursive_stwo_tpu/prover/channel.py:73-149) with `grind_pow` routed as the JAX package routes it (:115-131): at
 GRIND_DEVICE_BITS bits or more on a CUDA device, `grind_device`; otherwise
 the host native scan.
 
@@ -19,10 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from recursive_stwo_tpu.prover.channel import PoseidonChannel as HostPoseidonChannel
-from recursive_stwo_tpu.utils import native
-
 from ..core import poseidon2
+from ..utils import native
+from .channel_host import PoseidonChannel as HostPoseidonChannel
 
 GRIND_DEVICE_BITS = 22
 _LIMB0 = 22
@@ -54,10 +53,10 @@ def grind_device(digest, pow_bits: int, block_log: int = 22, device="cuda") -> i
 
 
 def grind_host(digest, pow_bits: int) -> int:
-    """The host native scan (recursive_stwo_tpu/utils/native.py `grind`),
-    as the JAX package's channel calls it below the device threshold."""
+    """The host native scan (utils/native.py `grind`), as the JAX package's
+    channel calls it below the device threshold."""
     if not native.available():
-        raise RuntimeError("the host PoW scan needs the native library (recursive_stwo_tpu/utils/native.py)")
+        raise RuntimeError("the host PoW scan needs the native library (utils/native.py)")
     return native.grind(np.asarray(digest, np.uint32), pow_bits)
 
 

@@ -14,9 +14,8 @@ from functools import lru_cache
 
 import torch
 
-from recursive_stwo_tpu.prover import circle_fft as host_fft
-
 from ..core import m31
+from . import circle_fft_host as host_fft
 from .arrays import to_device
 
 

@@ -15,10 +15,9 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from recursive_stwo_tpu.prover.commit import CommittedTree
-
 from ..core import poseidon2
 from .arrays import to_numpy
+from .commit_host import CommittedTree
 
 # rows hashed per K1 call: bounds a level's temporaries to a few hundred MB
 # (a 2**26-leaf level hashed at once needs three (2**26, 16) int64 tensors,

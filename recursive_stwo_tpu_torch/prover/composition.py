@@ -20,14 +20,13 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from recursive_stwo_tpu.core import circle as ccircle
-from recursive_stwo_tpu.core.qm31 import QM31
-from recursive_stwo_tpu.cs import scalar
-from recursive_stwo_tpu.verifier.spec import VerifierSpec
-
+from ..core import circle_host as ccircle
 from ..core import m31
 from ..core import qm31 as q
+from ..core.qm31 import QM31
+from ..cs import scalar
 from ..verifier import composition as vcomp
+from ..verifier.spec import VerifierSpec
 from . import circle_fft
 from .arrays import to_device
 from .commit import commit_levels

@@ -16,20 +16,18 @@ import logging
 import numpy as np
 import torch
 
-from recursive_stwo_tpu.core import circle as ccircle
-from recursive_stwo_tpu.proof.containers import PcsConfig, PlonkWithPoseidonProof
-from recursive_stwo_tpu.prover import air
-from recursive_stwo_tpu.prover.prove import _add_const, _assemble_samples, _factors_at_point, _oods_point
-from recursive_stwo_tpu.verifier.spec import PLONK_LOG_EXPAND, POSEIDON_LOG_EXPAND, VerifierSpec
-
+from ..core import circle_host as ccircle
+from ..proof.containers import PcsConfig, PlonkWithPoseidonProof
 from ..verifier import composition as vcomp
-from . import circle_fft
+from ..verifier.spec import PLONK_LOG_EXPAND, POSEIDON_LOG_EXPAND, VerifierSpec
+from . import air, circle_fft
 from .arrays import to_device, trace_to_torch
 from .channel import PoseidonChannel
 from .commit import DeviceTree, merge_by_log
 from .composition import composition_stage, qm31_scalar
 from .fri import _mix_felts, fri_tail
 from .interaction import interaction_columns
+from .prove_host import _add_const, _assemble_samples, _factors_at_point, _oods_point
 from .quotients import quotients_stage
 from .sample import sample
 

@@ -15,12 +15,11 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from recursive_stwo_tpu.core.qm31 import QM31
-from recursive_stwo_tpu.cs import scalar
-from recursive_stwo_tpu.proof.containers import FriLayerProof, FriProof, StarkProof
-from recursive_stwo_tpu.prover import fri as host_fri
-
 from ..core import qm31 as q
+from ..core.qm31 import QM31
+from ..cs import scalar
+from ..proof.containers import FriLayerProof, FriProof, StarkProof
+from . import fri_host as host_fri
 from .arrays import to_device, to_numpy
 from .commit import DeviceTree
 from .composition import qm31_scalar

@@ -18,11 +18,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from recursive_stwo_tpu.core.qm31 import QM31
-from recursive_stwo_tpu.cs import scalar
-
 from ..core import m31
 from ..core import qm31 as q
+from ..core.qm31 import QM31
+from ..cs import scalar
 from ..verifier.quotients import m31_modsum
 from .composition import _ProverEval
 

@@ -12,8 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from recursive_stwo_tpu.proof.containers import PcsConfig, PlonkWithPoseidonProof
-
+from ..proof.containers import PcsConfig, PlonkWithPoseidonProof
 from .device_prove import prove_device
 
 

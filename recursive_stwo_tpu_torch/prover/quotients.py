@@ -16,10 +16,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from recursive_stwo_tpu.core.qm31 import QM31
-from recursive_stwo_tpu.verifier.spec import VerifierSpec
-
+from ..core.qm31 import QM31
 from ..verifier import quotients as vquot
+from ..verifier.spec import VerifierSpec
 from . import circle_fft
 from .arrays import to_device
 from .commit import commit_levels

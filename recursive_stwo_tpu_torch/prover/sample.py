@@ -11,10 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from recursive_stwo_tpu.core.qm31 import QM31
-
 from ..core import m31
 from ..core import qm31 as q
+from ..core.qm31 import QM31
 from .arrays import to_numpy
 
 

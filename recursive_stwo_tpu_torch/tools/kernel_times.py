@@ -1,0 +1,132 @@
+"""Device times of the Poseidon2-16 kernels on CUDA, beside their bounds.
+
+    python recursive_stwo_tpu_torch/tools/kernel_times.py [--root DIR] [--label NAME]
+
+Imports recursive_stwo_tpu_torch from DIR (default: the checkout holding this
+script), so that two checkouts can be timed in one process on one card, and
+times, at the shapes the port calls them with:
+  K1 (permute_rows): (1024, 16), a transcript step; 2**12 to 2**23 rows,
+     the sizes of the prover's Merkle levels.  Each of K1's schedules
+     separately where the checkout has more than one, and the one
+     permute_rows picks ("auto").
+  K2 (permute_wordmajor): (4, 16, 16384), a hash step; (4, 16, 2**18).
+Before timing, every kernel output is held to the plain version bit for bit.
+Two times per shape: CUDA events around `reps` back-to-back calls (what a
+caller's loop pays, the wrapper's host cost included once it exceeds the
+kernel) and the kernels' mean device duration under torch.profiler.  Prints
+one JSON line per (kernel, schedule, shape), then the card's nvidia-smi line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+P = 2**31 - 1
+SEED = 2026
+# (rows, reps): a transcript step, the sizes of the prover's Merkle levels
+ROW_SHAPES = ((1024, 200), (1 << 12, 200), (1 << 14, 100), (1 << 15, 100), (1 << 16, 50),
+              (1 << 17, 50), (1 << 18, 20), (1 << 20, 20), (1 << 23, 5))
+WORDMAJOR_SHAPES = (((4, 16, 16384), 100), ((4, 16, 1 << 18), 20))
+
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    """Mean milliseconds per call of `reps` back-to-back calls, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profiled_ms(torch, fn, reps: int, name: str) -> float:
+    """Mean device duration in milliseconds of the kernels whose name holds
+    `name`, over `reps` calls under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for evt in prof.key_averages():
+        if name in evt.key:
+            total += getattr(evt, "device_time_total", getattr(evt, "cuda_time_total", 0.0))
+            count += evt.count
+    if not count:
+        raise RuntimeError(f"the profiler saw no kernel named *{name}*")
+    return total / count / 1e3
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+    ap.add_argument("--label", default=None, help="name printed with every line (default: the root)")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: torch.cuda.is_available() is false; this needs a GPU", file=sys.stderr)
+        return 1
+    from recursive_stwo_tpu_torch.core import poseidon2
+    from recursive_stwo_tpu_torch.ops import build, poseidon_cuda
+
+    label = args.label or args.root
+    lib = build.load()
+    log = build.library_path() + ".log"
+    if os.path.exists(log):
+        with open(log) as f:
+            print(f"[{label}] ptxas:\n{f.read().strip()}")
+    print(f"[{label}] library {os.path.basename(build.library_path())} from {lib._name}")
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    if hasattr(poseidon_cuda, "permute_rows_schedule"):
+        schedules = {s: (lambda x, s=s: poseidon_cuda.permute_rows_schedule(x, s)) for s in poseidon_cuda.ROWS_SCHEDULES}
+        schedules["auto"] = poseidon_cuda.permute_rows
+    else:
+        schedules = {"rows": poseidon_cuda.permute_rows}
+    runs = []
+    for n, reps in ROW_SHAPES:
+        x = torch.randint(0, P, (n, 16), generator=gen, device=dev, dtype=torch.int64)
+        plain = poseidon2.permute_plain(x)
+        for sched, fn in schedules.items():
+            if not torch.equal(fn(x), plain):
+                raise RuntimeError(f"permute_rows ({sched}) differs from the plain version at {(n, 16)}")
+            runs.append(("permute_rows", sched, (n, 16), n, reps, lambda fn=fn, x=x: fn(x)))
+        del plain
+    for shape, reps in WORDMAJOR_SHAPES:
+        x = torch.randint(0, P, shape, generator=gen, device=dev, dtype=torch.int64)
+        if not torch.equal(poseidon_cuda.permute_wordmajor(x), poseidon2.permute_wordmajor_plain(x)):
+            raise RuntimeError(f"permute_wordmajor differs from the plain version at {shape}")
+        runs.append(("permute_wordmajor", "wordmajor", shape, shape[0] * shape[2], reps,
+                     lambda x=x: poseidon_cuda.permute_wordmajor(x)))
+
+    for kernel, sched, shape, n_states, reps, fn in runs:
+        ms = cuda_ms(torch, fn, reps)
+        dev_ms = profiled_ms(torch, fn, reps, kernel)
+        line = dict(label=label, kernel=kernel, schedule=sched, shape=list(shape), events_ms=ms,
+                    device_ms=dev_ms, mperm_per_s=n_states / dev_ms / 1e3)
+        if hasattr(poseidon_cuda, "bound_ms"):
+            bound, by = poseidon_cuda.bound_ms(n_states)
+            line.update(bound_ms=bound, bound_by=by, share_of_bound=bound / dev_ms)
+        print(json.dumps(line), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

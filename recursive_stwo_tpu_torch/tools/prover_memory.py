@@ -29,17 +29,15 @@ import time
 
 import torch
 
-from recursive_stwo_tpu.cs.system import PlonkWithPoseidonCS
-from recursive_stwo_tpu.gadgets.fields import QM31Var
-from recursive_stwo_tpu.gadgets.poseidon import Poseidon2Half
-from recursive_stwo_tpu.prover.air import ROWS_PER_INV
-from recursive_stwo_tpu.verifier import hints
-from recursive_stwo_tpu.verifier.spec import VerifierSpec
-
+from ..cs.system import PlonkWithPoseidonCS
+from ..gadgets.fields import QM31Var
+from ..gadgets.poseidon import Poseidon2Half
 from ..models import flagship
+from ..prover.air import ROWS_PER_INV
 from ..prover.prove import prove
-from ..verifier import verify
+from ..verifier import hints, verify
 from ..verifier.arrays import to_torch
+from ..verifier.spec import VerifierSpec
 
 
 def shaped_trace(log_plonk: int, log_poseidon: int) -> dict:

@@ -14,19 +14,18 @@ from typing import List
 
 import torch
 
-from recursive_stwo_tpu.core.poseidon2 import MAT_DIAG16_M_1
-from recursive_stwo_tpu.verifier.spec import (
+from ..core import m31
+from ..core import qm31 as q
+from ..core.poseidon2_host import MAT_DIAG16_M_1
+from ..core.qm31 import QM31
+from . import points as points_mod
+from .quotients import q_modsum
+from .spec import (
     N_INTERACTION_PLONK,
     N_PREPROCESSED_PLONK,
     N_TRACE_PLONK,
     VerifierSpec,
 )
-
-from ..core import m31
-from ..core import qm31 as q
-from ..core.qm31 import QM31
-from . import points as points_mod
-from .quotients import q_modsum
 
 
 class HornerSink:

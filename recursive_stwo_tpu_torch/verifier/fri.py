@@ -13,13 +13,12 @@ from typing import Dict, List
 
 import torch
 
-from recursive_stwo_tpu.verifier.spec import VerifierSpec
-
 from ..core import m31
 from ..core import qm31 as q
 from ..core.qm31 import QM31
 from . import points as points_mod
 from . import transcript
+from .spec import VerifierSpec
 
 
 def _q_of(arr: torch.Tensor) -> QM31:

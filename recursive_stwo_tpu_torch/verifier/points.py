@@ -12,15 +12,14 @@ from typing import Dict, Tuple
 
 import torch
 
-from recursive_stwo_tpu.core import circle
-from recursive_stwo_tpu.core.circle import Coset
-from recursive_stwo_tpu.verifier.points import _J
-from recursive_stwo_tpu.verifier.spec import VerifierSpec
-
+from ..core import circle_host as circle
 from ..core import m31
 from ..core import qm31 as q
 from ..core.circle import apoint_add_const
+from ..core.circle_host import Coset
 from ..core.qm31 import QM31
+from .points_host import _J
+from .spec import VerifierSpec
 
 
 def oods_point_from_t(t: QM31) -> Tuple[QM31, QM31]:

@@ -13,13 +13,12 @@ from typing import Tuple
 
 import torch
 
-from recursive_stwo_tpu.verifier.quotients import group_batches
-from recursive_stwo_tpu.verifier.spec import VerifierSpec
-
 from ..core import m31
 from ..core import qm31 as q
 from ..core.qm31 import CM31, QM31
 from . import points as points_mod
+from .quotients_host import group_batches
+from .spec import VerifierSpec
 
 
 def m31_modsum(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -12,15 +12,10 @@ from __future__ import annotations
 
 import torch
 
-from recursive_stwo_tpu.verifier.spec import VerifierSpec
-from recursive_stwo_tpu.verifier.transcript import (
-    FSOutput,
-    _draw_schedule,
-    n_rows,
-)
-
 from ..core import poseidon2
 from ..core.qm31 import QM31
+from .spec import VerifierSpec
+from .transcript_host import FSOutput, _draw_schedule, n_rows
 
 __all__ = [
     "FSOutput", "build_operands", "digest_chain", "pow_check",

@@ -13,17 +13,17 @@ from typing import Sequence, Tuple
 
 import torch
 
-from recursive_stwo_tpu.verifier.spec import VerifierSpec
-from recursive_stwo_tpu.verifier.verify import INPUTS_ONE, INPUTS_RECURSIVE
-
 from ..core import qm31 as q
 from ..core.qm31 import QM31
 from . import composition as composition_mod
 from . import fri as fri_mod
 from . import hashplan, points, quotients, transcript
 from .arrays import ProofArrays
+from .spec import VerifierSpec
 
-__all__ = ["INPUTS_ONE", "INPUTS_RECURSIVE", "fold_phase", "hash_phase", "verify_batch"]
+# the public inputs of the two fixtures (recursive_stwo_tpu/verifier/verify.py:27-28)
+INPUTS_ONE = ((1, (1, 0, 0, 0)),)
+INPUTS_RECURSIVE = ((1, (1, 0, 0, 0)), (2, (0, 1, 0, 0)), (3, (0, 0, 1, 0)))
 
 
 def _q_cols(arr: torch.Tensor) -> QM31:

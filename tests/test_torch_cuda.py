@@ -47,6 +47,36 @@ def test_permute_rows_bit_exact(cuda, n):
     assert np.array_equal(got.cpu().numpy(), r_p2.permute(x.astype(np.uint32)).astype(np.int64))
 
 
+KAT = [  # Poseidon2-16 of the state (0, 1, ..., 15)
+    260776483, 1182896747, 1656699352, 746018898, 102875940, 1812541025,
+    515874083, 755063943, 1682438524, 1265420601, 238640995, 200799880,
+    1659717477, 2080202267, 1269806256, 1287849264,
+]
+
+
+@pytest.mark.parametrize("schedule", poseidon_cuda.ROWS_SCHEDULES)
+@pytest.mark.parametrize("n", [1, 7, 8, 1023, 1024, (1 << 20) + 3, 1 << 23])
+def test_permute_rows_schedule_bit_exact(cuda, schedule, n):
+    """Each K1 schedule against the plain version, tails included (a quad
+    of lanes per row: 8 rows a warp, 32 a block), and the KAT in row 0."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randint(0, P, (n, 16), generator=gen, device=cuda, dtype=torch.int64)
+    x[-1] = P - 1
+    x[0] = torch.arange(16, device=cuda)
+    got = poseidon_cuda.permute_rows_schedule(x, schedule)
+    torch.cuda.synchronize()
+    assert torch.equal(got, t_p2.permute_plain(x))
+    assert got[0].tolist() == KAT
+
+
+def test_permute_rows_rejects_misaligned(cuda):
+    x = torch.zeros(17 * 16, dtype=torch.int64, device=cuda)[1 : 1 + 16 * 16].view(16, 16)
+    with pytest.raises(ValueError, match="aligned"):
+        poseidon_cuda.permute_rows(x)
+    # core/poseidon2.permute copies such a view first
+    assert torch.equal(t_p2.permute(x), t_p2.permute_plain(x))
+
+
 @pytest.mark.parametrize("lanes,n", [(1, 5), (4, 1000), (3, 4096)])
 def test_permute_wordmajor_bit_exact(cuda, lanes, n):
     x = _states(lanes * n, lanes * n).reshape(lanes, n, 16)

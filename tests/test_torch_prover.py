@@ -3,9 +3,7 @@ package's host prover, module by module and as a whole, on the CPU at
 tolerance 0.  Inputs are seeded numpy; the whole-slice proofs are compared
 as m31x8 bytes, the serialisation of the chain artifacts."""
 
-import os
-import subprocess
-import sys
+import io
 from functools import lru_cache
 
 import numpy as np
@@ -34,9 +32,11 @@ from recursive_stwo_tpu_torch.prover.sample import sample
 from recursive_stwo_tpu_torch.verifier import composition as vcomp
 from recursive_stwo_tpu_torch.verifier import verify as t_verify
 from recursive_stwo_tpu_torch.verifier.arrays import to_torch
+from test_torch_verify import run_blocked
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 P = 2**31 - 1
+# sha256 of chain level 1's m31x8 bytes (docs/chain_artifacts.txt)
+LEVEL1_SHA256 = "a51ea3f3d96636750c573b2d46846d9f9e47ecb955fc510c63cec1f0c76be49b"
 CONFIGS = {
     "fri-1-3-9": PcsConfig(pow_bits=5, fri_config=FriConfig(1, 3, 9)),
     "fri-0-3-8": PcsConfig(pow_bits=5, fri_config=FriConfig(0, 3, 8)),
@@ -164,19 +164,28 @@ def test_prove_refuses_what_is_not_ported():
 
 
 def test_prover_never_imports_jax():
-    code = (
-        "import sys\n"
-        "from recursive_stwo_tpu.proof.containers import FriConfig, PcsConfig\n"
+    """With jax and the JAX package refused: the demo circuit is proved on
+    the CPU, and chain level 1's artifact loads into the port's containers
+    and serialises to the bytes docs/chain_artifacts.txt names."""
+    run_blocked(
+        "import hashlib, os\n"
         "from recursive_stwo_tpu_torch.models import flagship\n"
+        "from recursive_stwo_tpu_torch.proof.containers import FriConfig, PcsConfig\n"
         "from recursive_stwo_tpu_torch.prover.prove import prove\n"
         "proof = prove(flagship.demo_trace(), PcsConfig(5, FriConfig(1, 3, 9)), device='cpu')\n"
         "assert len(flagship.proof_bytes(proof)) > 0\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
-        "print('NOJAX-OK')\n"
+        "art = flagship.load_artifact(os.path.join(flagship.CHAIN_DATA, 'level1-5.pkl'))\n"
+        "assert type(art).__module__ == 'recursive_stwo_tpu_torch.proof.containers'\n"
+        "digest = hashlib.sha256(flagship.proof_bytes(art)).hexdigest()\n"
+        f"assert digest == '{LEVEL1_SHA256}', digest\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
-    out = subprocess.run(
-        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
-    )
-    assert out.returncode == 0, out.stderr
-    assert "NOJAX-OK" in out.stdout
+
+
+def test_artifact_loader_refuses_other_names():
+    """A pickle naming a JAX-package class outside the proof containers (a
+    GLOBAL opcode for recursive_stwo_tpu.prover.prove.prove) is refused."""
+    import pickle
+
+    data = b"crecursive_stwo_tpu.prover.prove\nprove\n."
+    with pytest.raises(pickle.UnpicklingError, match="no copy"):
+        flagship._ArtifactUnpickler(io.BytesIO(data)).load()

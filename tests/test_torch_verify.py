@@ -4,6 +4,7 @@ named check and 'ok', per proof, with the same keys in the same order, for
 clean and corrupted batches.  Tolerance 0.  Nothing here jits the JAX
 verifier."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -76,19 +77,66 @@ def test_verifier_step_refuses_missing_cuda():
         flagship.verifier_step("small_proof", 1, device="cuda")
 
 
-def test_port_never_imports_jax():
-    code = (
-        "import sys\n"
-        "from recursive_stwo_tpu_torch.models import flagship\n"
-        "step, arrays = flagship.verifier_step('small_proof', 1, device='cpu')\n"
-        "assert bool(step(arrays)['ok'].all())\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
-        "print('NOJAX-OK')\n"
-    )
+# Run in a subprocess: refuse every import of jax and of the JAX package,
+# then import each module of the port.
+BLOCKED_PREAMBLE = (
+    "import importlib, importlib.abc, pkgutil, sys\n"
+    "class Refuse(importlib.abc.MetaPathFinder):\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.partition('.')[0] in ('jax', 'jaxlib', 'recursive_stwo_tpu'):\n"
+    "            raise ImportError('refused: ' + name)\n"
+    "sys.meta_path.insert(0, Refuse())\n"
+    "import recursive_stwo_tpu_torch\n"
+    "for m in pkgutil.walk_packages(recursive_stwo_tpu_torch.__path__, 'recursive_stwo_tpu_torch.'):\n"
+    "    importlib.import_module(m.name)\n"
+)
+
+
+def run_blocked(code: str) -> None:
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run(
-        [sys.executable, "-c", code], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=300,
+        [sys.executable, "-c", BLOCKED_PREAMBLE + code + "print('BLOCKED-OK')\n"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
-    assert "NOJAX-OK" in out.stdout
+    assert "BLOCKED-OK" in out.stdout
+
+
+def test_port_never_imports_jax():
+    """Every port module imports, and the CPU verifier runs, with jax and
+    the JAX package refused."""
+    run_blocked(
+        "from recursive_stwo_tpu_torch.models import flagship\n"
+        "step, arrays = flagship.verifier_step('small_proof', 2, device='cpu')\n"
+        "assert bool(step(arrays)['ok'].all())\n"
+    )
+
+
+def _imported_roots(path: str):
+    """Top-level package of every import statement in a source file, with
+    the module it names."""
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("part", ["verifier", "prover"])
+def test_sources_import_neither_jax_nor_the_jax_package(part):
+    """An ast scan: no import of jax or of recursive_stwo_tpu (other than
+    the port itself) in any source of the port, or in chip_smoke.py.  The
+    prover part is prover/ and tools/; the verifier part is the rest."""
+    pkg = os.path.join(REPO, "recursive_stwo_tpu_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")] if part == "verifier" else []
+    for root, _, names in os.walk(pkg):
+        sub = os.path.relpath(root, pkg).split(os.sep)[0]
+        if (sub in ("prover", "tools")) == (part == "prover"):
+            files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    for path in files:
+        for mod in _imported_roots(path):
+            root = mod.split(".")[0]
+            assert root not in ("jax", "jaxlib", "recursive_stwo_tpu"), f"{path} imports {mod}"
