@@ -6,20 +6,25 @@
 Phases; any failure ends the run with a non-zero exit and no result line:
   1. card: the GPU's name and power limit, as nvidia-smi prints them;
   2. build: nvcc builds the Poseidon2-16 kernels from csrc/ (seconds);
-  3. kernels vs plain: both kernels against their plain PyTorch versions on
+  3. kernels vs plain: K1 and K2 against their plain PyTorch versions on
      the card and on the host CPU, bit for bit, at 2**20 states and at the
      main path's shapes, plus the Poseidon2-16 known-answer test; each of
-     K1's schedules at 1, 7, 8, 1023, 1024, 2**20 + 3 and 2**23 rows; kernel
-     times (device time under torch.profiler, and back to back under CUDA
-     events), plain-version times, and each time beside its bound;
+     K1's schedules at 1, 7, 8, 1023, 1024, 2**20 + 3 and 2**23 rows; the
+     hash phase's scan kernel against scan_plain on the card, bit for bit, on seeded programs holding every op kind at
+     N = 1, 7, 127, 129, 16384 slots and 1-4 lanes, and on both fixtures'
+     absorb and walk passes at B=1024; kernel times (device time under
+     torch.profiler, and back to back under CUDA events), plain-version
+     times, and each time beside its bound;
   4. main path, small_proof at B=1024: the port's verify_batch on CUDA over
      a batch with a flipped sibling hash and a flipped nonce, and again with
      a wrong public input; every named check of every slot must equal the
      port's own CPU path (plain PyTorch, which tests/test_torch_verify.py
-     holds equal to the JAX package's verifier), and both kernels must have
-     launched during the run;
+     holds equal to the JAX package's verifier); K1 must have launched, the
+     scan exactly twice (the absorb and the walk pass) and K2 exactly once
+     (the leaf step);
   5. the same for the deep fixture recursive_proof_16_15;
-  6. timing: warm proofs/s of verify_batch at B=1024 for both fixtures;
+  6. timing: warm proofs/s of verify_batch at B=1024 for both fixtures, and
+     the hash phase's wall per batch (bounded by synchronize()) beside it;
   7. prover, recursion-chain level 1: the demo circuit's proof on CUDA must
      equal the port's CPU proof byte for byte (a quick first check); then
      the level-1 circuit (recursive_proof_16_15 verified five times) is
@@ -69,6 +74,9 @@ PROVER_LEAF_ROWS = 1 << 23  # K1's largest call in phase 8: the level-2 composit
 # tails of a warp's 8 rows and a block's 32, and the prover's largest call
 ROWS_CHECKED = (1, 7, 8, 1023, 1024, (1 << 20) + 3, PROVER_LEAF_ROWS)
 GRIND_BITS = 24
+# the scan kernel is held to scan_plain at these slots (tails of a warp and
+# of a block of 128 threads) with 1-4 lanes
+SCAN_SLOTS_CHECKED = (1, 7, 127, 129, 16384)
 
 
 class SmokeError(RuntimeError):
@@ -88,9 +96,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def check_kernels(torch, dev, n_queries: int) -> dict:
-    """Phase 3.  Returns per-kernel {max_abs_err, ms, events_ms, plain_ms,
-    bound_ms, bound_by} at the main path's shapes: ms is the kernel's mean
+def check_kernels(torch, dev, leaf_state) -> dict:
+    """Phase 3, K1 and K2.  Returns per-kernel {max_abs_err, ms, events_ms,
+    plain_ms, bound_ms, bound_by} at the main path's shapes (for K2 the leaf
+    step's (W, 16, B*Q) states, `leaf_state`): ms is the kernel's mean
     device time under torch.profiler, events_ms the CUDA-event time of
     back-to-back calls (the wrapper's host cost included)."""
     from recursive_stwo_tpu_torch.core import poseidon2
@@ -109,14 +118,13 @@ def check_kernels(torch, dev, n_queries: int) -> dict:
     rows = {"kernel": poseidon_cuda.permute_rows, "plain": poseidon2.permute_plain}
     wm = {"kernel": poseidon_cuda.permute_wordmajor, "plain": poseidon2.permute_wordmajor_plain}
     # (kernel, plain) pairs on: 2**20 rows, (4, 16, 2**18) word-major, and the
-    # main path's shapes, a transcript step (B, 16) and a hash step (4, 16, B*Q)
+    # main path's shapes, a transcript step (B, 16) and the leaf step (W, 16, B*Q)
     big_wm = xd.reshape(4, n // 4, 16).permute(0, 2, 1).contiguous()
     main_rows = xd[:BATCH].contiguous()
-    main_wm = xd[: 4 * BATCH * n_queries].reshape(4, -1, 16).permute(0, 2, 1).contiguous()
     result = {}
     for name, fns, big, main, reps in (
         ("permute_rows", rows, xd, main_rows, 200),
-        ("permute_wordmajor", wm, big_wm, main_wm, 100),
+        ("permute_wordmajor", wm, big_wm, leaf_state, 100),
     ):
         err = 0
         for inp in (big, main):
@@ -171,6 +179,59 @@ def check_kernels(torch, dev, n_queries: int) -> dict:
     return result
 
 
+def check_scan(torch, dev, programs: dict) -> dict:
+    """Phase 3, the scan kernel against scan_plain on the card, bit for bit:
+    seeded programs at SCAN_SLOTS_CHECKED slots and 1-4 lanes, and each
+    fixture's absorb and walk passes at B=1024 (`programs`, name ->
+    [(label, ScanProgram)]).  Returns {max_abs_err, ms, events_ms, plain_ms,
+    bound_ms, bound_by} for both passes of one small_proof batch."""
+    from recursive_stwo_tpu_torch.ops import poseidon_cuda
+    from recursive_stwo_tpu_torch.tools.kernel_times import cuda_ms, profiled_ms
+    from recursive_stwo_tpu_torch.tools.scan_cases import seeded_programs
+    from recursive_stwo_tpu_torch.verifier.hashplan import scan_plain
+
+    def run(prog):
+        return poseidon_cuda.wordmajor_scan(prog.ops, prog.sources, prog.n_out, prog.n, prog.keep_capacity)
+
+    def hold(label, prog) -> int:
+        plain = scan_plain(prog)
+        got = run(prog)
+        torch.cuda.synchronize()
+        require(torch.equal(got, plain), f"wordmajor_scan differs from scan_plain on {label}")
+        return int((got - plain).abs().max())
+
+    for n in SCAN_SLOTS_CHECKED:
+        for lanes in range(1, 5):
+            for label, prog in seeded_programs(n, lanes, SEED + n, dev):
+                hold(f"seeded {label}, N={n}, {lanes} lanes", prog)
+    print(f"wordmajor_scan: bit-exact vs scan_plain on seeded programs at N={SCAN_SLOTS_CHECKED} "
+          f"with 1-4 lanes")
+
+    result = {}
+    for name, progs in programs.items():
+        tot = dict(max_abs_err=0, ms=0.0, events_ms=0.0, plain_ms=0.0, bound_ms=0.0, permutations=0)
+        for label, prog in progs:
+            err = hold(f"{name} {label}", prog)
+            perms = poseidon_cuda.scan_permutations(prog.ops, prog.n)
+            bound, bound_by = poseidon_cuda.bound_ms(perms)
+            ms = profiled_ms(torch, lambda: run(prog), 20, "wordmajor_scan")
+            events_ms = cuda_ms(torch, lambda: run(prog), 20)
+            plain_ms = cuda_ms(torch, lambda: scan_plain(prog), 2)
+            print(f"wordmajor_scan {name} {label}: bit-exact vs scan_plain; "
+                  f"{tuple(prog.ops.shape[:2])} lanes x steps, N={prog.n}, {perms} permutations; "
+                  f"kernel {ms:.4f} ms device, {events_ms:.4f} ms per call back to back "
+                  f"(bound {bound:.4f} ms by {bound_by}, {bound / ms:.1%}), plain {plain_ms:.4f} ms")
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            for k, v in (("ms", ms), ("events_ms", events_ms), ("plain_ms", plain_ms),
+                         ("bound_ms", bound), ("permutations", perms)):
+                tot[k] += v
+        tot.update(bound_by=bound_by, library_ms=None)
+        print(f"wordmajor_scan {name}, both passes: {tot['ms']:.4f} ms device against a bound of "
+              f"{tot['bound_ms']:.4f} ms ({tot['bound_ms'] / tot['ms']:.1%})")
+        result[name] = tot
+    return result
+
+
 def _failing(checks: dict, slot: int) -> list:
     return sorted(k for k, v in checks.items() if not bool(v[slot]))
 
@@ -196,7 +257,9 @@ def check_main_path(torch, dev, name: str) -> dict:
     checks = verify.verify_batch(spec, pa_d, inputs)
     torch.cuda.synchronize()
     launches = dict(poseidon_cuda.LAUNCHES)
-    require(all(v > 0 for v in launches.values()), f"{name}: a kernel never launched: {launches}")
+    require(launches["permute_rows"] > 0, f"{name}: K1 never launched: {launches}")
+    require(launches["wordmajor_scan"] == 2 and launches["permute_wordmajor"] == 1,
+            f"{name}: expected 2 scan launches and 1 K2 leaf step, got {launches}")
 
     wrong_inputs = ((inputs[0][0], (2, 0, 0, 0)),) + tuple(inputs[1:])
     for label, inp in (("fixture inputs", inputs), ("wrong public input", wrong_inputs)):
@@ -244,6 +307,21 @@ def proofs_per_s(torch, dev, name: str, runs: int = 5) -> float:
     print(f"{name} B={BATCH}: verify_batch {med * 1e3:.1f} ms median of {runs} "
           f"({', '.join(f'{s * 1e3:.1f}' for s in times)} ms) = {BATCH / med:.1f} proofs/s")
     return BATCH / med
+
+
+def hash_phase_ms(torch, dev, name: str, runs: int = 5) -> float:
+    """Phase 6: the hash phase's wall per verify_batch at B=1024 (warm,
+    median of `runs`), bounded by synchronize() on both sides.  Separate
+    runs from the proofs/s ones, whose pipeline these two syncs would cut."""
+    from recursive_stwo_tpu_torch.models import flagship
+    from recursive_stwo_tpu_torch.tools.verify_times import hash_phase_walls
+
+    step, arrays = flagship.verifier_step(name, BATCH, device=dev)
+    times = hash_phase_walls(torch, step, arrays, runs + 1)[1:]
+    med = statistics.median(times)
+    print(f"{name} B={BATCH}: hash phase {med * 1e3:.2f} ms median of {runs} "
+          f"({', '.join(f'{s * 1e3:.2f}' for s in times)} ms)")
+    return med * 1e3
 
 
 def check_demo_proof(torch, dev) -> None:
@@ -349,8 +427,16 @@ def main() -> int:
     with open(lib_path + ".log") as f:
         print(f.read().strip())
 
-    n_queries = flagship.prepared_arrays(FIXTURES[0])[0].n_queries
-    kernels = check_kernels(torch, dev, n_queries)
+    from recursive_stwo_tpu_torch.tools.scan_cases import fixture_programs
+
+    programs, leaf_state = {}, None
+    for name in FIXTURES:
+        programs[name], leaves = fixture_programs(name, BATCH, dev)
+        leaf_state = leaves if leaf_state is None else leaf_state
+    kernels = check_kernels(torch, dev, leaf_state)
+    scans = check_scan(torch, dev, programs)
+    kernels["wordmajor_scan"] = scans[FIXTURES[0]]
+    del programs, leaf_state
     torch.cuda.synchronize()
 
     launches = {}
@@ -360,7 +446,9 @@ def main() -> int:
 
     for name in FIXTURES:
         rate = proofs_per_s(torch, dev, name)
-        print(f"{name}: {rate:.1f} proofs/s at B={BATCH} on {smi}")
+        hash_ms = hash_phase_ms(torch, dev, name)
+        print(f"{name}: {rate:.1f} proofs/s ({BATCH / rate * 1e3:.1f} ms a batch), hash phase "
+              f"{hash_ms:.2f} ms a batch, at B={BATCH} on {smi}")
 
     check_demo_proof(torch, dev)
     prover_launches = {level: prove_level(torch, dev, level) for level in (1, 2)}
@@ -371,6 +459,8 @@ def main() -> int:
     replaces = {
         "permute_rows": "recursive_stwo_tpu/ops/poseidon_pallas.py:46",
         "permute_wordmajor": "recursive_stwo_tpu/ops/poseidon_pallas.py:182",
+        "wordmajor_scan": "recursive_stwo_tpu/ops/poseidon_pallas.py:182 and the scans at "
+                          "recursive_stwo_tpu/verifier/hashplan.py:206,427",
     }
     report = [
         dict(name=k, route="cuda", source="recursive_stwo_tpu_torch/csrc/poseidon2.cu",

@@ -135,6 +135,114 @@ __global__ void permute_wordmajor_kernel(const int64_t* __restrict__ in,
   for (int w = 0; w < 16; ++w) out[base + w * n] = (int64_t)s[w];
 }
 
+// ---------------------------------------------------------------------------
+// The hash phase's scans: K2 and the jax.lax.scan around it
+// (recursive_stwo_tpu/verifier/hashplan.py, absorb_packed :206 and walk_scan
+// :427) in one launch per pass.  The host packs every walk (or column chain)
+// into a few lanes of straight-line micro-ops, each one permutation; the
+// op table (lanes, steps, kFields) int64 (verifier/hashplan.py builds it,
+// ops/poseidon_cuda.py turns its source indices into pointers) holds per op
+// the flags, the output slot and three descriptors that read the op's
+// inputs in place: word w of slot n of an input is at
+// ptr + n*stride_n + w*stride_w, and words at or past n_words read as 0
+// (a (8, N) word-major digest, one level of (B, Q, depth, 8) sibling
+// hashes, an 8-column chunk of a (B, Q, n_cols) chain), and the query bit is
+// (queries[n*stride_n] >> level) & 1.  Step t of lane l does, for every
+// slot n, what the reference's scan body does:
+//   A = in_a if kAIn else carry_s
+//   B = carry_b | in_a | in_b | carry_s (b_sel), or 0 if kStart
+//   (left, right) = bit & kSwap ? (B, A) : (A, B)
+//   kept = rate or capacity half of P(left || right)
+//   carry_b = kept if kWriteB else carry_s = kept
+//   out[slot][:, n] = carry_s, if the op has an output slot
+// Lanes run blockIdx.y, slots blockIdx.x: a step's op is uniform across a
+// block and only the query bit varies, as a select.  The carries stay in
+// registers for all the steps; a lane's program ends at its first op
+// without kActive.  What bounds it is the arithmetic, as for K1 and K2
+// (128 + 64 or so bytes a permutation against 9.2k int32 operations); the
+// scan adds nothing to it but the descriptors' uniform loads, and removes
+// the per-step launches and the carries' round trips through memory.
+//
+// One thread to a slot.  Measured on an H100 SXM at 700 W
+// (tools/kernel_times.py, profiler device time) it reaches 53-54% of the
+// bound at the main path's 2^14 slots a lane and 56-58% from 2^17 up: at
+// 4 x 2^14 slots one thread a slot already keeps the integer pipes busy.  A
+// quad schedule (four lanes to a slot, as K1's) was slower from 2^14 up
+// (43-48% of the bound), since its lanes repeat word 0's S-box and add
+// shuffles; it won only below 2^14 slots, which no caller runs.
+// ---------------------------------------------------------------------------
+
+constexpr int kFields = 16;
+constexpr int kFlags = 0, kOut = 1, kA = 2, kB = 7, kQ = 12;  // descriptor: ptr, (offset), sn, sw, nw
+constexpr int64_t kAIn = 1, kWriteB = 8, kStart = 16, kSwap = 32, kActive = 64;
+constexpr int kBSelShift = 1;  // 2 bits: 0 carry_b, 1 in_a, 2 in_b, 3 carry_s
+
+struct Desc {
+  const int64_t* ptr;
+  int64_t sn, sw, nw;
+};
+
+__device__ __forceinline__ Desc desc_at(const int64_t* op, int f) {
+  return Desc{reinterpret_cast<const int64_t*>(op[f]), op[f + 2], op[f + 3], op[f + 4]};
+}
+
+__device__ __forceinline__ uint32_t word_at(const Desc& d, int64_t n, int w) {
+  return w < d.nw ? (uint32_t)d.ptr[n * d.sn + w * d.sw] : 0u;
+}
+
+__device__ __forceinline__ bool query_bit(const int64_t* op, int64_t n) {
+  const int64_t* q = reinterpret_cast<const int64_t*>(op[kQ]);
+  return (q[n * op[kQ + 2]] >> op[kQ + 3]) & 1;
+}
+
+// One thread to a slot: the 16 words of a state, both 8-word carries.
+__global__ void __launch_bounds__(kThreads)
+wordmajor_scan_kernel(const int64_t* __restrict__ ops, int64_t steps, int64_t n,
+                      int keep_capacity, int64_t* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int64_t* prog = ops + (int64_t)blockIdx.y * steps * kFields;
+  uint32_t cs[8], cb[8];
+#pragma unroll
+  for (int w = 0; w < 8; ++w) cs[w] = cb[w] = 0;
+  for (int64_t t = 0; t < steps; ++t) {
+    const int64_t* op = prog + t * kFields;
+    const int64_t flags = op[kFlags];
+    if (!(flags & kActive)) break;
+    const int bsel = (int)(flags >> kBSelShift) & 3;
+    uint32_t ia[8], ib[8];
+    const Desc da = desc_at(op, kA), db = desc_at(op, kB);
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      ia[w] = ((flags & kAIn) || bsel == 1) ? word_at(da, i, w) : 0u;
+      ib[w] = bsel == 2 ? word_at(db, i, w) : 0u;
+    }
+    const bool swap = (flags & kSwap) && query_bit(op, i);
+    uint32_t s[16];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      const uint32_t a = (flags & kAIn) ? ia[w] : cs[w];
+      uint32_t b = bsel == 0 ? cb[w] : bsel == 1 ? ia[w] : bsel == 2 ? ib[w] : cs[w];
+      b = (flags & kStart) ? 0u : b;
+      s[w] = swap ? b : a;
+      s[8 + w] = swap ? a : b;
+    }
+    poseidon2_m31_permute16(s);
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      const uint32_t kept = keep_capacity ? s[8 + w] : s[w];
+      if (flags & kWriteB) cb[w] = kept;
+      else cs[w] = kept;
+    }
+    const int64_t slot = op[kOut];
+    if (slot >= 0) {
+      int64_t* dst = out + slot * 8 * n + i;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) dst[w * n] = cs[w];
+    }
+  }
+}
+
 unsigned int blocks_for(int64_t states) {
   return (unsigned int)((states + kThreads - 1) / kThreads);
 }
@@ -169,6 +277,18 @@ extern "C" int p2_permute_wordmajor(const void* in, void* out, int64_t n_lanes,
     permute_wordmajor_kernel<<<blocks_for(n_lanes * n), kThreads, 0,
                                (cudaStream_t)stream>>>(
         (const int64_t*)in, (int64_t*)out, n_lanes, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ops: the (lanes, steps, 16) op table on the device, pointers resolved;
+// out: (n_out, 8, n) int64, zeroed by the caller (a slot no op writes stays 0).
+extern "C" int p2_wordmajor_scan(const void* ops, int64_t lanes, int64_t steps,
+                                 int64_t n, int keep_capacity, void* out, void* stream) {
+  if (lanes > 0 && steps > 0 && n > 0) {
+    const dim3 grid(blocks_for(n), (unsigned int)lanes);
+    wordmajor_scan_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)ops, steps, n, keep_capacity, (int64_t*)out);
   }
   return (int)cudaGetLastError();
 }

@@ -83,5 +83,7 @@ def load() -> ctypes.CDLL:
                 getattr(lib, name).restype = ctypes.c_int
             lib.p2_permute_wordmajor.argtypes = [vp, vp, i64, i64, vp]
             lib.p2_permute_wordmajor.restype = ctypes.c_int
+            lib.p2_wordmajor_scan.argtypes = [vp, i64, i64, i64, ctypes.c_int, vp, vp]
+            lib.p2_wordmajor_scan.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -4,26 +4,54 @@
                      (recursive_stwo_tpu/ops/poseidon_pallas.py::_kernel)
   permute_wordmajor  (L, 16, N) int64 -> (L, 16, N); twin of the Pallas
                      kernel K2 (poseidon_pallas.py::_kernel4)
+  wordmajor_scan     a whole pass of the hash phase's scan, K2 and the
+                     jax.lax.scan around it (recursive_stwo_tpu/verifier/
+                     hashplan.py:206,427), in one launch: an op table of
+                     (lanes, steps) micro-ops, each one permutation, whose
+                     inputs are read in place through descriptors
 
-Both take contiguous CUDA tensors of canonical M31 residues and raise on
-anything else; the plain versions live in core/poseidon2.py.  A kernel
-launches on the current stream of its tensor's device and does not
-synchronise.  `LAUNCHES` counts the launches of each kernel.
+They take CUDA tensors of canonical M31 residues and raise on anything
+else; the plain versions live in core/poseidon2.py and (for the scan)
+verifier/hashplan.scan_plain.  A kernel launches on the current stream of
+its tensor's device and does not synchronise.  `LAUNCHES` counts the
+launches of each kernel.
 
 K1 has two schedules of one arithmetic (csrc/poseidon2.cu): "quad", four
 lanes to a state, and "tile", one thread to a state with the block's rows
 staged through shared memory.  `permute_rows` takes the quad schedule below
-ROWS_TILE_MIN rows and the tile schedule from there up.
+ROWS_TILE_MIN rows and the tile schedule from there up.  The scan runs one
+thread to a slot, both carries in its registers.
+
+The scan's op table is an int64 (lanes, steps, FIELDS) CPU tensor.  Per op:
+F_FLAGS (A_IN, the 2-bit B selector at B_SEL_SHIFT, WRITE_B, START, SWAP,
+ACTIVE), F_OUT (output slot or -1), and the descriptors of in_a (F_A) and
+in_b (F_B): source index into the call's `sources` list (-1: none), element
+offset, stride_n, stride_w, n_words: word w of slot n is the element
+off + n*stride_n + w*stride_w from sources[src]'s first, and words at or
+past n_words read as 0.  F_Q describes the query bits: source,
+offset, stride_n, level.  A lane's program ends at its first op without
+ACTIVE.  An op reads in_a if A_IN or B selects IN_A, in_b if B selects
+IN_B, and the query bits if SWAP.  The wrapper checks that every descriptor
+an op reads has a source and lies in its storage, then turns (source,
+offset) into a device pointer.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import build
 
-LAUNCHES = {"permute_rows": 0, "permute_wordmajor": 0}
+LAUNCHES = {"permute_rows": 0, "permute_wordmajor": 0, "wordmajor_scan": 0}
 ROWS_SCHEDULES = ("quad", "tile")
+
+# the scan's op table (csrc/poseidon2.cu, wordmajor_scan_kernel)
+FIELDS = 16
+F_FLAGS, F_OUT, F_A, F_B, F_Q = 0, 1, 2, 7, 12
+A_IN, WRITE_B, START, SWAP, ACTIVE = 1, 8, 16, 32, 64
+B_SEL_SHIFT = 1
+B_CARRY_B, B_IN_A, B_IN_B, B_CARRY_S = 0, 1, 2, 3
 # the crossover, measured with tools/kernel_times.py on an H100 SXM (700 W):
 # quad 21.5 / tile 26.7 us at 2**15 rows, quad 37.9 / tile 36.6 us at 2**16
 ROWS_TILE_MIN = 1 << 16
@@ -105,4 +133,76 @@ def permute_wordmajor(x: torch.Tensor) -> torch.Tensor:
     _raise_on(err, "permute_wordmajor")
     if n_lanes * n:
         LAUNCHES["permute_wordmajor"] += 1
+    return out
+
+
+def scan_permutations(ops: torch.Tensor, n: int) -> int:
+    """Permutations a scan of op table `ops` over n slots computes."""
+    return int(((ops[..., F_FLAGS] & ACTIVE) != 0).sum()) * n
+
+
+def _resolve(ops: torch.Tensor, sources: list, n_out: int, n: int) -> torch.Tensor:
+    """The op table with each descriptor's (source, offset) turned into a
+    pointer, after checking that every descriptor an op reads has a source,
+    that every slot's words lie in the source's storage and every output
+    slot in the table (numpy: a few dozen small array operations, cheaper on
+    the host than torch's)."""
+    table = ops.numpy().copy()
+    base = np.array([s.data_ptr() for s in sources], dtype=np.int64)
+    room = np.array([s.untyped_storage().nbytes() // 8 - s.storage_offset() for s in sources],
+                    dtype=np.int64)
+    flags = table[..., F_FLAGS]
+    active = (flags & ACTIVE) != 0
+    if (active & (table[..., F_OUT] >= n_out)).any():
+        raise ValueError(f"an op writes past the {n_out} output slots")
+    b_sel = (flags >> B_SEL_SHIFT) & 3
+    reads = {F_A: ((flags & A_IN) != 0) | (b_sel == B_IN_A), F_B: b_sel == B_IN_B, F_Q: (flags & SWAP) != 0}
+    for f, read in reads.items():
+        src, off, sn = table[..., f], table[..., f + 1], table[..., f + 2]
+        used = active & (src >= 0)
+        idx = src.clip(0, len(sources) - 1)
+        if f == F_Q:
+            last = off + (n - 1) * sn
+            level = table[..., f + 3]
+            bad = (sn < 0) | (level < 0) | (level > 62)
+        else:
+            sw, nw = table[..., f + 3], table[..., f + 4]
+            last = off + (n - 1) * sn + (nw - 1).clip(min=0) * sw
+            bad = (sn < 0) | (sw < 0) | (nw < 0) | (nw > 8)
+            read = read & (nw > 0)
+        if (active & read & (src < 0)).any():
+            raise ValueError("an op reads a scan descriptor that has no source")
+        bad = used & (bad | (src >= len(sources)) | (off < 0) | (last >= room[idx]))
+        if bad.any():
+            raise ValueError("a scan descriptor reads outside its source tensor")
+        table[..., f] = np.where(used, base[idx] + 8 * off, 0)
+    return torch.from_numpy(table)
+
+
+def wordmajor_scan(ops: torch.Tensor, sources: list, n_out: int, n: int,
+                   keep_capacity: bool) -> torch.Tensor:
+    """Run a scan pass on the card: returns the (n_out, 8, n) int64 table of
+    output digests (zero where no op writes).  `ops` is the CPU op table,
+    `sources` the CUDA int64 tensors its descriptors read; the rate half of
+    each permutation is kept (walks), or the capacity half (absorb)."""
+    if ops.device.type != "cpu" or ops.dtype != torch.int64 or ops.dim() != 3 or ops.shape[2] != FIELDS:
+        raise ValueError(f"expected an int64 (lanes, steps, {FIELDS}) op table on the CPU")
+    if not sources:
+        raise ValueError("expected at least one source tensor")
+    dev = sources[0].device
+    for s in sources:
+        if s.device != dev or dev.type != "cuda":
+            raise ValueError(f"every source must lie on one CUDA device, got {s.device} and {dev}")
+        if s.dtype != torch.int64:
+            raise TypeError(f"expected torch.int64 sources, got {s.dtype}")
+    lanes, steps, _ = ops.shape
+    table = _resolve(ops, sources, n_out, n).pin_memory().to(dev, non_blocking=True)
+    out = torch.zeros((n_out, 8, n), dtype=torch.int64, device=dev)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.p2_wordmajor_scan(table.data_ptr(), lanes, steps, n, int(keep_capacity), out.data_ptr(), stream)
+    _raise_on(err, "wordmajor_scan")
+    if lanes * steps * n:
+        LAUNCHES["wordmajor_scan"] += 1
     return out

@@ -10,6 +10,10 @@ times, at the shapes the port calls them with:
      separately where the checkout has more than one, and the one
      permute_rows picks ("auto").
   K2 (permute_wordmajor): (4, 16, 16384), a hash step; (4, 16, 2**18).
+  The scan (wordmajor_scan), where the checkout has it: the absorb and the
+     walk pass of one verify_batch at B=1024 of each fixture, and the same
+     passes of small_proof at B=2**14 run over their first N = 2**12 .. 2**18
+     slots; beside it K2 at its main-path shape, the leaf step (W, 16, B*Q).
 Before timing, every kernel output is held to the plain version bit for bit.
 Two times per shape: CUDA events around `reps` back-to-back calls (what a
 caller's loop pays, the wrapper's host cost included once it exceeds the
@@ -31,6 +35,8 @@ SEED = 2026
 ROW_SHAPES = ((1024, 200), (1 << 12, 200), (1 << 14, 100), (1 << 15, 100), (1 << 16, 50),
               (1 << 17, 50), (1 << 18, 20), (1 << 20, 20), (1 << 23, 5))
 WORDMAJOR_SHAPES = (((4, 16, 16384), 100), ((4, 16, 1 << 18), 20))
+FIXTURES = ("small_proof", "recursive_proof_16_15")
+SCAN_BATCH, SWEEP_BATCH, SWEEP_LOG_N = 1024, 1 << 14, range(12, 19)
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -48,23 +54,74 @@ def cuda_ms(torch, fn, reps: int) -> float:
 
 def profiled_ms(torch, fn, reps: int, name: str) -> float:
     """Mean device duration in milliseconds of the kernels whose name holds
-    `name`, over `reps` calls under torch.profiler."""
+    `name`, over `reps` calls under torch.profiler.  A trace without such a
+    kernel is taken again, up to three times: CUPTI now and then returns a
+    trace with no device events."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for evt in prof.key_averages():
-        if name in evt.key:
-            total += getattr(evt, "device_time_total", getattr(evt, "cuda_time_total", 0.0))
-            count += evt.count
-    if not count:
-        raise RuntimeError(f"the profiler saw no kernel named *{name}*")
-    return total / count / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for evt in prof.key_averages():
+            if name in evt.key:
+                total += getattr(evt, "device_time_total", getattr(evt, "cuda_time_total", 0.0))
+                count += evt.count
+        if count:
+            return total / count / 1e3
+    raise RuntimeError(f"the profiler saw no kernel named *{name}* in three traces")
+
+
+def _sub(prog, n: int):
+    """The same pass over its first n slots."""
+    from recursive_stwo_tpu_torch.verifier.hashplan import ScanProgram
+
+    return ScanProgram(prog.ops, prog.sources, n, prog.n_out, prog.keep_capacity, prog.device)
+
+
+def scan_runs(torch, poseidon_cuda, dev) -> list:
+    """(kernel, schedule, shape, permutations, reps, fn) of the scan at the
+    fixtures' passes and the N sweep, and of K2 at the leaf step, each held
+    bit for bit to scan_plain (or K2's plain version) first."""
+    from recursive_stwo_tpu_torch.core import poseidon2
+    from recursive_stwo_tpu_torch.tools import scan_cases
+    from recursive_stwo_tpu_torch.verifier import hashplan
+
+    def scan(p):
+        return poseidon_cuda.wordmajor_scan(p.ops, p.sources, p.n_out, p.n, p.keep_capacity)
+
+    runs = []
+
+    def add(label, prog, reps):
+        steps = int(((prog.ops[..., poseidon_cuda.F_FLAGS] & poseidon_cuda.ACTIVE) != 0).any(0).sum())
+        shape = f"{label} N={prog.n} ({prog.ops.shape[0]} lanes x {steps} steps)"
+        if not torch.equal(scan(prog), hashplan.scan_plain(prog)):
+            raise RuntimeError(f"wordmajor_scan differs from scan_plain at {shape}")
+        runs.append(("wordmajor_scan", "scan", shape, poseidon_cuda.scan_permutations(prog.ops, prog.n),
+                     reps, lambda: scan(prog)))
+
+    leaf_state = None
+    for name in FIXTURES:
+        progs, leaves = scan_cases.fixture_programs(name, SCAN_BATCH, dev)
+        leaf_state = leaf_state if leaf_state is not None else leaves
+        for label, prog in progs:
+            add(f"{name} {label}", prog, 20)
+    progs, _ = scan_cases.fixture_programs("small_proof", SWEEP_BATCH, dev)
+    for log_n in SWEEP_LOG_N:
+        for label, prog in progs:
+            add(f"small_proof {label} (sweep)", _sub(prog, 1 << log_n), 10)
+
+    # K2 at the leaf step of small_proof at B=1024
+    W, _, n = leaf_state.shape
+    if not torch.equal(poseidon_cuda.permute_wordmajor(leaf_state), poseidon2.permute_wordmajor_plain(leaf_state)):
+        raise RuntimeError("permute_wordmajor differs from the plain version at the leaf step")
+    runs.append(("permute_wordmajor", "leaf step", tuple(leaf_state.shape), W * n, 50,
+                 lambda: poseidon_cuda.permute_wordmajor(leaf_state)))
+    return runs
 
 
 def main() -> int:
@@ -113,11 +170,15 @@ def main() -> int:
         runs.append(("permute_wordmajor", "wordmajor", shape, shape[0] * shape[2], reps,
                      lambda x=x: poseidon_cuda.permute_wordmajor(x)))
 
+    if hasattr(poseidon_cuda, "wordmajor_scan"):
+        runs += scan_runs(torch, poseidon_cuda, dev)
+
     for kernel, sched, shape, n_states, reps, fn in runs:
         ms = cuda_ms(torch, fn, reps)
         dev_ms = profiled_ms(torch, fn, reps, kernel)
-        line = dict(label=label, kernel=kernel, schedule=sched, shape=list(shape), events_ms=ms,
-                    device_ms=dev_ms, mperm_per_s=n_states / dev_ms / 1e3)
+        line = dict(label=label, kernel=kernel, schedule=sched,
+                    shape=shape if isinstance(shape, str) else list(shape), events_ms=ms,
+                    device_ms=dev_ms, permutations=n_states, mperm_per_s=n_states / dev_ms / 1e3)
         if hasattr(poseidon_cuda, "bound_ms"):
             bound, by = poseidon_cuda.bound_ms(n_states)
             line.update(bound_ms=bound, bound_by=by, share_of_bound=bound / dev_ms)

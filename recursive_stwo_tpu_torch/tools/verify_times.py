@@ -1,0 +1,118 @@
+"""Wall times of the verifier's main path on CUDA, for one checkout or another.
+
+    python recursive_stwo_tpu_torch/tools/verify_times.py [--root DIR] [--label NAME] [--runs K]
+
+Imports recursive_stwo_tpu_torch from DIR (default: the checkout holding this
+script), so that a parent and a change can be timed in turns in one call on
+one card.  For each fixture at B=1024, on a device-resident batch, warm:
+  - the kernels' launches over one verify_batch (poseidon_cuda.LAUNCHES);
+  - proofs/s: B over the median of K synchronize()-bounded verify_batch runs;
+  - the hash phase's wall: the median over K further runs of
+    verify.hash_phase, bounded by synchronize() on both sides (separate runs,
+    since those two syncs cut the host's run-ahead);
+  - the device time of the hash kernels (every kernel whose name holds
+    "wordmajor": K2's steps, or the scans and K2's leaf step) in one
+    verify_batch under torch.profiler.
+Prints one JSON line per fixture, then the card's nvidia-smi line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+BATCH = 1024
+FIXTURES = ("small_proof", "recursive_proof_16_15")
+
+
+def hash_phase_walls(torch, step, arrays, runs: int) -> list:
+    """Seconds of verify.hash_phase in each of `runs` calls of step(arrays),
+    bounded by synchronize() on both sides."""
+    from recursive_stwo_tpu_torch.verifier import verify
+
+    walls = []
+    phase = verify.hash_phase
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = phase(*a)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        return out
+
+    verify.hash_phase = timed
+    try:
+        for _ in range(runs):
+            step(arrays)
+    finally:
+        verify.hash_phase = phase
+    return walls
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+    ap.add_argument("--label", default=None, help="name printed with every line (default: the root)")
+    ap.add_argument("--runs", type=int, default=9)
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("verify_times: torch.cuda.is_available() is false; this needs a GPU", file=sys.stderr)
+        return 1
+    from recursive_stwo_tpu_torch.models import flagship
+    from recursive_stwo_tpu_torch.ops import poseidon_cuda
+
+    dev = torch.device("cuda")
+    for name in FIXTURES:
+        step, arrays = flagship.verifier_step(name, BATCH, device=dev)
+        if not bool(step(arrays)["ok"].all()):
+            raise RuntimeError(f"{name}: clean batch rejected")
+        torch.cuda.synchronize()
+        poseidon_cuda.reset_launches()
+        step(arrays)
+        torch.cuda.synchronize()
+        launches = dict(poseidon_cuda.LAUNCHES)
+
+        walls = []
+        for _ in range(args.runs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(arrays)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+
+        hash_walls = hash_phase_walls(torch, step, arrays, args.runs)
+
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(arrays)
+            torch.cuda.synchronize()
+        hash_kernel_ms = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+                             for e in prof.key_averages() if "wordmajor" in e.key) / 1e3
+
+        print(json.dumps(dict(
+            label=args.label or args.root, fixture=name, batch=BATCH, launches=launches,
+            proofs_per_s=BATCH / statistics.median(walls),
+            verify_ms=[w * 1e3 for w in walls],
+            hash_phase_ms_median=statistics.median(hash_walls) * 1e3,
+            hash_phase_ms=[w * 1e3 for w in hash_walls],
+            hash_kernel_device_ms=hash_kernel_ms,
+        )), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

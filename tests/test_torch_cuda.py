@@ -15,6 +15,8 @@ from recursive_stwo_tpu.verifier import verify as r_verify
 from recursive_stwo_tpu_torch.core import poseidon2 as t_p2
 from recursive_stwo_tpu_torch.models import flagship
 from recursive_stwo_tpu_torch.ops import poseidon_cuda
+from recursive_stwo_tpu_torch.tools import scan_cases
+from recursive_stwo_tpu_torch.verifier import hashplan
 from recursive_stwo_tpu_torch.verifier import verify as t_verify
 from recursive_stwo_tpu_torch.verifier.arrays import to_torch
 
@@ -86,6 +88,34 @@ def test_permute_wordmajor_bit_exact(cuda, lanes, n):
     assert torch.equal(got, t_p2.permute_wordmajor_plain(wm))
     ref = r_p2.permute(x.astype(np.uint32)).astype(np.int64)
     assert np.array_equal(np.moveaxis(got.cpu().numpy(), 1, -1), ref)
+
+
+@pytest.mark.parametrize("n,lanes", [(1, 1), (7, 2), (127, 3), (129, 4), (16384, 4)])
+def test_wordmajor_scan_bit_exact(cuda, n, lanes):
+    """The scan kernel against scan_plain on the seeded absorb and walk
+    programs (every op kind; 1, 7, 127 and 129 slots leave tails of a warp
+    and of a block)."""
+    for label, prog in scan_cases.seeded_programs(n, lanes, n, cuda):
+        want = hashplan.scan_plain(prog)
+        got = poseidon_cuda.wordmajor_scan(prog.ops, prog.sources, prog.n_out, prog.n, prog.keep_capacity)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), label
+
+
+def test_verify_batch_launches_two_scans_and_one_leaf_step(cuda, monkeypatch):
+    """One verify_batch on CUDA: the absorb and the walk pass are one scan
+    launch each, the leaves one K2 step, and scan_plain never runs."""
+    def refuse(prog):
+        raise AssertionError("scan_plain ran on the CUDA path")
+
+    monkeypatch.setattr(hashplan, "scan_plain", refuse)
+    step, arrays = flagship.verifier_step("small_proof", 8, device=cuda)
+    poseidon_cuda.reset_launches()
+    ok = step(arrays)["ok"]
+    torch.cuda.synchronize()
+    assert bool(ok.all())
+    assert poseidon_cuda.LAUNCHES["wordmajor_scan"] == 2
+    assert poseidon_cuda.LAUNCHES["permute_wordmajor"] == 1
 
 
 def test_verify_batch_on_cuda_matches_host_reference(cuda):
