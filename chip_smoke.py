@@ -10,11 +10,13 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      the card and on the host CPU, bit for bit, at 2**20 states and at the
      main path's shapes, plus the Poseidon2-16 known-answer test; each of
      K1's schedules at 1, 7, 8, 1023, 1024, 2**20 + 3 and 2**23 rows; the
-     hash phase's scan kernel against scan_plain on the card, bit for bit, on seeded programs holding every op kind at
-     N = 1, 7, 127, 129, 16384 slots and 1-4 lanes, and on both fixtures'
-     absorb and walk passes at B=1024; kernel times (device time under
-     torch.profiler, and back to back under CUDA events), plain-version
-     times, and each time beside its bound;
+     hash phase's scan kernel against scan_plain on the card, bit for bit,
+     on seeded programs holding every op kind at N = 1, 7, 127, 129, 16384
+     slots and 1-4 lanes, and on both fixtures' absorb and walk passes at
+     B=1024; the same for phase 10's shapes: K1 at (512, 16), K2 at
+     np_small's leaf step and the scan on np_small's passes at B=512;
+     kernel times (device time under torch.profiler, and back to back under
+     CUDA events), plain-version times, and each time beside its bound;
   4. main path, small_proof at B=1024: the port's verify_batch on CUDA over
      a batch with a flipped sibling hash and a flipped nonce, and again with
      a wrong public input; every named check of every slot must equal the
@@ -36,9 +38,26 @@ Phases; any failure ends the run with a non-zero exit and no result line:
   8. the same for level 2 (level1-5.pkl verified once, largest domain
      2**23) against examples/data/level2-1.pkl (sha256 7476baa5...);
   9. grind: the port's grind_device on CUDA at 24 bits on a seeded digest
-     must find the host native scan's nonce; prints both times.
+     must find the host native scan's nonce; prints both times;
+ 10. without-Poseidon on the Poseidon31 channel, np_small at B=512 (bench.py's
+     batch for np_flavor_proofs_per_sec): verify_batch_np on CUDA over a
+     batch with a flipped sibling hash and a flipped nonce, and again with a
+     wrong public input, every named check of every slot equal to the CPU
+     run; K1 must launch, the scan exactly twice and K2 once; then warm
+     proofs/s (median of 5, synchronize()-bounded);
+ 11. the SHA-256 flavours, chain level 14 and the bitcoin-facing last-layer
+     proof, with the native SHA-256 library required: both host verifiers
+     and both fast paths (composition on CUDA) accept, and the fast paths
+     reject a corrupted sampled value (level 14), a corrupted first-layer
+     FRI witness and a wrong public input (bitcoin) by the named check; the
+     device checks at B=128 on CUDA, with a flipped sampled value and a
+     flipped pow digest in two slots, equal the CPU run per slot; prints
+     bench.py's SHA metrics (the fast path's time with the composition on
+     CUDA and on the CPU) and the level-14 device checks' proofs/s.
 The last three lines are the nvidia-smi line, a JSON line describing the
-kernels, and {"ok": true, "device": {...}}.
+kernels (np_launches, np_shape, np_ms, np_plain_ms and np_bound_ms: phase
+10's launches and shapes, and the kernel's times there), and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -74,6 +93,9 @@ PROVER_LEAF_ROWS = 1 << 23  # K1's largest call in phase 8: the level-2 composit
 # tails of a warp's 8 rows and a block's 32, and the prover's largest call
 ROWS_CHECKED = (1, 7, 8, 1023, 1024, (1 << 20) + 3, PROVER_LEAF_ROWS)
 GRIND_BITS = 24
+NP_BATCH = 512  # bench.py:187-188
+SHA_BATCH = 128  # bench.py:248
+SAMPLE_SLOT = 7
 # the scan kernel is held to scan_plain at these slots (tails of a warp and
 # of a block of 128 threads) with 1-4 lanes
 SCAN_SLOTS_CHECKED = (1, 7, 127, 129, 16384)
@@ -96,12 +118,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def check_kernels(torch, dev, leaf_state) -> dict:
+def check_kernels(torch, dev, leaf_state, np_leaf_state) -> dict:
     """Phase 3, K1 and K2.  Returns per-kernel {max_abs_err, ms, events_ms,
     plain_ms, bound_ms, bound_by} at the main path's shapes (for K2 the leaf
     step's (W, 16, B*Q) states, `leaf_state`): ms is the kernel's mean
     device time under torch.profiler, events_ms the CUDA-event time of
-    back-to-back calls (the wrapper's host cost included)."""
+    back-to-back calls (the wrapper's host cost included).  The same, under
+    np_*, at phase 10's shapes: K1 at (NP_BATCH, 16), K2 at np_small's leaf
+    step (`np_leaf_state`)."""
     from recursive_stwo_tpu_torch.core import poseidon2
     from recursive_stwo_tpu_torch.ops import poseidon_cuda
     from recursive_stwo_tpu_torch.tools.kernel_times import cuda_ms, profiled_ms
@@ -121,13 +145,14 @@ def check_kernels(torch, dev, leaf_state) -> dict:
     # main path's shapes, a transcript step (B, 16) and the leaf step (W, 16, B*Q)
     big_wm = xd.reshape(4, n // 4, 16).permute(0, 2, 1).contiguous()
     main_rows = xd[:BATCH].contiguous()
+    np_rows = xd[BATCH:BATCH + NP_BATCH].contiguous()
     result = {}
-    for name, fns, big, main, reps in (
-        ("permute_rows", rows, xd, main_rows, 200),
-        ("permute_wordmajor", wm, big_wm, leaf_state, 100),
+    for name, fns, big, main, np_main, reps in (
+        ("permute_rows", rows, xd, main_rows, np_rows, 200),
+        ("permute_wordmajor", wm, big_wm, leaf_state, np_leaf_state, 100),
     ):
         err = 0
-        for inp in (big, main):
+        for inp in (big, main, np_main):
             k, p = fns["kernel"](inp), fns["plain"](inp)
             torch.cuda.synchronize()
             require(torch.equal(k, p), f"{name} differs from its plain version at {tuple(inp.shape)}")
@@ -145,13 +170,22 @@ def check_kernels(torch, dev, leaf_state) -> dict:
         ms = profiled_ms(torch, lambda: fns["kernel"](main), reps, name)
         events_ms = cuda_ms(torch, lambda: fns["kernel"](main), reps)
         plain_ms = cuda_ms(torch, lambda: fns["plain"](main), 10)
-        print(f"{name}: bit-exact vs plain and host at {tuple(big.shape)} and {tuple(main.shape)}; KAT ok")
+        np_n = np_main.numel() // 16
+        np_bound, _ = poseidon_cuda.bound_ms(np_n)
+        np_ms = profiled_ms(torch, lambda: fns["kernel"](np_main), reps, name)
+        np_plain = cuda_ms(torch, lambda: fns["plain"](np_main), 10)
+        print(f"{name}: bit-exact vs plain and host at {tuple(big.shape)}, {tuple(main.shape)} "
+              f"and {tuple(np_main.shape)}; KAT ok")
         print(f"{name} {tuple(big.shape)}: kernel {big_ms:.4f} ms device ({n / big_ms / 1e3:.4g} Mperm/s; "
               f"bound {big_bound:.4f} ms by {big_by}), plain {big_plain:.4f} ms")
         print(f"{name} {tuple(main.shape)}: kernel {ms:.4f} ms device, {events_ms:.4f} ms per call back to back "
               f"({n_main / ms / 1e3:.4g} Mperm/s; bound {bound:.6f} ms by {bound_by}), plain {plain_ms:.4f} ms")
+        print(f"{name} {tuple(np_main.shape)} (np_small): kernel {np_ms:.4f} ms device "
+              f"({np_n / np_ms / 1e3:.4g} Mperm/s; bound {np_bound:.6f} ms), plain {np_plain:.4f} ms")
         result[name] = dict(max_abs_err=err, ms=ms, events_ms=events_ms, plain_ms=plain_ms,
-                            bound_ms=bound, bound_by=bound_by, library_ms=None)
+                            bound_ms=bound, bound_by=bound_by, library_ms=None,
+                            np_shape=list(np_main.shape), np_ms=np_ms, np_plain_ms=np_plain,
+                            np_bound_ms=np_bound)
 
     # every K1 schedule bit for bit at tail sizes and at the prover's largest
     # call (2**23 rows, the level-2 composition leaves), made on the card from
@@ -182,9 +216,10 @@ def check_kernels(torch, dev, leaf_state) -> dict:
 def check_scan(torch, dev, programs: dict) -> dict:
     """Phase 3, the scan kernel against scan_plain on the card, bit for bit:
     seeded programs at SCAN_SLOTS_CHECKED slots and 1-4 lanes, and each
-    fixture's absorb and walk passes at B=1024 (`programs`, name ->
-    [(label, ScanProgram)]).  Returns {max_abs_err, ms, events_ms, plain_ms,
-    bound_ms, bound_by} for both passes of one small_proof batch."""
+    fixture's absorb and walk passes (`programs`, name -> [(label,
+    ScanProgram)]: both PlonkWithPoseidon fixtures at B=1024, np_small at
+    NP_BATCH).  Returns, per fixture, {max_abs_err, ms, events_ms, plain_ms,
+    bound_ms, bound_by} for both passes of one batch."""
     from recursive_stwo_tpu_torch.ops import poseidon_cuda
     from recursive_stwo_tpu_torch.tools.kernel_times import cuda_ms, profiled_ms
     from recursive_stwo_tpu_torch.tools.scan_cases import seeded_programs
@@ -236,66 +271,89 @@ def _failing(checks: dict, slot: int) -> list:
     return sorted(k for k, v in checks.items() if not bool(v[slot]))
 
 
-def check_main_path(torch, dev, name: str) -> dict:
-    """Phases 4 and 5.  Returns the kernels' launch counts over one
-    verify_batch of the corrupted batch."""
-    from recursive_stwo_tpu_torch.models import flagship
+def hold_batch(torch, dev, label: str, run, pa, inputs) -> dict:
+    """Phases 4, 5 and 10.  `pa` is a numpy batch with a flipped sibling
+    hash (tree 1) in SIB_SLOT and a flipped nonce in NONCE_SLOT; run(pa,
+    inputs) is the verifier.  On CUDA and on the CPU, with the batch's
+    inputs and with a wrong first public input, every named check of every
+    slot must agree; the corrupted slots must fail by their checks.  Returns
+    the kernels' launch counts over one run on CUDA."""
     from recursive_stwo_tpu_torch.ops import poseidon_cuda
-    from recursive_stwo_tpu_torch.verifier import verify
     from recursive_stwo_tpu_torch.verifier.arrays import to_torch
 
-    spec, pa1 = flagship.prepared_arrays(name)
-    inputs = flagship.FIXTURE_INPUTS[name]
-    pa = flagship.tiled_batch(pa1, BATCH)
-    pa.tree_paths[1].sibling_hashes[SIB_SLOT, 0, 0, 0] ^= np.uint32(1)
-    pa.nonce_limbs[NONCE_SLOT] ^= np.uint32(1)
+    batch = pa.commitments.shape[0]
     pa_d = to_torch(pa, dev)
     pa_host = to_torch(pa, "cpu")
     torch.cuda.synchronize()
 
     poseidon_cuda.reset_launches()
-    checks = verify.verify_batch(spec, pa_d, inputs)
+    checks = run(pa_d, inputs)
     torch.cuda.synchronize()
     launches = dict(poseidon_cuda.LAUNCHES)
-    require(launches["permute_rows"] > 0, f"{name}: K1 never launched: {launches}")
+    require(launches["permute_rows"] > 0, f"{label}: K1 never launched: {launches}")
     require(launches["wordmajor_scan"] == 2 and launches["permute_wordmajor"] == 1,
-            f"{name}: expected 2 scan launches and 1 K2 leaf step, got {launches}")
+            f"{label}: expected 2 scan launches and 1 K2 leaf step, got {launches}")
 
     wrong_inputs = ((inputs[0][0], (2, 0, 0, 0)),) + tuple(inputs[1:])
-    for label, inp in (("fixture inputs", inputs), ("wrong public input", wrong_inputs)):
-        got = checks if inp is inputs else verify.verify_batch(spec, pa_d, inp)
+    for case, inp in (("batch inputs", inputs), ("wrong public input", wrong_inputs)):
+        got = checks if inp is inputs else run(pa_d, inp)
         t = time.perf_counter()
-        ref = verify.verify_batch(spec, pa_host, inp)
+        ref = run(pa_host, inp)
         host_s = time.perf_counter() - t
-        require(list(got) == list(ref), f"{name}: check names differ from the host run")
+        require(list(got) == list(ref), f"{label}: check names differ from the host run")
         for k in ref:
             g = got[k].cpu()
-            require(g.shape == (BATCH,) and torch.equal(g, ref[k]),
-                    f"{name} ({label}): check {k} differs from the host run")
+            require(g.shape == (batch,) and torch.equal(g, ref[k]),
+                    f"{label} ({case}): check {k} differs from the host run")
         ok = got["ok"].cpu().numpy()
         if inp is inputs:
-            clean = np.ones(BATCH, bool)
+            clean = np.ones(batch, bool)
             clean[[SIB_SLOT, NONCE_SLOT]] = False
-            require(ok[clean].all(), f"{name}: a clean slot was rejected")
+            require(ok[clean].all(), f"{label}: a clean slot was rejected")
             require(_failing(got, SIB_SLOT) == ["ok", "tree1"],
-                    f"{name}: sibling flip fails {_failing(got, SIB_SLOT)}")
-            require(not got["pow"][NONCE_SLOT] and not ok[NONCE_SLOT], f"{name}: nonce flip accepted")
+                    f"{label}: sibling flip fails {_failing(got, SIB_SLOT)}")
+            require(not got["pow"][NONCE_SLOT] and not ok[NONCE_SLOT], f"{label}: nonce flip accepted")
         else:
             require(not got["total_sum"].any().item() and not ok.any(),
-                    f"{name}: wrong public input accepted")
-        print(f"{name} B={BATCH} ({label}): all {len(ref)} checks equal the CPU run "
+                    f"{label}: wrong public input accepted")
+        print(f"{label} B={batch} ({case}): all {len(ref)} checks equal the CPU run "
               f"({host_s:.1f} s) per slot; {int(ok.sum())} slots ok")
-    print(f"{name}: kernel launches in one verify_batch: {launches}")
+    print(f"{label}: kernel launches in one run: {launches}")
     return launches
 
 
-def proofs_per_s(torch, dev, name: str, runs: int = 5) -> float:
-    """Phase 6: warm, median of `runs` synchronised verify_batch calls on a
-    device-resident clean batch (the host-to-device copy is not timed)."""
-    from recursive_stwo_tpu_torch.models import flagship
+def _corrupted(pa):
+    pa.tree_paths[1].sibling_hashes[SIB_SLOT, 0, 0, 0] ^= np.uint32(1)
+    pa.nonce_limbs[NONCE_SLOT] ^= np.uint32(1)
+    return pa
 
-    step, arrays = flagship.verifier_step(name, BATCH, device=dev)
-    require(bool(step(arrays)["ok"].all()), f"{name}: clean batch rejected")
+
+def check_main_path(torch, dev, name: str) -> dict:
+    """Phases 4 and 5: verify_batch on a fixture at B=1024."""
+    from recursive_stwo_tpu_torch.models import flagship
+    from recursive_stwo_tpu_torch.verifier import verify
+
+    spec, pa1 = flagship.prepared_arrays(name)
+    pa = _corrupted(flagship.tiled_batch(pa1, BATCH))
+    return hold_batch(torch, dev, name, lambda a, inp: verify.verify_batch(spec, a, inp), pa,
+                      flagship.FIXTURE_INPUTS[name])
+
+
+def check_np_path(torch, dev) -> dict:
+    """Phase 10: verify_batch_np on np_small at B=NP_BATCH."""
+    from recursive_stwo_tpu_torch.models import flagship
+    from recursive_stwo_tpu_torch.verifier.verify_np import verify_batch_np
+
+    spec, pa1 = flagship.prepared_arrays_np("np_small")
+    pa = _corrupted(flagship.tiled_batch(pa1, NP_BATCH))
+    return hold_batch(torch, dev, "np_small", lambda a, inp: verify_batch_np(spec, a, inp), pa,
+                      flagship.NP_FIXTURE_INPUTS["np_small"])
+
+
+def _median_rate(torch, label: str, step, arrays, batch: int, runs: int = 5) -> float:
+    """Warm proofs/s: the median of `runs` synchronised calls of step on a
+    device-resident clean batch (the host-to-device copy is not timed)."""
+    require(bool(step(arrays)["ok"].all()), f"{label}: clean batch rejected")
     times = []
     for _ in range(runs):
         torch.cuda.synchronize()
@@ -304,9 +362,17 @@ def proofs_per_s(torch, dev, name: str, runs: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
     med = statistics.median(times)
-    print(f"{name} B={BATCH}: verify_batch {med * 1e3:.1f} ms median of {runs} "
-          f"({', '.join(f'{s * 1e3:.1f}' for s in times)} ms) = {BATCH / med:.1f} proofs/s")
-    return BATCH / med
+    print(f"{label} B={batch}: {med * 1e3:.1f} ms median of {runs} "
+          f"({', '.join(f'{s * 1e3:.1f}' for s in times)} ms) = {batch / med:.1f} proofs/s")
+    return batch / med
+
+
+def proofs_per_s(torch, dev, name: str) -> float:
+    """Phase 6: warm proofs/s of verify_batch at B=1024."""
+    from recursive_stwo_tpu_torch.models import flagship
+
+    step, arrays = flagship.verifier_step(name, BATCH, device=dev)
+    return _median_rate(torch, f"{name} verify_batch", step, arrays, BATCH)
 
 
 def hash_phase_ms(torch, dev, name: str, runs: int = 5) -> float:
@@ -406,6 +472,114 @@ def check_grind(torch, dev) -> None:
           f"host native scan {host_s:.3f} s")
 
 
+def np_rate(torch, dev) -> float:
+    """Phase 10: np_flavor_proofs_per_sec, warm proofs/s of verify_batch_np
+    on np_small at B=NP_BATCH."""
+    from recursive_stwo_tpu_torch.models import flagship
+
+    step, arrays = flagship.verifier_step_np("np_small", NP_BATCH, device=dev)
+    return _median_rate(torch, "np_small verify_batch_np", step, arrays, NP_BATCH)
+
+
+def _mean_ms(fn, runs: int = 3) -> float:
+    t = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    return (time.perf_counter() - t) / runs * 1e3
+
+
+def _bench_rate(torch, step, arrays, fs, batch: int, reps: int = 5) -> float:
+    """bench.py's _time (bench.py:64-70): one warm call, then `reps` calls
+    back to back and one synchronize(); proofs/s over their mean."""
+    step(arrays, fs)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        step(arrays, fs)
+    torch.cuda.synchronize()
+    return batch / ((time.perf_counter() - t) / reps)
+
+
+def check_sha(torch, dev) -> dict:
+    """Phase 11: the SHA-256 flavours.  Returns bench.py's SHA metrics."""
+    import copy
+
+    from recursive_stwo_tpu_torch.models import flagship
+    from recursive_stwo_tpu_torch.utils import native
+    from recursive_stwo_tpu_torch.verifier import verify_sha256 as vs
+    from recursive_stwo_tpu_torch.verifier import verify_sha256_host as vh
+
+    require(native.sha_available(), "the native SHA-256 library is not available")
+    print("native SHA-256 library: available (the host path timed is the native one)")
+    level14, bitcoin = flagship.sha_artifacts()
+    inner = flagship.CHAIN_INPUTS
+    t = time.perf_counter()
+    btc_inputs = flagship.bitcoin_inputs()
+    print(f"bitcoin public inputs: {len(btc_inputs)}, from the last-layer circuit over level 14 "
+          f"in {time.perf_counter() - t:.2f} s")
+
+    require(vh.verify_sha256p31_host(level14, inner)["ok"].all(), "level 14 rejected on the host")
+    require(vh.verify_sha256np_host(bitcoin, btc_inputs)["ok"].all(), "bitcoin proof rejected on the host")
+    require(vs.verify_sha256p31(level14, inner, device=dev)["ok"].all(), "level 14 rejected (fast path)")
+    require(vs.verify_sha256np(bitcoin, btc_inputs, device=dev)["ok"].all(), "bitcoin proof rejected (fast path)")
+
+    # the corruptions of tests/test_sha256_device.py:64-100
+    bad = copy.deepcopy(level14)
+    col = bad.stark_proof.sampled_values[2][0]
+    col[0] = tuple((int(x) + 1) % P for x in col[0])
+    r = vs.verify_sha256p31(bad, inner, device=dev)
+    require(not r["ok"].any() and not r["merkle_fri"].any(), f"level 14, corrupted sampled value: {r}")
+    bad = copy.deepcopy(bitcoin)
+    fw = np.asarray(bad.stark_proof.fri_proof.first_layer.fri_witness, np.uint32).copy()
+    fw.flat[0] = (int(fw.flat[0]) + 1) % P
+    bad.stark_proof.fri_proof.first_layer.fri_witness = fw
+    r = vs.verify_sha256np(bad, btc_inputs, device=dev)
+    require(not r["ok"].any() and not r["merkle_fri"].any(), f"bitcoin, corrupted FRI witness: {r}")
+    wrong = list(btc_inputs)
+    idx, val = wrong[5]
+    wrong[5] = (idx, ((val[0] + 1) % P,) + val[1:])
+    r = vs.verify_sha256np(bitcoin, tuple(wrong), device=dev)
+    require(not r["ok"].any() and _failing(r, 0) == ["ok", "total_sum"], f"bitcoin, wrong public input: {r}")
+    print("fast paths on CUDA: level 14 and bitcoin accepted; corrupted sampled value -> merkle_fri, "
+          "corrupted FRI witness -> merkle_fri, wrong public input -> total_sum")
+
+    def corrupted_checks(kind, device):
+        step, arrays, fs = flagship.sha_checks_step(kind, SHA_BATCH, device=device)
+        arrays.samples_flat[SAMPLE_SLOT, 0, 0] ^= 1
+        fs.pow_digest0[NONCE_SLOT] ^= 1
+        return step(arrays, fs)
+
+    metrics = {}
+    for kind in ("level14", "bitcoin"):
+        got = corrupted_checks(kind, dev)
+        torch.cuda.synchronize()
+        ref = corrupted_checks(kind, "cpu")
+        require(list(got) == list(ref), f"{kind}: device check names differ from the CPU run")
+        for k in ref:
+            require(torch.equal(got[k].cpu(), ref[k]), f"{kind}: device check {k} differs from the CPU run")
+        ok = got["ok"].cpu().numpy()
+        clean = np.ones(SHA_BATCH, bool)
+        clean[[SAMPLE_SLOT, NONCE_SLOT]] = False
+        require(ok[clean].all() and not ok[SAMPLE_SLOT], f"{kind}: device checks {_failing(got, SAMPLE_SLOT)}")
+        require(_failing(got, NONCE_SLOT) == ["ok", "pow"], f"{kind}: pow flip fails {_failing(got, NONCE_SLOT)}")
+        print(f"{kind} device checks B={SHA_BATCH}: all {len(ref)} checks equal the CPU run per slot; "
+              f"sampled-value slot fails {_failing(got, SAMPLE_SLOT)}, pow slot fails ['ok', 'pow']")
+        step, arrays, fs = flagship.sha_checks_step(kind, SHA_BATCH, device=dev)
+        name = "sha256p31_device_proofs_per_sec" if kind == "level14" else "bitcoin_device_proofs_per_sec"
+        metrics[name] = _bench_rate(torch, step, arrays, fs, SHA_BATCH)
+
+    metrics["bitcoin_np_host_verify_ms"] = _mean_ms(lambda: vh.verify_sha256np_host(bitcoin, btc_inputs))
+    metrics["sha256p31_host_verify_ms"] = _mean_ms(lambda: vh.verify_sha256p31_host(level14, inner))
+    for device, key in ((dev, "sha256p31_verify_ms"), ("cpu", "sha256p31_verify_ms_cpu")):
+        trials = []
+        for _ in range(3):
+            t = time.perf_counter()
+            vs.verify_sha256p31(level14, inner, device=device)
+            trials.append((time.perf_counter() - t) * 1e3)
+        metrics[key] = min(trials)
+    return metrics
+
+
 def main() -> int:
     import torch
 
@@ -433,10 +607,15 @@ def main() -> int:
     for name in FIXTURES:
         programs[name], leaves = fixture_programs(name, BATCH, dev)
         leaf_state = leaves if leaf_state is None else leaf_state
-    kernels = check_kernels(torch, dev, leaf_state)
+    programs["np_small"], np_leaf_state = fixture_programs("np_small", NP_BATCH, dev)
+    kernels = check_kernels(torch, dev, leaf_state, np_leaf_state)
     scans = check_scan(torch, dev, programs)
     kernels["wordmajor_scan"] = scans[FIXTURES[0]]
-    del programs, leaf_state
+    kernels["wordmajor_scan"].update(
+        np_shape=[list(p.ops.shape[:2]) + [p.n] for _, p in programs["np_small"]],
+        **{f"np_{k}": scans["np_small"][k] for k in ("ms", "plain_ms", "bound_ms")},
+    )
+    del programs, leaf_state, np_leaf_state
     torch.cuda.synchronize()
 
     launches = {}
@@ -454,6 +633,20 @@ def main() -> int:
     prover_launches = {level: prove_level(torch, dev, level) for level in (1, 2)}
     check_grind(torch, dev)
 
+    np_launches = check_np_path(torch, dev)
+    torch.cuda.synchronize()
+    np_rate_v = np_rate(torch, dev)
+    print(f"np_small: np_flavor_proofs_per_sec {np_rate_v:.1f} at B={NP_BATCH} on {smi}")
+    sha = check_sha(torch, dev)
+    print(f"bitcoin_np_host_verify_ms {sha['bitcoin_np_host_verify_ms']:.2f} (mean of 3, host); "
+          f"bitcoin_device_proofs_per_sec {sha['bitcoin_device_proofs_per_sec']:.1f} at B={SHA_BATCH}; "
+          f"sha256p31_host_verify_ms {sha['sha256p31_host_verify_ms']:.2f} (mean of 3, host); "
+          f"sha256p31_verify_ms {sha['sha256p31_verify_ms']:.2f} with the composition on CUDA, "
+          f"{sha['sha256p31_verify_ms_cpu']:.2f} on the CPU (min of 3); on {smi}")
+    print(f"sha256p31_device_proofs_per_sec {sha['sha256p31_device_proofs_per_sec']:.1f} at B={SHA_BATCH} "
+          f"(new, not one of bench.py's metrics: device_checks_p31 on level 14, timed as bench.py times "
+          f"bitcoin_device_proofs_per_sec)")
+
     require("jax" not in sys.modules, "jax was imported")
     require(not any(m.split(".")[0] == "recursive_stwo_tpu" for m in sys.modules), "the JAX package was imported")
     replaces = {
@@ -465,7 +658,7 @@ def main() -> int:
     report = [
         dict(name=k, route="cuda", source="recursive_stwo_tpu_torch/csrc/poseidon2.cu",
              replaces=replaces[k], launches=launches[FIXTURES[0]][k],
-             prover_launches=prover_launches[1][k], **kernels[k])
+             prover_launches=prover_launches[1][k], np_launches=np_launches[k], **kernels[k])
         for k in replaces
     ]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s")

@@ -1,13 +1,17 @@
-"""Flagship model: the batched PlonkWithPoseidon proof verifier, and the
-recursion chain's first two levels for the prover.
+"""Flagship model: the batched PlonkWithPoseidon proof verifier, the other
+proof flavours' verifiers, and the recursion chain's first two levels for
+the prover.
 
 Twin of recursive_stwo_tpu/models/flagship.py.  Fixture loading
 (`load_fixture`, copied) and host hint preparation run in numpy;
 `verifier_step` puts a batch on a torch device and returns the verifier step
-over it.  `chain_level_trace` builds the circuit of chain level 1 or 2 on the
-host with the expected proof artifact beside it.  `load_artifact` reads the
-chain's pickled proofs, whose classes are named by their JAX-package paths,
-into the port's copies of those classes.
+over it, and `verifier_step_np` does the same for the without-Poseidon
+fixture np_small.  `sha_checks_step` batches the device checks of the
+chain's two SHA-256-flavour artifacts (level 14 and the bitcoin-facing
+last-layer proof).  `chain_level_trace` builds the circuit of chain level 1
+or 2 on the host with the expected proof artifact beside it.
+`load_artifact` reads the chain's pickled proofs, whose classes are named by
+their JAX-package paths, into the port's copies of those classes.
 """
 
 from __future__ import annotations
@@ -17,19 +21,19 @@ import pickle
 from functools import lru_cache
 
 import numpy as np
-import torch
 
 from ..cs import scalar
 from ..cs.system import PlonkWithPoseidonCS
 from ..gadgets.fields import QM31Var
 from ..gadgets.poseidon import Poseidon2Half
 from ..proof.containers import FriConfig, PcsConfig
-from ..proof.parse import parse_plonk_with_poseidon_proof
+from ..proof.parse import parse_plonk_with_poseidon_proof, parse_plonk_without_poseidon_proof
 from ..proof.serialize import serialize_plonk_with_poseidon_proof
-from ..recursion.pipeline import build_verifier_circuit
-from ..verifier import hints, verify
-from ..verifier.arrays import ProofArrays, map_arrays, to_torch
-from ..verifier.spec import VerifierSpec
+from ..recursion.pipeline import build_last_circuit, build_verifier_circuit
+from ..verifier import hints, sha256_merkle, transcript_host, verify, verify_np, verify_sha256
+from ..verifier.arrays import ProofArrays, from_proofs_np, map_arrays, require_device, to_torch
+from ..verifier.spec import NoPoseidonVerifierSpec, VerifierSpec
+from ..verifier.verify_sha256_host import run_transcript_sha256np, run_transcript_sha256p31
 
 REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # the committed stwo fixtures, data files of the JAX package
@@ -169,9 +173,7 @@ def artifact_bytes(path: str) -> bytes:
 def verifier_step(name: str = "small_proof", batch: int = 4, device="cuda"):
     """(step, arrays): the verifier over `batch` copies of a fixture, with the
     arrays already on `device`; step(arrays) returns the dict of checks."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is false")
+    device = require_device(device)
     spec, pa = prepared_arrays(name)
     inputs = FIXTURE_INPUTS[name]
 
@@ -179,3 +181,106 @@ def verifier_step(name: str = "small_proof", batch: int = 4, device="cuda"):
         return verify.verify_batch(spec, arrays, inputs)
 
     return step, to_torch(tiled_batch(pa, batch), device)
+
+
+# the without-Poseidon fixture and its public inputs (bench.py:185-188)
+NP_FIXTURE_INPUTS = {"np_small": verify.INPUTS_RECURSIVE}
+
+
+@lru_cache(maxsize=None)
+def load_np_fixture(name: str = "np_small"):
+    """(proof, spec) of a committed PlonkWithoutPoseidon fixture."""
+    with open(os.path.join(TESTDATA, f"{name}.bin"), "rb") as f:
+        proof = parse_plonk_without_poseidon_proof(f.read())
+    return proof, NoPoseidonVerifierSpec.for_rows(proof.log_size, proof.config)
+
+
+@lru_cache(maxsize=None)
+def prepared_arrays_np(name: str = "np_small") -> tuple:
+    """(spec, numpy ProofArrays of batch 1) for a without-Poseidon fixture."""
+    proof, spec = load_np_fixture(name)
+    pa = hints.prepare(
+        spec, [proof], arrays_fn=from_proofs_np, transcript_fn=transcript_host.run_transcript_np
+    )
+    return spec, pa
+
+
+def verifier_step_np(name: str = "np_small", batch: int = 4, device="cuda"):
+    """(step, arrays): verify_batch_np over `batch` copies of a
+    without-Poseidon fixture, the arrays already on `device`."""
+    device = require_device(device)
+    spec, pa = prepared_arrays_np(name)
+    inputs = NP_FIXTURE_INPUTS[name]
+
+    def step(arrays: ProofArrays):
+        return verify_np.verify_batch_np(spec, arrays, inputs)
+
+    return step, to_torch(tiled_batch(pa, batch), device)
+
+
+# the SHA-256-flavour artifacts of the chain: level 14's Sha256Poseidon31
+# proof, and the last layer's Sha256MerkleChannel PlonkWithoutPoseidon
+# proof (examples/recursion_chain.py:143, examples/last_layer.py:132,174)
+SHA_ARTIFACTS = {"level14": "level14-1", "bitcoin": "bitcoin_proof"}
+
+
+def sha_artifact(kind: str):
+    """A fresh copy of a SHA-256-flavour artifact ("level14" or "bitcoin")."""
+    return load_artifact(os.path.join(CHAIN_DATA, f"{SHA_ARTIFACTS[kind]}.pkl"))
+
+
+def sha_artifacts() -> tuple:
+    """(level-14 proof, bitcoin proof), freshly loaded."""
+    return sha_artifact("level14"), sha_artifact("bitcoin")
+
+
+@lru_cache(maxsize=None)
+def bitcoin_inputs() -> tuple:
+    """The bitcoin proof's 264 public inputs: the packed Fiat-Shamir and
+    decommitment vector of the last-layer circuit over level 14
+    (examples/last-layer/src/main.rs:113-186), rebuilt by building that
+    circuit without proving it, as bench.py:213-222 does."""
+    lvl14 = sha_artifact("level14")
+    cs, _ = build_last_circuit(
+        lvl14, list(CHAIN_INPUTS),
+        transcript_fn=lambda s, pa: run_transcript_sha256p31(s, lvl14),
+        hash_node_fn=sha256_merkle.hash_node,
+    )
+    return tuple((i + 1, tuple(int(x) for x in cs.value(i + 1))) for i in range(cs.num_input))
+
+
+def sha_inputs(kind: str) -> tuple:
+    return CHAIN_INPUTS if kind == "level14" else bitcoin_inputs()
+
+
+@lru_cache(maxsize=None)
+def sha_prepared(kind: str) -> tuple:
+    """(spec, numpy ProofArrays of batch 1, batch-1 host FSOutput) of a
+    SHA-256-flavour artifact: the host SHA transcript and the root-asserting
+    path expansion."""
+    proof = sha_artifact(kind)
+    if kind == "level14":
+        spec = VerifierSpec.from_proof(proof)
+        fs = run_transcript_sha256p31(spec, proof)
+        kw = {}
+    else:
+        spec = NoPoseidonVerifierSpec.for_rows(proof.log_size, proof.config)
+        fs = run_transcript_sha256np(spec, proof)
+        kw = {"arrays_fn": from_proofs_np}
+    pa = hints.prepare(spec, [proof], transcript_fn=lambda s, p: fs, hash_node_fn=sha256_merkle.hash_node, **kw)
+    return spec, pa, fs
+
+
+def sha_checks_step(kind: str, batch: int = 4, device="cuda"):
+    """(step, arrays, fs): the SHA-256 flavour's device checks over `batch`
+    copies of an artifact and of its FSOutput, both already on `device`;
+    step(arrays, fs) returns the dict of checks."""
+    device = require_device(device)
+    spec, pa, fs = sha_prepared(kind)
+    inputs = sha_inputs(kind)
+    checks = verify_sha256.device_checks_p31 if kind == "level14" else verify_sha256.device_checks_np
+
+    def step(arrays: ProofArrays, fs_b):
+        return checks(spec, arrays, fs_b, inputs)
+
+    return step, to_torch(tiled_batch(pa, batch), device), verify_sha256.tile_fs(fs, batch, device)

@@ -10,9 +10,8 @@ the CPU: `device="cuda"` without a CUDA device raises.
 
 from __future__ import annotations
 
-import torch
-
 from ..proof.containers import PcsConfig, PlonkWithPoseidonProof
+from ..verifier.arrays import require_device
 from .device_prove import prove_device
 
 
@@ -31,7 +30,4 @@ def prove(
             "only the default Poseidon31 channel and tree are ported; the SHA-256 "
             "flavour and other channels wait in ROADMAP.md's queue of modules to port"
         )
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is false")
-    return prove_device(trace, config, progress, device)
+    return prove_device(trace, config, progress, require_device(device))

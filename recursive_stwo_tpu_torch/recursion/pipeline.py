@@ -131,6 +131,79 @@ def build_last_circuit(
     sampled-hash (2), sums (2), z, alpha, random coeffs (2), packed
     queries, fri_alphas, packed decommit columns, pair-proof columns.
     """
-    raise NotImplementedError(
-        "build_last_circuit: the PlonkWithoutPoseidon last-layer circuit is not ported"
+    from ..cs.system import PlonkWithoutPoseidonCS
+    from . import last as last_mod
+
+    spec = VerifierSpec.from_proof(proof)
+    if transcript_fn is None:
+        transcript_fn = lambda s, pa_: transcript.run_transcript(s, pa_)  # noqa: E731
+    pa = hints_mod.prepare(
+        spec, [proof], transcript_fn=transcript_fn, hash_node_fn=hash_node_fn
     )
+    fs = transcript_fn(spec, pa)
+    native_answers = (
+        hints_mod.host_fri_answers(spec, fs, pa, pa.tree_paths)
+        if cross_check
+        else None
+    )
+
+    cs = PlonkWithoutPoseidonCS()
+
+    fs_input = last_mod.LastFiatShamirInput(spec, proof, fs)
+    fs_input_var = last_mod.LastFiatShamirInputVar(cs, fs_input)
+
+    tree_columns = [
+        {lvl: np.asarray(v)[0] for lvl, v in pa.tree_paths[t].columns.items()}
+        for t in range(4)
+    ]
+    decommit_input_var = last_mod.LastDecommitInputVar(
+        cs, tree_columns, spec.n_queries
+    )
+    first_layer_vars = last_mod.alloc_pair_inputs(
+        cs, pa.first_layer_paths, spec.n_queries
+    )
+    inner_layer_vars = [
+        last_mod.alloc_pair_inputs(cs, pp, spec.n_queries)
+        for pp in pa.inner_layer_paths
+    ]
+
+    proof_var = last_mod.LastProofVar(cs, proof)
+    fs_results = last_mod.LastFiatShamirResults.compute(
+        proof_var, fs_input_var, inner_inputs
+    )
+    last_mod.LastCompositionCheck.compute(
+        spec,
+        fs_results.lookup_elements,
+        fs_results.random_coeff,
+        fs_results.oods_point,
+        proof_var,
+    )
+    answer_results = last_mod.LastAnswerResults.compute(
+        spec,
+        fs_results,
+        decommit_input_var,
+        tree_columns,
+        proof_var,
+        native_answers,
+    )
+    last_mod.LastFoldingResults.compute(
+        spec,
+        proof_var,
+        fs_results,
+        answer_results,
+        first_layer_vars,
+        inner_layer_vars,
+    )
+
+    if finalize:
+        cs.pad()
+        cs.check_arithmetics()
+        cs.populate_logup_arguments()
+
+    return cs, {
+        "spec": spec,
+        "proof_var": proof_var,
+        "fs_results": fs_results,
+        "answer_results": answer_results,
+        "fs_input": fs_input,
+    }

@@ -1,0 +1,132 @@
+"""Walls, CUDA launches and device busy time of the other proof flavours.
+
+    python recursive_stwo_tpu_torch/tools/flavour_times.py [--runs K]
+
+Steps, each warm:
+  - np_small: verify_batch_np at B=512 on a device-resident batch;
+  - level14 / bitcoin: the SHA-256 flavours' device checks
+    (device_checks_p31 / device_checks_np) at B=128 on a device-resident
+    batch and FSOutput;
+  - level14 / bitcoin composition: the batch-1 composition check of the
+    SHA fast path (verify_sha256_host.composition_on), on CUDA and on the
+    CPU;
+  - level14 / bitcoin fast path: verify_sha256p31 / verify_sha256np whole
+    (host SHA transcript and path expansion included), on CUDA and on the
+    CPU.
+For each: every one of K synchronize()-bounded walls and their median; for
+the CUDA steps, one further run under torch.profiler: the kernels launched,
+the copies and fills, the device busy time (the kernels' summed durations,
+one stream) and its share of the untraced median wall, and the wall per
+kernel launch.  Prints one JSON line per step, then the card's nvidia-smi
+line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+NP_BATCH = 512  # bench.py:187-188
+SHA_BATCH = 128  # bench.py:248
+
+
+def walls_ms(torch, fn, runs: int) -> list:
+    """Milliseconds of each of `runs` calls of fn, after one warm-up, each
+    bounded by synchronize() where a card is in use."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    fn()
+    out = []
+    for _ in range(runs):
+        sync()
+        t = time.perf_counter()
+        fn()
+        sync()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def device_profile(torch, fn) -> dict:
+    """Kernels, copies and fills, and the kernels' summed device time (ms)
+    in one call of fn under torch.profiler.  A trace with no device events
+    is taken again, up to three times: CUPTI now and then returns none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = copies = 0
+        busy_us = 0.0
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            if e.name.startswith(("Memcpy", "Memset")):
+                copies += 1
+            else:
+                kernels += 1
+                busy_us += e.time_range.elapsed_us()
+        if kernels:
+            return dict(kernels=kernels, copies_and_fills=copies, busy_ms=busy_us / 1e3)
+    raise RuntimeError("the profiler saw no device event in three traces")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--runs", type=int, default=9)
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("flavour_times: torch.cuda.is_available() is false; this needs a GPU", file=sys.stderr)
+        return 1
+    from recursive_stwo_tpu_torch.core.qm31 import QM31
+    from recursive_stwo_tpu_torch.models import flagship
+    from recursive_stwo_tpu_torch.verifier import verify_sha256 as vs
+    from recursive_stwo_tpu_torch.verifier.verify_sha256_host import composition_on
+
+    dev = torch.device("cuda")
+    steps = []
+    step, arrays = flagship.verifier_step_np("np_small", NP_BATCH, device=dev)
+    steps.append(("np_small verify_batch_np", NP_BATCH, "cuda", lambda: step(arrays)))
+    for kind in ("level14", "bitcoin"):
+        c_step, c_arrays, c_fs = flagship.sha_checks_step(kind, SHA_BATCH, device=dev)
+        steps.append((f"{kind} device checks", SHA_BATCH, "cuda",
+                      lambda s=c_step, a=c_arrays, f=c_fs: s(a, f)))
+        spec, pa, fs = flagship.sha_prepared(kind)
+        sums = [pa.plonk_total_sum] + ([pa.poseidon_total_sum] if kind == "level14" else [])
+        sums = [QM31(*(s[:, i] for i in range(4))) for s in sums]
+        proof = flagship.sha_artifact(kind)
+        fast = vs.verify_sha256p31 if kind == "level14" else vs.verify_sha256np
+        inputs = flagship.sha_inputs(kind)
+        for device in ("cuda", "cpu"):
+            steps.append((f"{kind} fast-path composition", 1, device,
+                          lambda spec=spec, pa=pa, sums=sums, fs=fs, d=device:
+                          composition_on(spec, pa.samples_flat, sums, fs, d)))
+            steps.append((f"{kind} fast path", 1, device,
+                          lambda fast=fast, p=proof, i=inputs, d=device: fast(p, i, device=d)))
+
+    for name, batch, device, fn in steps:
+        walls = walls_ms(torch, fn, args.runs)
+        med = statistics.median(walls)
+        line = dict(step=name, batch=batch, device=device, wall_ms_median=med, wall_ms=walls,
+                    proofs_per_s=batch / med * 1e3)
+        if device == "cuda":
+            prof = device_profile(torch, fn)
+            line.update(prof, busy_share=prof["busy_ms"] / med, wall_us_per_kernel=med * 1e3 / prof["kernels"])
+        print(json.dumps(line), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,8 +9,9 @@ to its plain version (verifier/hashplan.scan_plain).
       a pair walk whose last op is a WRITE_B, lanes that end early; inputs
       read through offsets and strides other than a contiguous tensor's.
   fixture_programs(name, batch, device)  the two passes of one verify_batch
-      of a committed fixture, as the main path builds them, and the states
-      of its leaf step.
+      of a committed fixture (verify_batch_np for the without-Poseidon
+      fixture np_small), as the main path builds them, and the states of its
+      leaf step.
 
 seeded_programs returns [(label, ScanProgram), ...].
 """
@@ -20,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..models import flagship
-from ..verifier import hashplan, verify
+from ..verifier import hashplan, verify, verify_np
 from ..verifier.arrays import to_torch
 from ..verifier.hashplan import PairWalk, ScanProgram, SingleWalk
 
@@ -66,8 +67,13 @@ def seeded_programs(n: int, lanes: int, seed: int, device) -> list:
 
 def fixture_programs(name: str, batch: int, device) -> tuple:
     """([("absorb", ScanProgram), ("walks", ScanProgram)], leaf_state): the
-    passes of one verify_batch, and the (W, 16, N) states of its leaf step."""
-    spec, pa = flagship.prepared_arrays(name)
+    passes of one verifier run, and the (W, 16, N) states of its leaf step."""
+    if name in flagship.NP_FIXTURE_INPUTS:
+        spec, pa = flagship.prepared_arrays_np(name)
+        inputs, verifier = flagship.NP_FIXTURE_INPUTS[name], verify_np.verify_batch_np
+    else:
+        spec, pa = flagship.prepared_arrays(name)
+        inputs, verifier = flagship.FIXTURE_INPUTS[name], verify.verify_batch
     arrays = to_torch(flagship.tiled_batch(pa, batch), device)
     progs, leaves = [], []
     run, permute = hashplan.run_scan, hashplan.permute_wordmajor
@@ -82,7 +88,7 @@ def fixture_programs(name: str, batch: int, device) -> tuple:
 
     hashplan.run_scan, hashplan.permute_wordmajor = record, record_leaves
     try:
-        verify.verify_batch(spec, arrays, flagship.FIXTURE_INPUTS[name])
+        verifier(spec, arrays, inputs)
     finally:
         hashplan.run_scan, hashplan.permute_wordmajor = run, permute
     return list(zip(("absorb", "walks"), progs)), leaves[0]

@@ -143,6 +143,15 @@ def map_arrays(fn, pa: ProofArrays) -> ProofArrays:
     )
 
 
+def require_device(device) -> torch.device:
+    """`device` as a torch.device; 'cuda' without a CUDA device raises
+    (nothing falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is false")
+    return device
+
+
 def to_torch(pa: ProofArrays, device) -> ProofArrays:
     """numpy uint32 ProofArrays -> the same structure of int64 tensors."""
     return map_arrays(

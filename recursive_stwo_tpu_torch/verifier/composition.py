@@ -1,11 +1,13 @@
 """In-point AIR evaluation: the composition polynomial check at the OODS
 point, batched over proofs.
 
-Twin of the PlonkWithPoseidon half of recursive_stwo_tpu/verifier/
-composition.py: the same constraints in the same emission order, the 16-word
-poseidon state as stacked (B, 16) QM31 tensors, and Horner accumulation over
-all emitted constraints as they are emitted (`HornerSink`).  The reference's
-`lax.scan`s (14 partial rounds, Horner) are Python loops here.
+Twin of recursive_stwo_tpu/verifier/composition.py, for the PlonkWithPoseidon
+AIR (`composition_check`) and the PlonkWithoutPoseidon AIR
+(`composition_check_np`): the same constraints in the same emission order,
+the 16-word poseidon state as stacked (B, 16) QM31 tensors, and Horner
+accumulation over all emitted constraints as they are emitted
+(`HornerSink`).  The reference's `lax.scan`s (14 partial rounds, Horner) are
+Python loops here.
 """
 
 from __future__ import annotations
@@ -205,6 +207,73 @@ def evaluate_plonk(ev: _Eval, lookup):
 
 
 # ---------------------------------------------------------------------------
+# PlonkWithoutPoseidon AIR (verifier-array mirror of
+# recursion/composition.py::evaluate_plonk_np; same emission order)
+# ---------------------------------------------------------------------------
+
+def _m4_list(h):
+    t0 = q.q_add(h[0], h[1])
+    t1 = q.q_add(h[2], h[3])
+    t2 = q.q_add(q.q_add(h[1], h[1]), t1)
+    t3 = q.q_add(q.q_add(h[3], h[3]), t0)
+    t02 = q.q_add(t0, t0)
+    t12 = q.q_add(t1, t1)
+    t4 = q.q_add(q.q_add(t12, t12), t3)
+    t5 = q.q_add(q.q_add(t02, t02), t2)
+    return [q.q_add(t3, t5), t5, q.q_add(t2, t4), t4]
+
+
+def evaluate_plonk_np(ev: _Eval, lookup):
+    pre = [ev.preprocessed() for _ in range(8)]
+    a_wire, b_wire, c_wire, op1, op2, op3, op4, mult_c = pre
+    vals = [ev.trace() for _ in range(12)]
+    a4, b4, c4 = vals[0:4], vals[4:8], vals[8:12]
+
+    one = q.q_one(op1.a)
+    for k in range(4):
+        a2 = q.q_mul(a4[k], a4[k])
+        ev.add_constraint(q.q_mul(op2, q.q_sub(q.q_mul(a2, a2), b4[k])))
+
+    h = [q.q_mul(a4[k], b4[k]) for k in range(4)]
+    m4 = _m4_list(h)
+    gs = q.q_add(
+        q.q_add(q.q_add(a4[0], a4[1]), q.q_add(a4[2], a4[3])),
+        q.q_add(q.q_add(b4[0], b4[1]), q.q_add(b4[2], b4[3])),
+    )
+
+    a_val = q.q_combine4(*a4)
+    b_val = q.q_combine4(*b4)
+    c_val = q.q_combine4(*c4)
+
+    one_m_op3 = q.q_sub(one, op3)
+    one_m_op4 = q.q_sub(one, op4)
+    is_arith = q.q_mul(one_m_op3, one_m_op4)
+    is_m4 = q.q_mul(op3, one_m_op4)
+    is_hadamard = q.q_mul(one_m_op3, op4)
+    is_grandsum = q.q_mul(op3, op4)
+
+    expected = q.q_add(
+        q.q_add(
+            q.q_add(
+                q.q_mul(is_arith, q.q_mul(op1, q.q_add(a_val, b_val))),
+                q.q_mul(q.q_mul(q.q_sub(one, op1), a_val), b_val),
+            ),
+            q.q_mul(is_m4, q.q_combine4(*m4)),
+        ),
+        q.q_add(
+            q.q_mul(is_hadamard, q.q_combine4(*h)),
+            q.q_mul(is_grandsum, q.q_combine4(gs, gs, gs, gs)),
+        ),
+    )
+    ev.add_constraint(q.q_sub(c_val, expected))
+
+    ev.add_to_relation(lookup, one, [a_val, a_wire])
+    ev.add_to_relation(lookup, one, [b_val, b_wire])
+    ev.add_to_relation(lookup, mult_c, [c_val, c_wire])
+    ev.finalize_logup(2)
+
+
+# ---------------------------------------------------------------------------
 # poseidon AIR (stacked 16-lane state)
 # ---------------------------------------------------------------------------
 
@@ -371,8 +440,29 @@ def composition_check(
         poseidon_total_sum, denom_inv_pos, spec.log_size_poseidon, constraints,
     )
     evaluate_poseidon(ev, lookup)
+    return _matches_committed(spec, samples_flat, oods_x, constraints.acc)
 
-    computed = constraints.acc
+
+def composition_check_np(
+    spec,
+    samples_flat: torch.Tensor,
+    total_sum: QM31,
+    lookup,
+    random_coeff: QM31,
+    oods,
+) -> torch.Tensor:
+    """(B,) bool composition identity for the without-poseidon AIR."""
+    oods_x, _ = oods
+    constraints = HornerSink(random_coeff, samples_flat.shape[0])
+    denom_inv = q.q_inv(points_mod.coset_vanishing_canonic(oods_x, spec.log_size))
+    ev = _Eval(spec, samples_flat, (0, 0, 0), total_sum, denom_inv, spec.log_size, constraints)
+    evaluate_plonk_np(ev, lookup)
+    return _matches_committed(spec, samples_flat, oods_x, constraints.acc)
+
+
+def _matches_committed(spec, samples_flat: torch.Tensor, oods_x: QM31, computed: QM31) -> torch.Tensor:
+    """(B,) bool: the Horner-folded constraints equal the composition
+    polynomial's committed split values at the OODS point."""
 
     def comp_sample(col):
         s = samples_flat[:, spec.sample_offsets[3][col]]

@@ -104,7 +104,12 @@ def _hash_nodes_batch(
 # the AVX-512 16-way kernels instead of one scalar hash per node.
 
 def _sha_words(msgs: np.ndarray) -> np.ndarray:
-    raise NotImplementedError("hints: the SHA-256 flavours are not ported")
+    from ..core.sha256 import sha256_words
+    from ..utils import native
+
+    if native.sha_available():
+        return native.sha256_words_batch(np.ascontiguousarray(msgs))
+    return sha256_words(msgs)
 
 
 def _sha_leaves_batch(cols: np.ndarray) -> np.ndarray:
@@ -1159,11 +1164,13 @@ def prepare(
     hash_node_fn overrides the Merkle node hash; the SHA-256 flavor
     (verifier/sha256_merkle.hash_node) is recognized and expanded through
     the level-batched AVX-512 path like the Poseidon default."""
+    from . import sha256_merkle
+
     batched_flavor = None
     if hash_node_fn is None:
         batched_flavor = "p31"
-    else:  # the SHA-256 flavours' node hash (verifier/sha256_merkle.py)
-        raise NotImplementedError("hints.prepare: the SHA-256 flavours are not ported")
+    elif hash_node_fn is sha256_merkle.hash_node:
+        batched_flavor = "sha256"
     # a proof claiming a different PcsConfig than the verifier's is
     # rejected upfront (the reference supplies the config as a trusted
     # constant, examples/single-proof/src/main.rs:28-31; the bundled

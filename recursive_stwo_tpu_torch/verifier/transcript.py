@@ -1,11 +1,12 @@
 """Fiat-Shamir transcript replay: one digest chain plus one batched draw.
 
-Twin of recursive_stwo_tpu/verifier/transcript.py (PlonkWithPoseidon).  Every
-value mixed into the Poseidon31 channel is proof data, so the digest chain is
-T sequential permutations over a (B, T, 8) operand tensor, one batched
-permutation launch per step, and all draws are then one batched permutation
-of the gathered digest states.  The draw schedule and FSOutput container are
-the reference's own.
+Twin of recursive_stwo_tpu/verifier/transcript.py, for both proof flavours
+on the Poseidon31 channel: PlonkWithPoseidon (`run_transcript`) and
+PlonkWithoutPoseidon (`run_transcript_np`).  Every value mixed into the
+channel is proof data, so the digest chain is T sequential permutations over
+a (B, T, 8) operand tensor, one batched permutation launch per step, and all
+draws are then one batched permutation of the gathered digest states.  The
+draw schedules and FSOutput container are the reference's own.
 """
 
 from __future__ import annotations
@@ -15,49 +16,79 @@ import torch
 from ..core import poseidon2
 from ..core.qm31 import QM31
 from .spec import VerifierSpec
-from .transcript_host import FSOutput, _draw_schedule, n_rows
+from .transcript_host import FSOutput, _draw_schedule, _draw_schedule_np, n_rows, n_rows_np
 
 __all__ = [
-    "FSOutput", "build_operands", "digest_chain", "pow_check",
-    "queries_at_log_size", "run_transcript",
+    "FSOutput", "build_operands", "build_operands_np", "digest_chain", "pow_check",
+    "queries_at_log_size", "run_transcript", "run_transcript_np",
 ]
+
+
+def _const_row(like: torch.Tensor, vals) -> torch.Tensor:
+    row = like.new_zeros((like.shape[0], 1, 8))
+    for i, v in enumerate(vals):
+        row[:, :, i] = v
+    return row
+
+
+def _pad_pairs(flat: torch.Tensor) -> torch.Tensor:
+    """(B, S, 4) -> (B, ceil(S/2), 8)."""
+    B, S, _ = flat.shape
+    if S % 2:
+        flat = torch.cat([flat, flat.new_zeros((B, 1, 4))], dim=1)
+    return flat.reshape(B, (S + 1) // 2, 8)
+
+
+def _fri_and_nonce_rows(pa) -> list:
+    """The operand rows after the sampled values: first-layer root, inner
+    roots, last-layer polynomial, nonce."""
+    return [
+        pa.first_layer_commitment[:, None],
+        pa.inner_commitments,
+        _pad_pairs(pa.last_poly),
+        torch.cat([pa.nonce_limbs, pa.nonce_limbs.new_zeros((pa.nonce_limbs.shape[0], 5))], dim=-1)[:, None],
+    ]
+
+
+def _stack_rows(rows: list, expected: int) -> torch.Tensor:
+    ops = torch.cat(rows, dim=1)
+    if ops.shape[1] != expected:
+        raise ValueError(f"operand rows {ops.shape[1]} != spec rows {expected}")
+    return ops
 
 
 def build_operands(spec: VerifierSpec, pa) -> torch.Tensor:
     """Assemble the (B, T, 8) mix-operand tensor from proof arrays."""
-    B = pa.commitments.shape[0]
     like = pa.commitments
-
-    def const_row(vals):
-        row = like.new_zeros((B, 1, 8))
-        for i, v in enumerate(vals):
-            row[:, :, i] = v
-        return row
-
-    def pad_pairs(flat):  # (B, S, 4) -> (B, ceil(S/2), 8)
-        S = flat.shape[1]
-        if S % 2:
-            flat = torch.cat([flat, like.new_zeros((B, 1, 4))], dim=1)
-        return flat.reshape(B, (S + 1) // 2, 8)
-
     rows = [
         pa.commitments[:, 0:1],
-        const_row([spec.log_size_plonk]),
-        const_row([spec.log_size_poseidon]),
+        _const_row(like, [spec.log_size_plonk]),
+        _const_row(like, [spec.log_size_poseidon]),
         pa.commitments[:, 1:2],
         torch.cat([pa.plonk_total_sum, pa.poseidon_total_sum], dim=-1)[:, None],
         pa.commitments[:, 2:3],
         pa.commitments[:, 3:4],
-        pad_pairs(pa.samples_flat),
-        pa.first_layer_commitment[:, None],
-        pa.inner_commitments,
-        pad_pairs(pa.last_poly),
-        torch.cat([pa.nonce_limbs, like.new_zeros((B, 5))], dim=-1)[:, None],
+        _pad_pairs(pa.samples_flat),
     ]
-    ops = torch.cat(rows, dim=1)
-    if ops.shape[1] != n_rows(spec):
-        raise ValueError(f"operand rows {ops.shape[1]} != spec rows {n_rows(spec)}")
-    return ops
+    return _stack_rows(rows + _fri_and_nonce_rows(pa), n_rows(spec))
+
+
+def build_operands_np(spec, pa) -> torch.Tensor:
+    """(B, T, 8) mix operands of the without-Poseidon transcript: c0,
+    log_size, c1, total_sum, c2, c3, samples (pairs), first-layer root,
+    inner roots, last poly, nonce.  Only `plonk_total_sum` is read: the
+    flavour has one statement sum."""
+    like = pa.commitments
+    rows = [
+        pa.commitments[:, 0:1],
+        _const_row(like, [spec.log_size]),
+        pa.commitments[:, 1:2],
+        torch.cat([pa.plonk_total_sum, torch.zeros_like(pa.plonk_total_sum)], dim=-1)[:, None],
+        pa.commitments[:, 2:3],
+        pa.commitments[:, 3:4],
+        _pad_pairs(pa.samples_flat),
+    ]
+    return _stack_rows(rows + _fri_and_nonce_rows(pa), n_rows_np(spec))
 
 
 def digest_chain(operands: torch.Tensor) -> torch.Tensor:
@@ -71,12 +102,12 @@ def digest_chain(operands: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def run_transcript(spec: VerifierSpec, pa) -> FSOutput:
-    operands = build_operands(spec, pa)
+def _replay(spec, operands: torch.Tensor, sched) -> FSOutput:
+    """The digest chain over `operands`, then every draw of `sched` in one
+    batched permutation."""
     B, T, _ = operands.shape
     digests = digest_chain(operands)  # (T, B, 8)
 
-    sched = _draw_schedule(spec)
     rows = torch.tensor([r for r, _ in sched], device=operands.device)
     nsent = torch.tensor([n for _, n in sched], device=operands.device)
 
@@ -104,6 +135,16 @@ def run_transcript(spec: VerifierSpec, pa) -> FSOutput:
         raw_queries=raw,
         pow_digest0=digests[T - 1, :, 0],
     )
+
+
+def run_transcript(spec: VerifierSpec, pa) -> FSOutput:
+    return _replay(spec, build_operands(spec, pa), _draw_schedule(spec))
+
+
+def run_transcript_np(spec, pa) -> FSOutput:
+    """The PlonkWithoutPoseidon transcript (one statement log size and total
+    sum), on the same digest chain and draw launch."""
+    return _replay(spec, build_operands_np(spec, pa), _draw_schedule_np(spec))
 
 
 def pow_check(spec: VerifierSpec, fs: FSOutput) -> torch.Tensor:

@@ -4,7 +4,9 @@ Twin of recursive_stwo_tpu/verifier/verify.py.  verify_batch(spec, pa,
 inputs) runs transcript, PoW, total-sum, composition, quotients, FRI folding
 and every Merkle decommitment over int64 tensors on pa's device, and returns
 a dict of named (B,) bool checks plus their conjunction 'ok', with the
-reference's keys in the reference's order.
+reference's keys in the reference's order.  `structural_checks` (the fold
+and hash phases) and the total-sum helpers serve verify_np.py and
+verify_sha256.py too.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..core import m31
 from ..core import qm31 as q
 from ..core.qm31 import QM31
 from . import composition as composition_mod
@@ -39,16 +42,9 @@ def verify_batch(
     checks = {"pow": transcript.pow_check(spec, fs)}
 
     # logup total-sum: sum_i 1/(val_i + idx_i * alpha - z) + sums == 0
-    like = fs.z.a
-    input_sum = q.q_zero(like)
-    for idx, val in inputs:
-        const = QM31(*(torch.full_like(like, v) for v in val))
-        term = q.q_sub(q.q_add(const, q.q_mul_m31(fs.alpha, idx)), fs.z)
-        input_sum = q.q_add(input_sum, q.q_inv(term))
     plonk_sum = _q_cols(pa.plonk_total_sum)
     poseidon_sum = _q_cols(pa.poseidon_total_sum)
-    total = q.q_add(q.q_add(input_sum, plonk_sum), poseidon_sum)
-    checks["total_sum"] = (total.a == 0) & (total.b == 0) & (total.c == 0) & (total.d == 0)
+    checks["total_sum"] = is_zero(q.q_add(q.q_add(input_sum(fs, inputs), plonk_sum), poseidon_sum))
 
     # composition polynomial at the OODS point
     oods = points.oods_point_from_t(fs.oods_t)
@@ -57,14 +53,59 @@ def verify_batch(
         (fs.z, fs.alpha), fs.random_coeff, oods,
     )
 
-    fold_checks, pair_jobs = fold_phase(spec, pa, fs, oods)
-    checks.update(fold_checks)
-    checks.update(hash_phase(spec, pa, fs, pair_jobs))
+    checks.update(structural_checks(spec, pa, fs, oods))
+    return with_ok(checks)
 
+
+def input_sum(fs, inputs) -> QM31:
+    """sum_i 1/((val_i + alpha*idx_i) - z), batched: one q_inv over the
+    stacked (n_inputs, B) terms instead of one per input (the bitcoin proof
+    has 264 public inputs), then the pairwise sum of the JAX package's
+    verify_sha256._input_sum.  The sum is exact over M31, so every
+    verifier gets the value of the per-input loop."""
+    like = fs.z.a
+    if not inputs:
+        return q.q_zero(like)
+    idxs = torch.tensor([i for i, _ in inputs], dtype=torch.int64, device=like.device)[:, None]
+    vals = torch.tensor([v for _, v in inputs], dtype=torch.int64, device=like.device)
+    term = QM31(
+        *(
+            m31.sub(m31.add(vals[:, k : k + 1], m31.mul(fs.alpha[k][None, :], idxs)), fs.z[k][None, :])
+            for k in range(4)
+        )
+    )
+    inv = q.q_inv(term)  # (n, B)
+    comps = []
+    for c in inv:
+        acc = c
+        while acc.shape[0] > 1:
+            half = acc.shape[0] // 2
+            lo = m31.add(acc[:half], acc[half : 2 * half])
+            if acc.shape[0] % 2:
+                lo = torch.cat([lo, acc[-1:]], dim=0)
+            acc = lo
+        comps.append(acc[0])
+    return QM31(*comps)
+
+
+def is_zero(x: QM31) -> torch.Tensor:
+    return (x.a == 0) & (x.b == 0) & (x.c == 0) & (x.d == 0)
+
+
+def with_ok(checks: dict) -> dict:
+    """checks plus 'ok', the conjunction of every check, as the last key."""
     ok = None
     for v in checks.values():
         ok = v if ok is None else (ok & v)
     checks["ok"] = ok
+    return checks
+
+
+def structural_checks(spec, pa, fs, oods) -> dict:
+    """Quotients, FRI folding and every Merkle check, shared by the with-
+    and without-Poseidon verifiers (both read the spec duck-typed)."""
+    checks, pair_jobs = fold_phase(spec, pa, fs, oods)
+    checks.update(hash_phase(spec, pa, fs, pair_jobs))
     return checks
 
 

@@ -154,3 +154,58 @@ def test_grind_device_on_cuda_matches_native_scan(cuda, pow_bits):
 
     digest = np.random.default_rng(pow_bits).integers(0, P, 8).astype(np.uint32)
     assert grind_device(digest, pow_bits, device=cuda) == native.grind(digest, pow_bits)
+
+
+def test_verify_batch_np_on_cuda_matches_host_reference(cuda):
+    """np_small on CUDA with a flipped sibling and a flipped nonce: every
+    check equals the JAX package's numpy verifier, through K1, two scans and
+    one K2 leaf step."""
+    from recursive_stwo_tpu.verifier.verify_np import verify_batch_np as r_verify_np
+    from recursive_stwo_tpu_torch.verifier.verify_np import verify_batch_np as t_verify_np
+
+    spec, pa1 = flagship.prepared_arrays_np("np_small")
+    inputs = flagship.NP_FIXTURE_INPUTS["np_small"]
+    pa = flagship.tiled_batch(pa1, 4)
+    pa.tree_paths[1].sibling_hashes[2, 0, 0, 0] ^= np.uint32(1)
+    pa.nonce_limbs[3] ^= np.uint32(1)
+    ref = r_verify_np(spec, pa, inputs)
+    poseidon_cuda.reset_launches()
+    got = t_verify_np(spec, to_torch(pa, cuda), inputs)
+    torch.cuda.synchronize()
+    assert poseidon_cuda.LAUNCHES["permute_rows"] > 0
+    assert poseidon_cuda.LAUNCHES["wordmajor_scan"] == 2
+    assert poseidon_cuda.LAUNCHES["permute_wordmajor"] == 1
+    assert list(ref) == list(got)
+    for k in ref:
+        assert np.array_equal(np.asarray(ref[k]), got[k].cpu().numpy()), k
+    assert sorted(k for k, v in got.items() if not v[2]) == ["ok", "tree1"]
+    assert not got["pow"][3]
+
+
+def _corrupted_sha_checks(kind, device):
+    step, arrays, fs = flagship.sha_checks_step(kind, 4, device=device)
+    arrays.samples_flat[1, 0, 0] ^= 1
+    fs.pow_digest0[2] ^= 1
+    return step(arrays, fs)
+
+
+@pytest.mark.parametrize("kind", ["level14", "bitcoin"])
+def test_sha_device_checks_on_cuda_match_cpu(cuda, kind):
+    got = _corrupted_sha_checks(kind, cuda)
+    ref = _corrupted_sha_checks(kind, "cpu")
+    assert list(ref) == list(got)
+    for k in ref:
+        assert torch.equal(ref[k], got[k].cpu()), k
+    assert got["ok"].tolist() == [True, False, False, True]
+
+
+@pytest.mark.parametrize("kind", ["level14", "bitcoin"])
+def test_sha_fast_path_on_cuda_matches_cpu(cuda, kind):
+    from recursive_stwo_tpu_torch.verifier import verify_sha256
+
+    fn = verify_sha256.verify_sha256p31 if kind == "level14" else verify_sha256.verify_sha256np
+    inputs = flagship.sha_inputs(kind)
+    got = fn(flagship.sha_artifact(kind), inputs, device=cuda)
+    ref = fn(flagship.sha_artifact(kind), inputs, device="cpu")
+    assert list(ref) == list(got) and all(np.array_equal(ref[k], got[k]) for k in ref)
+    assert got["ok"].all()

@@ -112,6 +112,22 @@ def test_port_never_imports_jax():
     )
 
 
+def test_other_flavours_never_import_jax():
+    """verify_batch_np, both host SHA-256 verifiers and device_checks_np
+    run on the CPU with jax and the JAX package refused."""
+    run_blocked(
+        "from recursive_stwo_tpu_torch.models import flagship\n"
+        "from recursive_stwo_tpu_torch.verifier import verify_sha256_host as vh\n"
+        "step, arrays = flagship.verifier_step_np('np_small', 2, device='cpu')\n"
+        "assert bool(step(arrays)['ok'].all())\n"
+        "level14, bitcoin = flagship.sha_artifacts()\n"
+        "assert vh.verify_sha256p31_host(level14, flagship.CHAIN_INPUTS)['ok'].all()\n"
+        "assert vh.verify_sha256np_host(bitcoin, flagship.bitcoin_inputs())['ok'].all()\n"
+        "step, arrays, fs = flagship.sha_checks_step('bitcoin', 2, device='cpu')\n"
+        "assert bool(step(arrays, fs)['ok'].all())\n"
+    )
+
+
 def _imported_roots(path: str):
     """Top-level package of every import statement in a source file, with
     the module it names."""
