@@ -30,13 +30,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
   7. prover, recursion-chain level 1: the demo circuit's proof on CUDA must
      equal the port's CPU proof byte for byte (a quick first check); then
      the level-1 circuit (recursive_proof_16_15 verified five times) is
-     built on the host and proved on CUDA with the port's `prove`; its m31x8
-     bytes must equal those of the committed artifact
-     examples/data/level1-5.pkl (sha256 a51ea3f3...), and K1 must have
-     launched while proving; prints the wall time, each stage's time, K1's
-     launches and the peak device memory;
-  8. the same for level 2 (level1-5.pkl verified once, largest domain
-     2**23) against examples/data/level2-1.pkl (sha256 7476baa5...);
+     built on the host and proved on CUDA with the port's `prove`
+     (tools/chain.run_level); its m31x8 bytes must hash to level1-5.bin's
+     digest in docs/chain_artifacts.txt (a51ea3f3...), the port's
+     verify_batch on CUDA must accept it, and K1 must have launched while
+     proving; prints the wall time, each stage's time, K1's launches and
+     the peak device memory;
+  8. the same for level 2 (the committed level1-5.pkl verified once,
+     fast_prover2, largest domain 2**23; level2-1.bin, 7476baa5...) and
+     level 3 (the committed level2-1.pkl verified once, preset standard,
+     2**23; level3-1.bin, 642d38ee...; the repo holds no level-3 proof);
   9. grind: the port's grind_device on CUDA at 24 bits on a seeded digest
      must find the host native scan's nonce; prints both times;
  10. without-Poseidon on the Poseidon31 channel, np_small at B=512 (bench.py's
@@ -53,10 +56,23 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      device checks at B=128 on CUDA, with a flipped sampled value and a
      flipped pow digest in two slots, equal the CPU run per slot; prints
      bench.py's SHA metrics (the fast path's time with the composition on
-     CUDA and on the CPU) and the level-14 device checks' proofs/s.
+     CUDA and on the CPU) and the level-14 device checks' proofs/s;
+ 12. the last layer: the committed level-14 proof verified in the
+     PlonkWithoutPoseidon circuit, proved on CUDA with prove_np in the
+     Sha256MerkleChannel flavour at pow 28, FRI(0, 9, 8) (largest domain
+     2**27; tools/chain.run_level); its "bytes32" bytes must hash to
+     bitcoin_proof.bin's 71da12a3..., and verify_sha256np on CUDA must
+     accept it; prints the wall, each stage, the peak device memory, the
+     kernels' launches and the SHA-256 trees' copy and hashing time;
+ 13. prove_sha256p31 of the demo circuit on CUDA equals the CPU run, byte
+     for byte ("bytes32").
+Phases 7, 8, 12 and 13 print each proof's wall, peak GiB and K1 launches.
 The last three lines are the nvidia-smi line, a JSON line describing the
-kernels (np_launches, np_shape, np_ms, np_plain_ms and np_bound_ms: phase
-10's launches and shapes, and the kernel's times there), and
+kernels (prover_launches, level2_launches, level3_launches and
+last_layer_launches: phase 7's level 1, phase 8's levels 2 and 3 and phase
+12's last layer; np_launches, np_shape, np_ms,
+np_plain_ms and np_bound_ms: phase 10's launches and shapes, and the
+kernel's times there), and
 {"ok": true, "device": {...}}.
 """
 
@@ -64,7 +80,6 @@ from __future__ import annotations
 
 import hashlib
 import json
-import os
 import statistics
 import subprocess
 import sys
@@ -83,12 +98,17 @@ KAT = [
     1659717477, 2080202267, 1269806256, 1287849264,
 ]
 FIXTURES = ("small_proof", "recursive_proof_16_15")
-# sha256 of the m31x8 bytes of each chain level's artifact (docs/chain_artifacts.txt)
+LAST_LAYER = 15  # the last layer's place in tools/chain.py's order
+# sha256 of the .bin of each chain proof the smoke re-proves
+# (docs/chain_artifacts.txt): m31x8 bytes for levels 1-3, "bytes32" for the
+# last layer (bitcoin_proof.bin)
 LEVEL_SHA256 = {
     1: "a51ea3f3d96636750c573b2d46846d9f9e47ecb955fc510c63cec1f0c76be49b",
     2: "7476baa51d927962fd8ab7b766409b39f5a2fc8009ff6c2bb2e04ca2078c73a3",
+    3: "642d38eed1f77f4dd577d8de0232a70590c09abe7154f53600d6b33fdb8c7c3f",
+    LAST_LAYER: "71da12a3fa9ebcef7cfabfeac33b08712affbda758f0d31a5e7aba164c8d39e3",
 }
-PROVER_LEAF_ROWS = 1 << 23  # K1's largest call in phase 8: the level-2 composition leaves
+PROVER_LEAF_ROWS = 1 << 23  # K1 at 2**23 rows, above the prover's largest call (2**22: prover/commit.py ROWS)
 # K1's schedules are each held to the plain version at these row counts:
 # tails of a warp's 8 rows and a block's 32, and the prover's largest call
 ROWS_CHECKED = (1, 7, 8, 1023, 1024, (1 << 20) + 3, PROVER_LEAF_ROWS)
@@ -187,9 +207,8 @@ def check_kernels(torch, dev, leaf_state, np_leaf_state) -> dict:
                             np_shape=list(np_main.shape), np_ms=np_ms, np_plain_ms=np_plain,
                             np_bound_ms=np_bound)
 
-    # every K1 schedule bit for bit at tail sizes and at the prover's largest
-    # call (2**23 rows, the level-2 composition leaves), made on the card from
-    # a seed, and the KAT in row 0
+    # every K1 schedule bit for bit at tail sizes and at PROVER_LEAF_ROWS
+    # rows, made on the card from a seed, and the KAT in row 0
     gen = torch.Generator(device=dev).manual_seed(SEED)
     for rows_n in ROWS_CHECKED:
         s = torch.randint(0, P, (rows_n, 16), generator=gen, device=dev, dtype=torch.int64)
@@ -409,48 +428,61 @@ def check_demo_proof(torch, dev) -> None:
           f"({time.perf_counter() - t:.2f} s), {len(on_card)} bytes")
 
 
-def prove_level(torch, dev, level: int) -> dict:
-    """Phases 7 and 8: prove chain level `level` on CUDA and hold its bytes
-    against the committed artifact.  Returns K1's launches while proving."""
+def print_timing(label: str, r: dict) -> None:
+    """Phases 7, 8, 12 and 13: a proof's wall, peak, launches, SHA-256 trees
+    and stages (a record of tools/chain.timed_proof)."""
+    print(f"{label}: proving wall {r['prove_s']:.3f} s; peak device memory {r['peak_gib']:.3f} GiB "
+          f"({r['peak_bytes']} bytes); kernel launches {r['prove_launches']}")
+    trees = r["sha_trees"]
+    if trees:
+        print(f"{label}: {len(trees)} SHA-256 trees, device-to-host copies {r['sha_copy_s']:.3f} s, host hashing "
+              f"{r['sha_hash_s']:.3f} s on {r['omp_threads']} OpenMP thread(s) "
+              f"(largest {max(t['leaves'] for t in trees)} leaves)")
+    for s in r["stages"]:
+        print(f"{label}:   {s['s']:8.3f} s  {s['stage']}")
+
+
+def prove_level(dev, level: int, seen: set, proof_in=None) -> dict:
+    """Phases 7, 8 and 12: chain level `level` (tools/chain.LAST: the last
+    layer) built, proved and verified on CUDA by tools/chain.run_level,
+    which holds its bytes to the digest docs/chain_artifacts.txt lists for
+    its .bin; that digest must be LEVEL_SHA256's.  Returns the kernels'
+    launches while proving."""
     from recursive_stwo_tpu_torch.models import flagship
-    from recursive_stwo_tpu_torch.ops import poseidon_cuda
-    from recursive_stwo_tpu_torch.prover.prove import prove
+    from recursive_stwo_tpu_torch.tools import chain
 
+    label = "last layer" if level == chain.LAST else f"level {level}"
+    name = chain.level_name(level)
+    expected = flagship.expected_sha256(name)
+    require(expected == LEVEL_SHA256[level], f"{label}: docs/chain_artifacts.txt lists {expected} for {name}.bin")
+    _, r = chain.run_level(level, proof_in, None, dev, seen)
+    print(f"{label}: circuit of {r['rows']} rows and {r['public_inputs']} public inputs built on the host in "
+          f"{r['circuit_s']:.2f} s; pow {r['pow_bits']}, FRI {r['fri']}")
+    print_timing(label, r)
+    if level != chain.LAST:
+        require(r["prove_launches"]["permute_rows"] > 0, f"{label}: K1 never launched while proving")
+    print(f"{label}: proof equals {name}.bin byte for byte ({r['bytes']} bytes, sha256 {r['sha256']}); "
+          f"the port's verifier on CUDA accepts it ({r['verify_s']:.2f} s)")
+    return r["prove_launches"]
+
+
+def check_demo_sha_proof(dev) -> None:
+    """Phase 13: prove_sha256p31 of the demo circuit on CUDA and on the CPU;
+    the "bytes32" bytes must agree."""
+    from recursive_stwo_tpu_torch.models import flagship
+    from recursive_stwo_tpu_torch.prover.prove_sha256 import prove_sha256p31
+    from recursive_stwo_tpu_torch.tools.chain import timed_proof
+
+    trace = flagship.demo_trace()
+    config = flagship.DEMO_CONFIG
+    proof, timing = timed_proof(lambda progress: prove_sha256p31(trace, config, progress, dev), dev)
+    print_timing("demo circuit, prove_sha256p31", timing)
+    on_card = flagship.proof_bytes(proof)
     t = time.perf_counter()
-    trace, config, path = flagship.chain_level_trace(level)
-    expected = flagship.artifact_bytes(path)
-    require(hashlib.sha256(expected).hexdigest() == LEVEL_SHA256[level],
-            f"level {level}: {path} does not hash to {LEVEL_SHA256[level]}")
-    print(f"level {level}: circuit built on the host in {time.perf_counter() - t:.2f} s; {config}")
-
-    stages = []
-    clock = [0.0]
-
-    def progress(msg: str) -> None:
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        stages.append((msg, now - clock[0]))
-        clock[0] = now
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    poseidon_cuda.reset_launches()
-    start = clock[0] = time.perf_counter()
-    proof = prove(trace, config, progress=progress, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - start
-    launches = dict(poseidon_cuda.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    got = flagship.proof_bytes(proof)
-    require(got == expected, f"level {level}: proof bytes differ from {path}")
-    require(launches["permute_rows"] > 0, f"level {level}: K1 never launched while proving")
-    print(f"level {level}: proof equals {os.path.basename(path)} byte for byte "
-          f"({len(got)} bytes, sha256 {hashlib.sha256(got).hexdigest()})")
-    print(f"level {level}: proving wall {wall:.3f} s; peak device memory {peak / 2**30:.3f} GiB "
-          f"({peak} bytes); kernel launches {launches}")
-    for msg, secs in stages:
-        print(f"level {level}:   {secs:8.3f} s  {msg}")
-    return launches
+    on_cpu = flagship.proof_bytes(prove_sha256p31(trace, config, device="cpu"))
+    require(on_card == on_cpu, "the demo prove_sha256p31 on CUDA differs from the CPU run")
+    print(f"demo circuit, prove_sha256p31: proof on CUDA equals the CPU run ({time.perf_counter() - t:.2f} s), "
+          f"{len(on_card)} bytes, sha256 {hashlib.sha256(on_card).hexdigest()}")
 
 
 def check_grind(torch, dev) -> None:
@@ -630,7 +662,8 @@ def main() -> int:
               f"{hash_ms:.2f} ms a batch, at B={BATCH} on {smi}")
 
     check_demo_proof(torch, dev)
-    prover_launches = {level: prove_level(torch, dev, level) for level in (1, 2)}
+    seen = set()  # shapes proved so far (tools/chain.run_level's `cold`)
+    prover_launches = {level: prove_level(dev, level, seen) for level in (1, 2, 3)}
     check_grind(torch, dev)
 
     np_launches = check_np_path(torch, dev)
@@ -646,6 +679,8 @@ def main() -> int:
     print(f"sha256p31_device_proofs_per_sec {sha['sha256p31_device_proofs_per_sec']:.1f} at B={SHA_BATCH} "
           f"(new, not one of bench.py's metrics: device_checks_p31 on level 14, timed as bench.py times "
           f"bitcoin_device_proofs_per_sec)")
+    last_launches = prove_level(dev, LAST_LAYER, seen, flagship.sha_artifact("level14"))
+    check_demo_sha_proof(dev)
 
     require("jax" not in sys.modules, "jax was imported")
     require(not any(m.split(".")[0] == "recursive_stwo_tpu" for m in sys.modules), "the JAX package was imported")
@@ -658,7 +693,9 @@ def main() -> int:
     report = [
         dict(name=k, route="cuda", source="recursive_stwo_tpu_torch/csrc/poseidon2.cu",
              replaces=replaces[k], launches=launches[FIXTURES[0]][k],
-             prover_launches=prover_launches[1][k], np_launches=np_launches[k], **kernels[k])
+             prover_launches=prover_launches[1][k], level2_launches=prover_launches[2][k],
+             level3_launches=prover_launches[3][k],
+             last_layer_launches=last_launches[k], np_launches=np_launches[k], **kernels[k])
         for k in replaces
     ]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s")

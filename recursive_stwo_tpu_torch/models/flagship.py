@@ -1,6 +1,5 @@
 """Flagship model: the batched PlonkWithPoseidon proof verifier, the other
-proof flavours' verifiers, and the recursion chain's first two levels for
-the prover.
+proof flavours' verifiers, and the recursion chain's circuits for the prover.
 
 Twin of recursive_stwo_tpu/models/flagship.py.  Fixture loading
 (`load_fixture`, copied) and host hint preparation run in numpy;
@@ -8,10 +7,13 @@ Twin of recursive_stwo_tpu/models/flagship.py.  Fixture loading
 over it, and `verifier_step_np` does the same for the without-Poseidon
 fixture np_small.  `sha_checks_step` batches the device checks of the
 chain's two SHA-256-flavour artifacts (level 14 and the bitcoin-facing
-last-layer proof).  `chain_level_trace` builds the circuit of chain level 1
-or 2 on the host with the expected proof artifact beside it.
-`load_artifact` reads the chain's pickled proofs, whose classes are named by
-their JAX-package paths, into the port's copies of those classes.
+last-layer proof).  `chain_level_trace` builds the circuit of a chain level
+(1-14) on the host, and `last_layer_trace` the bitcoin-facing last layer's
+over level 14; `proof_bytes` serialises a chain proof as its `.bin` holds
+it, and `chain_artifact_sha256` reads the expected digests from
+docs/chain_artifacts.txt.  `load_artifact` reads the chain's pickled proofs,
+whose classes are named by their JAX-package paths, into the port's copies
+of those classes.
 """
 
 from __future__ import annotations
@@ -26,9 +28,9 @@ from ..cs import scalar
 from ..cs.system import PlonkWithPoseidonCS
 from ..gadgets.fields import QM31Var
 from ..gadgets.poseidon import Poseidon2Half
-from ..proof.containers import FriConfig, PcsConfig
+from ..proof.containers import FriConfig, PcsConfig, PlonkWithoutPoseidonProof
 from ..proof.parse import parse_plonk_with_poseidon_proof, parse_plonk_without_poseidon_proof
-from ..proof.serialize import serialize_plonk_with_poseidon_proof
+from ..proof.serialize import serialize_plonk_with_poseidon_proof, serialize_plonk_without_poseidon_proof
 from ..recursion.pipeline import build_last_circuit, build_verifier_circuit
 from ..verifier import hints, sha256_merkle, transcript_host, verify, verify_np, verify_sha256
 from ..verifier.arrays import ProofArrays, from_proofs_np, map_arrays, require_device, to_torch
@@ -82,11 +84,31 @@ PRESETS = {
     "fast_verifier3": PcsConfig(pow_bits=28, fri_config=FriConfig(7, 9, 8)),
 }
 # level -> (input, verifications in-circuit, output artifact, PcsConfig)
-# (examples/recursion_chain.py:57-59)
+# (examples/recursion_chain.py:57-72); levels 1-13 are proved with the
+# Poseidon31 channel, SHA_LEVEL in the Sha256Poseidon31 flavour
 CHAIN_LEVELS = {
     1: ("recursive_proof_16_15", 5, "level1-5", PRESETS["fast_prover"]),
     2: ("level1-5", 1, "level2-1", PRESETS["fast_prover2"]),
+    3: ("level2-1", 1, "level3-1", PRESETS["standard"]),
+    4: ("level3-1", 5, "level4-5", PRESETS["fast_prover"]),
+    5: ("level4-5", 1, "level5-1", PRESETS["fast_prover2"]),
+    6: ("level5-1", 1, "level6-1", PRESETS["standard"]),
+    7: ("level6-1", 1, "level7-1", PRESETS["standard"]),
+    8: ("level7-1", 1, "level8-1", PRESETS["fast_verifier"]),
+    9: ("level8-1", 1, "level9-1", PRESETS["fast_verifier"]),
+    10: ("level9-1", 1, "level10-1", PRESETS["fast_verifier2"]),
+    11: ("level10-1", 1, "level11-1", PRESETS["fast_verifier2"]),
+    12: ("level11-1", 1, "level12-1", PRESETS["fast_verifier3"]),
+    13: ("level12-1", 1, "level13-1", PRESETS["fast_verifier3"]),
+    14: ("level13-1", 1, "level14-1", PRESETS["fast_verifier3"]),
 }
+SHA_LEVEL = 14
+# the last layer: level 14 verified in a PlonkWithoutPoseidon circuit and
+# proved in the Sha256MerkleChannel flavour at the reference's output config
+# (examples/last_layer.py:126-127, 150-168)
+LAST_LAYER_CONFIG = PcsConfig(pow_bits=28, fri_config=FriConfig(0, 9, 8))
+LAST_LAYER_ARTIFACT = "bitcoin_proof"
+CHAIN_ARTIFACTS = os.path.join(REPO_DIR, "docs", "chain_artifacts.txt")
 
 
 # JAX-package modules whose classes a chain artifact may name, and the
@@ -119,13 +141,18 @@ def _chain_input(name: str):
     return load_artifact(os.path.join(CHAIN_DATA, f"{name}.pkl"))
 
 
-def chain_level_trace(level: int):
+def chain_level_trace(level: int, proof=None):
     """(trace, PcsConfig, path of the expected artifact) for recursion-chain
-    level 1 or 2, built as examples/recursion_chain.py:99-111 builds it: the
+    level `level`, built as examples/recursion_chain.py:99-111 builds it: the
     input verified `multipliers` times into one circuit, the first time with
-    the host cross-check, then pad, check, logup and invocation checks."""
+    the host cross-check, then pad, check, logup and invocation checks.
+    `proof` is the level's input, the previous level's proof; by default it
+    is read from the repo (the fixture or a committed artifact, which exist
+    for the inputs of levels 1-3).  The artifact path may name a file the
+    repo does not hold; `chain_artifact_sha256` has the digest of its bytes."""
     inp, multipliers, out, config = CHAIN_LEVELS[level]
-    proof = _chain_input(inp)
+    if proof is None:
+        proof = _chain_input(inp)
     cs = None
     for k in range(multipliers):
         cs, _ = build_verifier_circuit(proof, list(CHAIN_INPUTS), cs=cs, finalize=False, cross_check=(k == 0))
@@ -160,14 +187,37 @@ def demo_trace() -> dict:
 
 
 def proof_bytes(proof) -> bytes:
-    """The m31x8 serialisation of a PlonkWithPoseidon proof (the chain
-    artifacts' format, docs/chain_artifacts.txt)."""
-    return serialize_plonk_with_poseidon_proof(proof, "m31x8")
+    """The bytes of a chain proof's `.bin` (docs/chain_artifacts.txt): a
+    without-Poseidon proof (the last layer) as "bytes32"
+    (examples/last_layer.py:163-168); a PlonkWithPoseidon proof as
+    "bytes32" when a root is raw bytes or a word of p or more (a SHA-256
+    digest), else "m31x8" (examples/recursion_chain.py:242-252)."""
+    if isinstance(proof, PlonkWithoutPoseidonProof):
+        return serialize_plonk_without_poseidon_proof(proof, "bytes32")
+    roots = np.asarray(proof.stark_proof.commitments)
+    mode = "bytes32" if roots.dtype == np.uint8 or (roots >= (1 << 31) - 1).any() else "m31x8"
+    return serialize_plonk_with_poseidon_proof(proof, mode)
 
 
-def artifact_bytes(path: str) -> bytes:
-    """m31x8 bytes of a committed chain artifact (a pickled proof)."""
-    return proof_bytes(load_artifact(path))
+@lru_cache(maxsize=None)
+def chain_artifact_sha256() -> dict:
+    """File name -> sha256 hex digest, for every line of
+    docs/chain_artifacts.txt ("<digest>  examples/data/<name>"): the
+    `.pkl` and `.bin` of every chain level and of the bitcoin proof."""
+    out = {}
+    with open(CHAIN_ARTIFACTS) as f:
+        for line in f:
+            if line.strip():
+                digest, path = line.split()
+                out[os.path.basename(path)] = digest
+    return out
+
+
+def expected_sha256(name: str) -> str:
+    """The sha256 of `<name>.bin` (name as in CHAIN_LEVELS or
+    LAST_LAYER_ARTIFACT): the digest a re-proved chain proof's
+    `proof_bytes` must have."""
+    return chain_artifact_sha256()[f"{name}.bin"]
 
 
 def verifier_step(name: str = "small_proof", batch: int = 4, device="cuda"):
@@ -234,19 +284,38 @@ def sha_artifacts() -> tuple:
     return sha_artifact("level14"), sha_artifact("bitcoin")
 
 
+def _last_circuit(level14_proof):
+    """The last-layer circuit over a level-14 proof: a PlonkWithoutPoseidon
+    circuit that verifies it, with its Fiat-Shamir and decommitment data as
+    packed public inputs (examples/last_layer.py:138-143)."""
+    cs, _ = build_last_circuit(
+        level14_proof, list(CHAIN_INPUTS),
+        transcript_fn=lambda s, pa: run_transcript_sha256p31(s, level14_proof),
+        hash_node_fn=sha256_merkle.hash_node,
+    )
+    return cs
+
+
+def _public_inputs(cs) -> tuple:
+    return tuple((i + 1, tuple(int(x) for x in cs.value(i + 1))) for i in range(cs.num_input))
+
+
+def last_layer_trace(level14_proof):
+    """(trace, PcsConfig, public inputs) of the last layer over a level-14
+    proof: the circuit of examples/last_layer.py:138-150, to be proved with
+    `prove_np` in the Sha256MerkleChannel flavour at LAST_LAYER_CONFIG
+    (pow 28, FRI(0, 9, 8)); the inputs are those its verifier takes."""
+    cs = _last_circuit(level14_proof)
+    return cs.generate_trace(), LAST_LAYER_CONFIG, _public_inputs(cs)
+
+
 @lru_cache(maxsize=None)
 def bitcoin_inputs() -> tuple:
     """The bitcoin proof's 264 public inputs: the packed Fiat-Shamir and
     decommitment vector of the last-layer circuit over level 14
     (examples/last-layer/src/main.rs:113-186), rebuilt by building that
     circuit without proving it, as bench.py:213-222 does."""
-    lvl14 = sha_artifact("level14")
-    cs, _ = build_last_circuit(
-        lvl14, list(CHAIN_INPUTS),
-        transcript_fn=lambda s, pa: run_transcript_sha256p31(s, lvl14),
-        hash_node_fn=sha256_merkle.hash_node,
-    )
-    return tuple((i + 1, tuple(int(x) for x in cs.value(i + 1))) for i in range(cs.num_input))
+    return _public_inputs(_last_circuit(sha_artifact("level14")))
 
 
 def sha_inputs(kind: str) -> tuple:

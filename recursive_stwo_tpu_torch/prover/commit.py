@@ -6,16 +6,24 @@ words beside 8 digest words or two child digests side by side: kernel K1's
 own layout (`core/poseidon2.permute`, which takes the plain version on the
 CPU).  Hash semantics are commit._hash_leaf_level / _hash_node_level's.
 Each level is hashed in blocks of ROWS rows.
+
+`Sha256DeviceTree` is the twin of commit.py:178-188 `Sha256CommittedTree`:
+its columns stay on the device, as the quotient stage reads them there, and
+its levels are hashed on the host by the port's copy of
+`verifier/sha256_merkle` (the native SHA-256 kernels), as the JAX package
+hashes them.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List
 
 import numpy as np
 import torch
 
 from ..core import poseidon2
+from ..verifier import sha256_merkle
 from .arrays import to_numpy
 from .commit_host import CommittedTree
 
@@ -23,6 +31,13 @@ from .commit_host import CommittedTree
 # (a 2**26-leaf level hashed at once needs three (2**26, 16) int64 tensors,
 # 24 GiB)
 ROWS = 1 << 22
+# rows of a SHA-256 tree's columns copied to the host at a time, as int32 on
+# the device and uint32 on the host: no int64 block of a 2**26-row level is
+# held twice
+SHA_ROWS = 1 << 22
+# one entry per SHA-256 tree built since the last clear: its leaves, the
+# seconds of device-to-host column copies and of host hashing
+SHA_TREE_TIMES: List[dict] = []
 
 
 def absorb_columns(cols: torch.Tensor) -> torch.Tensor:
@@ -65,6 +80,40 @@ def commit_levels(cols_by_log: Dict[int, torch.Tensor]) -> List[torch.Tensor]:
     return levels
 
 
+def sha256_levels(cols_by_log: Dict[int, torch.Tensor]) -> List[np.ndarray]:
+    """Every level of the SHA-256 tree (`sha256_merkle.merkle_levels`) as
+    (2**L, 8) uint32 big-endian words on the host, leaf level first.  The
+    columns are copied to the host SHA_ROWS rows at a time; a node depends
+    only on its children and its own column entries, so hashing block by
+    block gives the whole level's digests."""
+    copy_s = hash_s = 0.0
+
+    def level(children, cols, n: int) -> np.ndarray:
+        nonlocal copy_s, hash_s
+        out = np.empty((n, 8), np.uint32)
+        for s in range(0, n, SHA_ROWS):
+            e = min(n, s + SHA_ROWS)
+            block = None
+            t = time.perf_counter()
+            if cols is not None and cols.shape[0]:
+                block = cols[:, s:e].to(torch.int32).cpu().numpy().view(np.uint32)
+            t2 = time.perf_counter()
+            if children is None:
+                out[s:e] = sha256_merkle.hash_leaf_level(block)
+            else:
+                out[s:e] = sha256_merkle.hash_node_level(children[2 * s : 2 * e], block)
+            copy_s += t2 - t
+            hash_s += time.perf_counter() - t2
+        return out
+
+    max_log = max(cols_by_log)
+    levels = [level(None, cols_by_log[max_log], 1 << max_log)]
+    for L in range(max_log - 1, -1, -1):
+        levels.append(level(levels[-1], cols_by_log.get(L), 1 << L))
+    SHA_TREE_TIMES.append(dict(leaves=1 << max_log, copy_s=copy_s, hash_s=hash_s))
+    return levels
+
+
 def merge_by_log(pairs) -> Dict[int, torch.Tensor]:
     """Concatenate same-log column groups in call order (`_merge_t`)."""
     out: Dict[int, list] = {}
@@ -78,12 +127,15 @@ class DeviceTree(CommittedTree):
     decommit plans are the base class's, and only the rows they name are
     copied to the host."""
 
-    def __init__(self, columns_by_log: Dict[int, torch.Tensor], levels=None):
+    def __init__(self, columns_by_log: Dict[int, torch.Tensor]):
         self.columns_by_log = {int(L): c for L, c in columns_by_log.items()}
         self.max_log = max(self.columns_by_log)
-        self.levels = commit_levels(self.columns_by_log) if levels is None else levels
+        self.levels = self._build_levels()
         if self.levels[-1].shape[0] != 1:
             raise ValueError("the last level must hold the root alone")
+
+    def _build_levels(self):
+        return commit_levels(self.columns_by_log)
 
     @property
     def root(self) -> np.ndarray:
@@ -99,3 +151,18 @@ class DeviceTree(CommittedTree):
     def column_rows(self, log_size: int, indices) -> np.ndarray:
         cols = self.columns_by_log[log_size]
         return to_numpy(cols[:, self._index(indices, cols)])
+
+
+class Sha256DeviceTree(DeviceTree):
+    """The SHA-256 flavour: columns on the device, levels of uint32 digest
+    words on the host (a 2**26-leaf tree's levels take 4 GiB there)."""
+
+    def _build_levels(self):
+        return sha256_levels(self.columns_by_log)
+
+    @property
+    def root(self) -> np.ndarray:
+        return self.levels[-1][0].copy()
+
+    def level_rows(self, level_idx: int, indices) -> np.ndarray:
+        return self.levels[level_idx][np.asarray(indices, np.int64)]

@@ -29,7 +29,6 @@ from ..verifier import composition as vcomp
 from ..verifier.spec import VerifierSpec
 from . import circle_fft
 from .arrays import to_device
-from .commit import commit_levels
 
 
 def q_of_m31(limb: torch.Tensor) -> QM31:
@@ -141,8 +140,9 @@ def composition_stage(
     random_coeff: QM31,
 ):
     """tables: ((pre, tr, inter) coefficient blocks, total_sum, log, evaluate_fn)
-    for plonk then poseidon.  Returns the (8, 2**(bound-1)) split coefficient
-    block (left limbs then right limbs), its LDE and its tree levels."""
+    per AIR, in emission order (plonk then poseidon; the one without-Poseidon
+    table).  Returns the (8, 2**(bound-1)) split coefficient block (left
+    limbs then right limbs) and its LDE, which the caller commits."""
     bound = spec.composition_log_degree_bound
     blowup = spec.log_blowup_factor
     device = tables[0][0][0].device
@@ -159,6 +159,5 @@ def composition_stage(
     comp_coeffs = circle_fft.interpolate(torch.stack(list(sink.acc)))  # (4, 2**bound)
     half = 1 << (bound - 1)
     split = torch.cat([comp_coeffs[:, :half], comp_coeffs[:, half:]])
-    comp_lde = circle_fft.lde(split, bound - 1 + blowup)
-    return split, comp_lde, commit_levels({bound - 1 + blowup: comp_lde})
+    return split, circle_fft.lde(split, bound - 1 + blowup)
 

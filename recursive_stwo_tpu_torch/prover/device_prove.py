@@ -7,6 +7,11 @@ the JAX package's fused-stage programs and its per-table split for large
 domains (`RSTPU_DEVICE_BIG_LOG`, :668-675) exist to fit a TPU's HBM or XLA's
 fusion and have no counterpart here.  Every Poseidon2 permutation (Merkle
 commits, the PoW grind at 22 bits or more) runs on kernel K1 on CUDA.
+
+The channel and the tree class are parameters, as they are in the JAX
+package's host flow (prove.py:164-208, `_fri_tail(tree_cls=)`): the
+Poseidon31 channel with `DeviceTree`, or `Sha256ProverChannel` with
+`Sha256DeviceTree` for the Sha256Poseidon31 flavour.
 """
 
 from __future__ import annotations
@@ -22,8 +27,7 @@ from ..verifier import composition as vcomp
 from ..verifier.spec import PLONK_LOG_EXPAND, POSEIDON_LOG_EXPAND, VerifierSpec
 from . import air, circle_fft
 from .arrays import to_device, trace_to_torch
-from .channel import PoseidonChannel
-from .commit import DeviceTree, merge_by_log
+from .commit import merge_by_log
 from .composition import composition_stage, qm31_scalar
 from .fri import _mix_felts, fri_tail
 from .interaction import interaction_columns
@@ -37,7 +41,9 @@ def _domain_order(rows: torch.Tensor, log_size: int) -> torch.Tensor:
     return rows[..., to_device(air.coset_to_domain_perm(log_size), rows.device)]
 
 
-def prove_device(trace: dict, config: PcsConfig, progress=None, device="cuda") -> PlonkWithPoseidonProof:
+def prove_device(trace: dict, config: PcsConfig, progress, device, channel, tree_cls) -> PlonkWithPoseidonProof:
+    """`channel` is a fresh prover channel and `tree_cls` the Merkle tree
+    class of its flavour (`prove.flavour`)."""
     device = torch.device(device)
     plog = progress or logging.getLogger(__name__).debug
     blowup = config.fri_config.log_blowup_factor
@@ -57,7 +63,6 @@ def prove_device(trace: dict, config: PcsConfig, progress=None, device="cuda") -
     )
     if spec.n_inner_layers != spec.expected_n_inner_layers:
         raise ValueError("the FRI config does not fit the trace's log sizes")
-    channel = PoseidonChannel(device)
     plog(f"trace uploaded (log sizes {lp}/{lq}, composition bound {bound})")
 
     # ---- trees 0 + 1 (no channel draw between them) ----
@@ -70,8 +75,8 @@ def prove_device(trace: dict, config: PcsConfig, progress=None, device="cuda") -
     ):
         coeffs[key] = circle_fft.interpolate(_domain_order(rows, log))
         ldes[key] = circle_fft.lde(coeffs[key], log + blowup)
-    tree0 = DeviceTree(merge_by_log([(lp + blowup, ldes["p_pre"]), (lq + blowup, ldes["q_pre"])]))
-    tree1 = DeviceTree(merge_by_log([(lp + blowup, ldes["p_tr"]), (lq + blowup, ldes["q_tr"])]))
+    tree0 = tree_cls(merge_by_log([(lp + blowup, ldes["p_pre"]), (lq + blowup, ldes["q_pre"])]))
+    tree1 = tree_cls(merge_by_log([(lp + blowup, ldes["p_tr"]), (lq + blowup, ldes["q_tr"])]))
     del ldes  # the trees hold the LDEs (merged into one block per log when lp == lq)
     channel.mix_root(tree0.root)
     plog("tree0 (preprocessed) committed")
@@ -91,7 +96,7 @@ def prove_device(trace: dict, config: PcsConfig, progress=None, device="cuda") -
     del ta, int_p, int_q
     plog("interaction columns generated")
     channel.mix_two_felts(plonk_total, pos_total)
-    tree2 = DeviceTree(
+    tree2 = tree_cls(
         merge_by_log(
             [(lp + blowup, circle_fft.lde(c_int_p, lp + blowup)), (lq + blowup, circle_fft.lde(c_int_q, lq + blowup))]
         )
@@ -102,7 +107,7 @@ def prove_device(trace: dict, config: PcsConfig, progress=None, device="cuda") -
     random_coeff4 = channel.draw_felt()
 
     # ---- composition polynomial + tree 3 ----
-    split_coeffs, comp_lde, t3_levels = composition_stage(
+    split_coeffs, comp_lde = composition_stage(
         spec,
         (
             ((coeffs["p_pre"], coeffs["p_tr"], c_int_p), qm31_scalar(plonk_total), lp, vcomp.evaluate_plonk),
@@ -112,7 +117,7 @@ def prove_device(trace: dict, config: PcsConfig, progress=None, device="cuda") -
         qm31_scalar(random_coeff4),
     )
     plog("composition evals computed")
-    tree3 = DeviceTree({bound - 1 + blowup: comp_lde}, levels=t3_levels)
+    tree3 = tree_cls({bound - 1 + blowup: comp_lde})
     del comp_lde
     channel.mix_root(tree3.root)
     plog("tree3 (composition) committed")
@@ -154,10 +159,10 @@ def prove_device(trace: dict, config: PcsConfig, progress=None, device="cuda") -
         for log, block in tree.columns_by_log.items():
             blocks_by_log.setdefault(log, []).append(block)
     samples_flat = np.concatenate([col for tree in sampled_values for col in tree]).astype(np.uint32)
-    first_cols, first_levels = quotients_stage(spec, blocks_by_log, samples_flat, oods, after_coeff4)
+    first_cols = quotients_stage(spec, blocks_by_log, samples_flat, oods, after_coeff4)
     del blocks_by_log
 
-    stark_proof = fri_tail(spec, config, channel, trees, first_cols, first_levels, sampled_values, plog)
+    stark_proof = fri_tail(spec, config, channel, trees, first_cols, sampled_values, plog, tree_cls)
     return PlonkWithPoseidonProof(
         log_size_plonk=lp,
         log_size_poseidon=lq,

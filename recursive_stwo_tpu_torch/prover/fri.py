@@ -21,7 +21,6 @@ from ..cs import scalar
 from ..proof.containers import FriLayerProof, FriProof, StarkProof
 from . import fri_host as host_fri
 from .arrays import to_device, to_numpy
-from .commit import DeviceTree
 from .composition import qm31_scalar
 
 
@@ -82,16 +81,20 @@ def _mix_felts(channel, felts) -> None:
             channel.mix_two_felts(chunk[0], chunk[1])
 
 
-def fri_tail(spec, config, channel, trees, first_cols: Dict[int, torch.Tensor], first_levels, sampled_values, plog) -> StarkProof:
-    """FRI phase over device-resident layers (mirrors prove._fri_tail);
-    first_cols: L -> (4, 2**L) first-layer quotient limbs."""
+def fri_tail(
+    spec, config, channel, trees, first_cols: Dict[int, torch.Tensor], sampled_values, plog, tree_cls
+) -> StarkProof:
+    """FRI phase over device-resident layers (mirrors prove._fri_tail, whose
+    `tree_cls` picks the Merkle flavour of the first-layer and inner-layer
+    trees as it does here); first_cols: L -> (4, 2**L) first-layer quotient
+    limbs."""
     plog("FRI first-layer quotients computed")
-    first_tree = DeviceTree(first_cols, levels=first_levels)
+    first_tree = tree_cls(first_cols)
     channel.mix_root(first_tree.root)
     alphas = [qm31_scalar(channel.draw_felt())]
     M = spec.max_first_layer_log
 
-    inner_trees: List[DeviceTree] = []
+    inner_trees = []
     inner_evals: List[torch.Tensor] = []
     g = None
     level = M - 1
@@ -105,7 +108,7 @@ def fri_tail(spec, config, channel, trees, first_cols: Dict[int, torch.Tensor], 
             else:
                 a2 = qm31_scalar(scalar.q_mul(alphas[i], alphas[i]))
                 g = torch.stack(list(q.q_add(q.q_mul(QM31(*g), a2), QM31(*fold_in))))
-        tree_i = DeviceTree({level: g})
+        tree_i = tree_cls({level: g})
         inner_trees.append(tree_i)
         inner_evals.append(g)
         channel.mix_root(tree_i.root)

@@ -11,9 +11,8 @@ confirmed-prefix semantics) + tree rules (verifier/sha256_merkle.py) and
 is verified end-to-end by verifier/verify_sha256.py.
 
 Copied from recursive_stwo_tpu/prover/prove_sha256.py: `Sha256ProverChannel`,
-which the SHA-256 transcripts of the verifiers replay.  `prove_sha256p31`
-waits for the port's SHA-256 prover (ROADMAP.md, section 1, item 9: the
-port has no `Sha256CommittedTree` yet) and raises.
+which the SHA-256 transcripts of the verifiers replay.  `prove_sha256p31` is
+the port's `prove` with this channel and `Sha256DeviceTree` on `device`.
 """
 
 from __future__ import annotations
@@ -95,8 +94,17 @@ class Sha256ProverChannel:
 
 
 def prove_sha256p31(
-    trace: dict, config: PcsConfig, progress=None
+    trace: dict, config: PcsConfig, progress=None, device="cuda"
 ) -> PlonkWithPoseidonProof:
-    raise NotImplementedError(
-        "prove_sha256p31: the SHA-256 prover is not ported (ROADMAP.md, section 1, item 9)"
+    # prove.py routes on this module's channel class: import it here
+    from .commit import Sha256DeviceTree
+    from .prove import prove
+
+    return prove(
+        trace,
+        config,
+        progress,
+        device,
+        channel=Sha256ProverChannel(),
+        tree_cls=Sha256DeviceTree,
     )

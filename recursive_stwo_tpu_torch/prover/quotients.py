@@ -2,7 +2,7 @@
 
 Twin of device_prove.py:533-568 (`_stage_quotients_jit`, `_dev_domain`): per
 first-layer log size, the port's verifier `fri_answers_for_group` evaluated
-with the whole domain as its query axis, then the first-layer tree.  The
+with the whole domain as its query axis.  The
 answer is pointwise in the domain, so the domain is taken in chunks of
 CHUNK points; that bounds the (points, columns) QM31 temporaries (96 columns
 at 2**21 points would be several GB each) and changes no value.  A group's
@@ -21,7 +21,6 @@ from ..verifier import quotients as vquot
 from ..verifier.spec import VerifierSpec
 from . import circle_fft
 from .arrays import to_device
-from .commit import commit_levels
 
 CHUNK = 1 << 18
 
@@ -40,7 +39,7 @@ def quotients_stage(
 ):
     """blocks_by_log: L -> the (n_cols, 2**L) LDE blocks of log L, in group
     column order (tree-major); samples_flat (S, 4).  Returns the first-layer
-    columns {L: (4, 2**L) limbs} and the first-layer tree's levels."""
+    columns {L: (4, 2**L) limbs}."""
     device = next(iter(blocks_by_log.values()))[0].device
     samples = to_device(samples_flat, device)[None]
     point = (_q_vec(oods[0], device), _q_vec(oods[1], device))
@@ -58,4 +57,4 @@ def quotients_stage(
                 )
             )
         first_cols[L] = torch.stack([torch.cat([p[i][0] for p in parts]) for i in range(4)])
-    return first_cols, commit_levels(first_cols)
+    return first_cols

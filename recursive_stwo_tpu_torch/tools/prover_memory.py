@@ -1,16 +1,17 @@
 """Time and peak device memory of the port's prover, per stage, on CUDA.
 
     python -m recursive_stwo_tpu_torch.tools.prover_memory LOG_PLONK LOG_POSEIDON PRESET
-    python -m recursive_stwo_tpu_torch.tools.prover_memory --level {1,2}
+    python -m recursive_stwo_tpu_torch.tools.prover_memory --level {1,2,3}
         [--repeat K] [--profile]
 
 The first form builds a circuit of chained Poseidon2 permutations and QM31
 products whose plonk and poseidon tables pad to 2**LOG_PLONK and
 2**LOG_POSEIDON rows (the chain's log sizes are in docs/chain_log.jsonl),
 proves it with the preset's PcsConfig (models/flagship.PRESETS) and checks
-the proof with the port's verifier.  The second proves recursion-chain level
-1 or 2 (models/flagship.chain_level_trace) and holds the m31x8 bytes against
-the committed artifact.
+the proof with the port's verifier.  The second proves a recursion-chain
+level whose input the repo holds, 1, 2 or 3 (models/flagship.chain_level_trace),
+and holds its m31x8 bytes to the sha256 docs/chain_artifacts.txt lists
+(tools/chain.py proves the later levels).
 
 Each of the K proofs prints one JSON line: its wall time, and the time and
 peak of `torch.cuda.max_memory_allocated()` in each prover stage.  The first
@@ -24,7 +25,9 @@ out-of-memory error ends it with that error.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
+import os
 import time
 
 import torch
@@ -35,9 +38,13 @@ from ..gadgets.poseidon import Poseidon2Half
 from ..models import flagship
 from ..prover.air import ROWS_PER_INV
 from ..prover.prove import prove
+from .chain import timed_proof
 from ..verifier import hints, verify
 from ..verifier.arrays import to_torch
 from ..verifier.spec import VerifierSpec
+
+# chain levels whose input is a fixture or a committed artifact
+COMMITTED_INPUT_LEVELS = (1, 2, 3)
 
 
 def shaped_trace(log_plonk: int, log_poseidon: int) -> dict:
@@ -60,20 +67,6 @@ def shaped_trace(log_plonk: int, log_poseidon: int) -> dict:
     cs.populate_logup_arguments()
     cs.check_poseidon_invocations()
     return cs.generate_trace()
-
-
-def _stage_clock(stages: list):
-    clock = [time.perf_counter()]
-
-    def progress(msg: str) -> None:
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        stages.append(dict(stage=msg, s=round(now - clock[0], 4), peak_bytes=torch.cuda.max_memory_allocated(),
-                           held_bytes=torch.cuda.memory_allocated()))
-        torch.cuda.reset_peak_memory_stats()
-        clock[0] = now
-
-    return progress
 
 
 def _device_time(prof) -> dict:
@@ -103,7 +96,7 @@ def _device_time(prof) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("shape", nargs="*", metavar="LOG_PLONK LOG_POSEIDON PRESET")
-    ap.add_argument("--level", type=int, choices=sorted(flagship.CHAIN_LEVELS))
+    ap.add_argument("--level", type=int, choices=COMMITTED_INPUT_LEVELS)
     ap.add_argument("--repeat", type=int, default=1, help="proofs in this process (the first is cold)")
     ap.add_argument("--profile", action="store_true", help="one more proof under torch.profiler")
     args = ap.parse_args()
@@ -120,12 +113,13 @@ def main() -> None:
         expected, label = None, dict(preset=args.shape[2])
     else:
         trace, config, path = flagship.chain_level_trace(args.level)
-        expected, label = flagship.artifact_bytes(path), dict(level=args.level)
+        name = os.path.basename(path)[: -len(".pkl")]
+        expected, label = flagship.expected_sha256(name), dict(level=args.level)
 
     def check(proof) -> None:
         if expected is not None:
-            if flagship.proof_bytes(proof) != expected:
-                raise SystemExit(f"level {args.level}: the proof bytes differ from {path}")
+            if hashlib.sha256(flagship.proof_bytes(proof)).hexdigest() != expected:
+                raise SystemExit(f"level {args.level}: the proof bytes do not hash to {name}.bin's {expected}")
             return
         spec = VerifierSpec.from_proof(proof)
         checks = verify.verify_batch(spec, to_torch(hints.prepare(spec, [proof]), "cuda"), flagship.CHAIN_INPUTS)
@@ -134,20 +128,13 @@ def main() -> None:
 
     device = dict(name=torch.cuda.get_device_name(0))
     for run in range(args.repeat):
-        stages = []
-        progress = _stage_clock(stages)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        start = time.perf_counter()
-        proof = prove(trace, config, progress=progress, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - start
+        proof, timing = timed_proof(lambda progress: prove(trace, config, progress=progress, device="cuda"), "cuda")
         check(proof)
         spec = VerifierSpec.from_proof(proof)
         print(json.dumps(dict(
             **label, run=run, cold=run == 0, log_plonk=proof.log_size_plonk, log_poseidon=proof.log_size_poseidon,
-            max_domain_log=max(spec.all_log_sizes), correct=True, wall_s=round(wall, 4),
-            peak_bytes=max(s["peak_bytes"] for s in stages), device=device, stages=stages,
+            max_domain_log=max(spec.all_log_sizes), correct=True, wall_s=timing["prove_s"],
+            peak_bytes=timing["peak_bytes"], device=device, stages=timing["stages"],
         )), flush=True)
 
     if args.profile:

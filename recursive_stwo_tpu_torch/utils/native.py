@@ -29,6 +29,11 @@ _lib = None
 _tried = False
 
 
+def omp_threads() -> int:
+    """The OpenMP threads of the native kernels: RSTPU_OMP_THREADS, else 1."""
+    return int(os.environ.get("RSTPU_OMP_THREADS", "1"))
+
+
 def _set_omp_threads():
     """Pin OpenMP to one thread unless overridden.
 
@@ -36,10 +41,10 @@ def _set_omp_threads():
     (hypervisor scheduling of the second vCPU) and the second thread never
     wins even on 64k-permutation batches (16.4 ms vs 12.4 ms single).  The
     8 ms tax per native call was the dominant cost of host hint prep."""
-    n = os.environ.get("RSTPU_OMP_THREADS", "1")
-    os.environ.setdefault("OMP_NUM_THREADS", n)
+    n = omp_threads()
+    os.environ.setdefault("OMP_NUM_THREADS", str(n))
     try:
-        ctypes.CDLL("libgomp.so.1").omp_set_num_threads(int(n))
+        ctypes.CDLL("libgomp.so.1").omp_set_num_threads(n)
     except Exception:
         pass
 

@@ -209,3 +209,53 @@ def test_sha_fast_path_on_cuda_matches_cpu(cuda, kind):
     ref = fn(flagship.sha_artifact(kind), inputs, device="cpu")
     assert list(ref) == list(got) and all(np.array_equal(ref[k], got[k]) for k in ref)
     assert got["ok"].all()
+
+
+def test_sha_tree_on_cuda_matches_committed_tree(cuda, monkeypatch):
+    """The SHA-256 tree with its columns on the card, copied to the host in
+    blocks of 2**6 rows: every level, the root and a decommitment equal the
+    JAX package's Sha256CommittedTree."""
+    from recursive_stwo_tpu.prover.commit import Sha256CommittedTree
+    from recursive_stwo_tpu_torch.prover import commit
+
+    monkeypatch.setattr(commit, "SHA_ROWS", 1 << 6)
+    rng = np.random.default_rng(9)
+    cols = {12: rng.integers(0, P, (7, 1 << 12)), 9: rng.integers(0, P, (4, 1 << 9))}
+    ref = Sha256CommittedTree({L: c.astype(np.uint32) for L, c in cols.items()})
+    tree = commit.Sha256DeviceTree({L: torch.from_numpy(c).to(cuda) for L, c in cols.items()})
+    assert all(np.array_equal(g, w) for g, w in zip(tree.levels, ref.levels))
+    assert np.array_equal(tree.root, ref.root)
+    queries = [int(v) for v in rng.integers(0, 1 << 12, 9)]
+    (vals, dec), (ref_vals, ref_dec) = tree.decommit(queries), ref.decommit(queries)
+    assert np.array_equal(vals, ref_vals) and np.array_equal(dec.hash_witness, ref_dec.hash_witness)
+
+
+@pytest.mark.parametrize("name", ["poseidon31", "sha256"])
+def test_prove_np_on_cuda_matches_host(cuda, monkeypatch, name):
+    """prove_np on CUDA against the JAX host prove_np in both flavours; K1
+    runs the Poseidon31 flavour's commits and none of the SHA-256 one's."""
+    from recursive_stwo_tpu.proof.serialize import serialize_plonk_without_poseidon_proof as r_ser_np
+    from recursive_stwo_tpu.prover.prove_np import prove_np as r_prove_np
+    from recursive_stwo_tpu_torch.proof.serialize import serialize_plonk_without_poseidon_proof as t_ser_np
+    from recursive_stwo_tpu_torch.prover.prove_np import prove_np as t_prove_np
+    from test_torch_chain import NP_CONFIG, T_NP_CONFIG, _flavour, _np_trace
+
+    poseidon_cuda.reset_launches()
+    got = t_prove_np(_np_trace(), T_NP_CONFIG, device=cuda, **_flavour(name, "port"))
+    torch.cuda.synchronize()
+    assert (poseidon_cuda.LAUNCHES["permute_rows"] > 0) == (name == "poseidon31")
+    monkeypatch.setenv("RSTPU_DEVICE_PROVER", "0")
+    ref = r_prove_np(_np_trace(), NP_CONFIG, **_flavour(name, "reference"))
+    mode = "m31x8" if name == "poseidon31" else "bytes32"
+    assert t_ser_np(got, mode) == r_ser_np(ref, mode)
+
+
+def test_prove_sha256p31_on_cuda_matches_host(cuda, monkeypatch):
+    from recursive_stwo_tpu.proof.serialize import serialize_plonk_with_poseidon_proof as r_ser
+    from recursive_stwo_tpu.prover.prove_sha256 import prove_sha256p31 as r_prove_sha256p31
+    from recursive_stwo_tpu_torch.prover.prove_sha256 import prove_sha256p31
+    from test_torch_chain import CONFIG, T_CONFIG
+
+    got = prove_sha256p31(flagship.demo_trace(), T_CONFIG, device=cuda)
+    monkeypatch.setenv("RSTPU_DEVICE_PROVER", "0")
+    assert flagship.proof_bytes(got) == r_ser(r_prove_sha256p31(flagship.demo_trace(), CONFIG), "bytes32")

@@ -150,12 +150,13 @@ def test_prove_matches_host_prove(name, monkeypatch):
 
 
 def test_prove_refuses_what_is_not_ported():
+    """A channel of another package and a flavour's tree without its channel
+    raise; so does a missing card."""
     from recursive_stwo_tpu.prover.channel import PoseidonChannel
-    from recursive_stwo_tpu.prover.commit import Sha256CommittedTree
 
     config = CONFIGS["fri-1-3-9"]
     with pytest.raises(NotImplementedError):
-        t_prove(_trace(), config, device="cpu", tree_cls=Sha256CommittedTree)
+        t_prove(_trace(), config, device="cpu", tree_cls=t_commit.Sha256DeviceTree)
     with pytest.raises(NotImplementedError):
         t_prove(_trace(), config, device="cpu", channel=PoseidonChannel())
     if not torch.cuda.is_available():

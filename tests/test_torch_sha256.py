@@ -91,9 +91,21 @@ def test_channel_matches_reference():
     assert chans[0].grind_pow(10) == chans[1].grind_pow(10)
 
 
-def test_prove_sha256p31_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        prove_sha256p31({}, flagship.DEMO_CONFIG)
+def test_prove_sha256p31_matches_reference(monkeypatch):
+    """The port's prove_sha256p31 on the CPU equals the JAX host flow's
+    (tests/test_sha256_flavor.py:98) on the demo circuit, in "bytes32"
+    bytes, and the port's host verifier accepts it."""
+    from recursive_stwo_tpu.proof.serialize import serialize_plonk_with_poseidon_proof as r_ser
+    from recursive_stwo_tpu.prover.prove_sha256 import prove_sha256p31 as r_prove_sha256p31
+
+    from test_torch_chain import CONFIG, T_CONFIG
+
+    monkeypatch.setenv("RSTPU_DEVICE_PROVER", "0")
+    trace = flagship.demo_trace()
+    got = prove_sha256p31(trace, T_CONFIG, device="cpu")
+    assert flagship.proof_bytes(got) == r_ser(r_prove_sha256p31(trace, CONFIG), "bytes32")
+    assert np.asarray(got.stark_proof.commitments).dtype == np.uint32
+    assert t_vh.verify_sha256p31_host(got, flagship.CHAIN_INPUTS)["ok"].all()
 
 
 def test_bitcoin_inputs_match_reference():
