@@ -65,15 +65,28 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      accept it; prints the wall, each stage, the peak device memory, the
      kernels' launches and the SHA-256 trees' copy and hashing time;
  13. prove_sha256p31 of the demo circuit on CUDA equals the CPU run, byte
-     for byte ("bytes32").
+     for byte ("bytes32");
+ 14. multi-device verification (recursive_stwo_tpu_torch/parallel): (a) the
+     dry run on one NCCL rank on the card and, at the same time, (b) the
+     dry run on MESH_RANKS gloo ranks sharing the card (the (2, 2) host x
+     chip reduction and the fault attribution on CUDA verifiers); (c) phase 4's batch split over
+     MESH_RANKS gloo ranks on the card with verify_sharded: every named
+     check of every slot must equal phase 4's CPU run, and each rank's
+     verify_batch must launch K1 as often as the whole batch did, the scan
+     twice and K2 once; (d) warm proofs/s of the clean B=1024 batch split
+     over 1, 2 and MESH_RANKS ranks sharing the card (verify_local: the
+     batch over the slowest rank's synchronize()-bounded wall, median of
+     MESH_RUNS), each rank's kernels and copies and fills in one call, and
+     the card's busy share (the ranks' kernel time under torch.profiler,
+     summed, over that wall); information only.
 Phases 7, 8, 12 and 13 print each proof's wall, peak GiB and K1 launches.
 The last three lines are the nvidia-smi line, a JSON line describing the
 kernels (prover_launches, level2_launches, level3_launches and
 last_layer_launches: phase 7's level 1, phase 8's levels 2 and 3 and phase
 12's last layer; np_launches, np_shape, np_ms,
 np_plain_ms and np_bound_ms: phase 10's launches and shapes, and the
-kernel's times there), and
-{"ok": true, "device": {...}}.
+kernel's times there; mesh_launches: each rank's launches in phase 14 (c)),
+and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -119,6 +132,10 @@ SAMPLE_SLOT = 7
 # the scan kernel is held to scan_plain at these slots (tails of a warp and
 # of a block of 128 threads) with 1-4 lanes
 SCAN_SLOTS_CHECKED = (1, 7, 127, 129, 16384)
+MESH_RANKS = 4  # phase 14: gloo ranks sharing the card
+MESH_SIZES = (1, 2, MESH_RANKS)  # the rank counts timed in phase 14 (d)
+MESH_RUNS = 5
+MESH_TIMEOUT = 300.0  # seconds a spawn of phase 14 may take
 
 
 class SmokeError(RuntimeError):
@@ -290,13 +307,14 @@ def _failing(checks: dict, slot: int) -> list:
     return sorted(k for k, v in checks.items() if not bool(v[slot]))
 
 
-def hold_batch(torch, dev, label: str, run, pa, inputs) -> dict:
+def hold_batch(torch, dev, label: str, run, pa, inputs) -> tuple:
     """Phases 4, 5 and 10.  `pa` is a numpy batch with a flipped sibling
     hash (tree 1) in SIB_SLOT and a flipped nonce in NONCE_SLOT; run(pa,
     inputs) is the verifier.  On CUDA and on the CPU, with the batch's
     inputs and with a wrong first public input, every named check of every
     slot must agree; the corrupted slots must fail by their checks.  Returns
-    the kernels' launch counts over one run on CUDA."""
+    the kernels' launch counts over one run on CUDA, and the CPU run's
+    checks with the batch's inputs."""
     from recursive_stwo_tpu_torch.ops import poseidon_cuda
     from recursive_stwo_tpu_torch.verifier.arrays import to_torch
 
@@ -326,6 +344,7 @@ def hold_batch(torch, dev, label: str, run, pa, inputs) -> dict:
                     f"{label} ({case}): check {k} differs from the host run")
         ok = got["ok"].cpu().numpy()
         if inp is inputs:
+            host_checks = ref
             clean = np.ones(batch, bool)
             clean[[SIB_SLOT, NONCE_SLOT]] = False
             require(ok[clean].all(), f"{label}: a clean slot was rejected")
@@ -338,7 +357,7 @@ def hold_batch(torch, dev, label: str, run, pa, inputs) -> dict:
         print(f"{label} B={batch} ({case}): all {len(ref)} checks equal the CPU run "
               f"({host_s:.1f} s) per slot; {int(ok.sum())} slots ok")
     print(f"{label}: kernel launches in one run: {launches}")
-    return launches
+    return launches, host_checks
 
 
 def _corrupted(pa):
@@ -347,8 +366,8 @@ def _corrupted(pa):
     return pa
 
 
-def check_main_path(torch, dev, name: str) -> dict:
-    """Phases 4 and 5: verify_batch on a fixture at B=1024."""
+def check_main_path(torch, dev, name: str) -> tuple:
+    """Phases 4 and 5: verify_batch on a fixture at B=1024 (hold_batch)."""
     from recursive_stwo_tpu_torch.models import flagship
     from recursive_stwo_tpu_torch.verifier import verify
 
@@ -358,8 +377,8 @@ def check_main_path(torch, dev, name: str) -> dict:
                       flagship.FIXTURE_INPUTS[name])
 
 
-def check_np_path(torch, dev) -> dict:
-    """Phase 10: verify_batch_np on np_small at B=NP_BATCH."""
+def check_np_path(torch, dev) -> tuple:
+    """Phase 10: verify_batch_np on np_small at B=NP_BATCH (hold_batch)."""
     from recursive_stwo_tpu_torch.models import flagship
     from recursive_stwo_tpu_torch.verifier.verify_np import verify_batch_np
 
@@ -612,6 +631,88 @@ def check_sha(torch, dev) -> dict:
     return metrics
 
 
+def mesh_rank(device) -> dict:
+    """Phase 14 (c) and (d), inside each of MESH_RANKS gloo ranks on the card.
+    (c): phase 4's corrupted batch through verify_sharded, with the kernels'
+    launches counted around it; (d): the clean batch's shares timed over
+    MESH_SIZES ranks (tools/mesh_times.time_shares).  Returns the gathered
+    checks, the launches and the timings."""
+    import torch
+
+    from recursive_stwo_tpu_torch.models import flagship
+    from recursive_stwo_tpu_torch.ops import poseidon_cuda
+    from recursive_stwo_tpu_torch.parallel import mesh as pmesh
+    from recursive_stwo_tpu_torch.tools.mesh_times import time_shares
+
+    t = time.perf_counter()
+    name = FIXTURES[0]
+    spec, pa1 = flagship.prepared_arrays(name)
+    inputs = flagship.FIXTURE_INPUTS[name]
+    pa = _corrupted(flagship.tiled_batch(pa1, BATCH))
+    torch.cuda.synchronize()
+    poseidon_cuda.reset_launches()
+    *_, named = pmesh.verify_sharded(spec, pa, inputs, pmesh.make_mesh(device), checks=True)
+    launches = dict(poseidon_cuda.LAUNCHES)
+    seconds = [time.perf_counter() - t]
+    t = time.perf_counter()
+    timing = time_shares(device, spec, flagship.tiled_batch(pa1, BATCH), inputs, MESH_SIZES, MESH_RUNS)
+    seconds.append(time.perf_counter() - t)
+    return dict(named={k: v.numpy() for k, v in named.items()}, launches=launches, timing=timing, seconds=seconds)
+
+
+def check_mesh(torch, smi: str, host_checks: dict, launches: dict) -> list:
+    """Phase 14.  `host_checks` and `launches` are phase 4's CPU checks and
+    its CUDA run's launches.  Returns each rank's launches in (c)."""
+    from recursive_stwo_tpu_torch.parallel import launch
+    from recursive_stwo_tpu_torch.parallel.dryrun import dryrun_multichip
+    from recursive_stwo_tpu_torch.tools.mesh_times import summary
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    def dry_run(n, backend):
+        t = time.perf_counter()
+        return dryrun_multichip(n, backend=backend, devices=("cuda:0",) * n, timeout=MESH_TIMEOUT), \
+            time.perf_counter() - t
+
+    start = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks' contexts share the card with this process
+    dry_runs = ((1, "nccl"), (MESH_RANKS, "gloo"))
+    with ThreadPoolExecutor(len(dry_runs)) as pool:  # (a) and (b) at once: each waits mostly on its ranks' start
+        futures = [pool.submit(dry_run, n, backend) for n, backend in dry_runs]
+    for (n, backend), future in zip(dry_runs, futures):
+        results, wall = future.result()
+        for rank, r in enumerate(results):
+            require(all(v > 0 for v in r["launches"].values()), f"dry run, {backend} rank {rank}: {r['launches']}")
+        print(f"dry run on {n} {backend} rank(s) on cuda:0: every case passed in {wall:.1f} s "
+              f"({', '.join(results[0]['verdicts'])}); fault per host "
+              f"{results[0]['verdicts'].get('fault per-host', np.array([])).tolist()}; launches per rank "
+              f"{[r['launches'] for r in results]}")
+
+    t = time.perf_counter()
+    ranks = launch.spawn(mesh_rank, MESH_RANKS, "gloo", ("cuda:0",), timeout=MESH_TIMEOUT)
+    for rank, r in enumerate(ranks):
+        named = r["named"]
+        require(list(named) == list(host_checks), f"mesh rank {rank}: check names differ from phase 4's CPU run")
+        for k, v in host_checks.items():
+            require(np.array_equal(named[k], v.numpy()), f"mesh rank {rank}: check {k} differs from phase 4's CPU run")
+        got = r["launches"]
+        require(got["permute_rows"] == launches["permute_rows"] and got["wordmajor_scan"] == 2
+                and got["permute_wordmajor"] == 1,
+                f"mesh rank {rank}: launches {got}, expected K1 {launches['permute_rows']}, 2 scans, 1 K2 step")
+    print(f"{FIXTURES[0]} B={BATCH} over {MESH_RANKS} gloo ranks on cuda:0 (verify_sharded): all "
+          f"{len(host_checks)} checks equal phase 4's CPU run per slot; launches per rank "
+          f"{[r['launches'] for r in ranks]} ({time.perf_counter() - t:.1f} s with phase (d); in the slowest rank "
+          f"{max(r['seconds'][0] for r in ranks):.1f} s for (c), {max(r['seconds'][1] for r in ranks):.1f} s for (d))")
+    for row in summary([r["timing"] for r in ranks], ["cuda:0"] * MESH_RANKS, BATCH):
+        print(f"{FIXTURES[0]} B={BATCH} over {row['ranks']} rank(s) sharing the card: {row['proofs_per_s']:.1f} "
+              f"proofs/s (the slowest rank's wall, median {row['wall_ms_median']:.1f} ms of "
+              f"{', '.join(f'{w:.1f}' for w in row['wall_ms'])}); kernels a rank {row['kernels']}, copies and "
+              f"fills a rank {row['copies_and_fills']}; kernels {row['kernel_ms']['cuda:0']:.1f} ms "
+              f"summed over the ranks = card busy {row['busy_share']['cuda:0']:.1%}; on {smi}")
+    print(f"phase 14: {time.perf_counter() - start:.1f} s")
+    return [r["launches"] for r in ranks]
+
+
 def main() -> int:
     import torch
 
@@ -650,9 +751,9 @@ def main() -> int:
     del programs, leaf_state, np_leaf_state
     torch.cuda.synchronize()
 
-    launches = {}
+    launches, host_checks = {}, {}
     for name in FIXTURES:
-        launches[name] = check_main_path(torch, dev, name)
+        launches[name], host_checks[name] = check_main_path(torch, dev, name)
         torch.cuda.synchronize()
 
     for name in FIXTURES:
@@ -666,7 +767,7 @@ def main() -> int:
     prover_launches = {level: prove_level(dev, level, seen) for level in (1, 2, 3)}
     check_grind(torch, dev)
 
-    np_launches = check_np_path(torch, dev)
+    np_launches, _ = check_np_path(torch, dev)
     torch.cuda.synchronize()
     np_rate_v = np_rate(torch, dev)
     print(f"np_small: np_flavor_proofs_per_sec {np_rate_v:.1f} at B={NP_BATCH} on {smi}")
@@ -681,6 +782,7 @@ def main() -> int:
           f"bitcoin_device_proofs_per_sec)")
     last_launches = prove_level(dev, LAST_LAYER, seen, flagship.sha_artifact("level14"))
     check_demo_sha_proof(dev)
+    mesh_launches = check_mesh(torch, smi, host_checks[FIXTURES[0]], launches[FIXTURES[0]])
 
     require("jax" not in sys.modules, "jax was imported")
     require(not any(m.split(".")[0] == "recursive_stwo_tpu" for m in sys.modules), "the JAX package was imported")
@@ -695,7 +797,8 @@ def main() -> int:
              replaces=replaces[k], launches=launches[FIXTURES[0]][k],
              prover_launches=prover_launches[1][k], level2_launches=prover_launches[2][k],
              level3_launches=prover_launches[3][k],
-             last_layer_launches=last_launches[k], np_launches=np_launches[k], **kernels[k])
+             last_layer_launches=last_launches[k], np_launches=np_launches[k],
+             mesh_launches=[r[k] for r in mesh_launches], **kernels[k])
         for k in replaces
     ]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s")

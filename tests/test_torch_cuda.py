@@ -230,6 +230,20 @@ def test_sha_tree_on_cuda_matches_committed_tree(cuda, monkeypatch):
     assert np.array_equal(vals, ref_vals) and np.array_equal(dec.hash_witness, ref_dec.hash_witness)
 
 
+def test_gloo_ranks_sharing_the_card_match_the_cpu_run(cuda):
+    """tests/test_torch_mesh.py's cases on 2 gloo ranks on cuda:0: every
+    named check of every slot, gathered, equals the JAX package's host
+    verifier, and each rank launched every kernel."""
+    from test_torch_mesh import CASES, held, run_cases
+
+    from recursive_stwo_tpu_torch.parallel import launch
+
+    ranks = launch.spawn(run_cases, 2, "gloo", ("cuda:0",), timeout=300.0)
+    for case in CASES:
+        held(ranks, case)
+    assert all(v > 0 for r in ranks for v in r["launches"].values())
+
+
 @pytest.mark.parametrize("name", ["poseidon31", "sha256"])
 def test_prove_np_on_cuda_matches_host(cuda, monkeypatch, name):
     """prove_np on CUDA against the JAX host prove_np in both flavours; K1
