@@ -5,7 +5,8 @@
 
 Phases; any failure ends the run with a non-zero exit and no result line:
   1. card: the GPU's name and power limit, as nvidia-smi prints them;
-  2. build: nvcc builds the Poseidon2-16 kernels from csrc/ (seconds);
+  2. build: nvcc builds the Poseidon2-16 and SHA-256 kernels from csrc/ (one
+     nvcc a source, all at once, then a link; seconds);
   3. kernels vs plain: K1 and K2 against their plain PyTorch versions on
      the card and on the host CPU, bit for bit, at 2**20 states and at the
      main path's shapes, plus the Poseidon2-16 known-answer test; each of
@@ -16,7 +17,13 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      B=1024; the same for phase 10's shapes: K1 at (512, 16), K2 at
      np_small's leaf step and the scan on np_small's passes at B=512;
      kernel times (device time under torch.profiler, and back to back under
-     CUDA events), plain-version times, and each time beside its bound;
+     CUDA events), plain-version times, and each time beside its bound; the
+     SHA-256 tree-level kernel against its plain version on the card, bit
+     for bit: leaf levels of 1, 8, 13, 14, 16, 40 and 12 columns (the last
+     layer's widest tree), node levels with and without columns, at 1, 7,
+     127, 129 and 2**20 + 3 rows, and a column slice; against the native
+     host SHA-256 at 2**20 leaves; its times at a 2**20-row leaf chunk, a
+     2**20-node level and a 2**27-row leaf level;
   4. main path, small_proof at B=1024: the port's verify_batch on CUDA over
      a batch with a flipped sibling hash and a flipped nonce, and again with
      a wrong public input; every named check of every slot must equal the
@@ -62,8 +69,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      Sha256MerkleChannel flavour at pow 28, FRI(0, 9, 8) (largest domain
      2**27; tools/chain.run_level); its "bytes32" bytes must hash to
      bitcoin_proof.bin's 71da12a3..., and verify_sha256np on CUDA must
-     accept it; prints the wall, each stage, the peak device memory, the
-     kernels' launches and the SHA-256 trees' copy and hashing time;
+     accept it; its 22 SHA-256 trees are hashed on the card by the SHA-256
+     kernel (which must launch); prints the wall, each stage, the peak
+     device memory, the kernels' launches and the trees' hashing and digest
+     copy-back time;
  13. prove_sha256p31 of the demo circuit on CUDA equals the CPU run, byte
      for byte ("bytes32");
  14. multi-device verification (recursive_stwo_tpu_torch/parallel): (a) the
@@ -78,15 +87,33 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      batch over the slowest rank's synchronize()-bounded wall, median of
      MESH_RUNS), each rank's kernels and copies and fills in one call, and
      the card's busy share (the ranks' kernel time under torch.profiler,
-     summed, over that wall); information only.
-Phases 7, 8, 12 and 13 print each proof's wall, peak GiB and K1 launches.
-The last three lines are the nvidia-smi line, a JSON line describing the
-kernels (prover_launches, level2_launches, level3_launches and
-last_layer_launches: phase 7's level 1, phase 8's levels 2 and 3 and phase
-12's last layer; np_launches, np_shape, np_ms,
-np_plain_ms and np_bound_ms: phase 10's launches and shapes, and the
-kernel's times there; mesh_launches: each rank's launches in phase 14 (c)),
-and {"ok": true, "device": {...}}.
+     summed, over that wall); information only;
+ 15. the streamed provers (prover/stream.py): (a) the demo circuit proved on
+     CUDA and on the CPU at chunk_log 9, cutoff 5 by prove_streamed in both
+     flavours and a small PlonkWithoutPoseidon circuit by prove_np_streamed
+     in both tree flavours, the same bytes on both; (b) chain level 3
+     streamed at the defaults (chunks of 2**20 rows), its m31x8 bytes
+     hashing to level3-1.bin's 642d38ee..., accepted by verify_batch on
+     CUDA, K1 launched; (c) the last layer streamed in the
+     Sha256MerkleChannel flavour (largest domain 2**27), its "bytes32" bytes
+     hashing to bitcoin_proof.bin's 71da12a3..., accepted by
+     verify_sha256np on CUDA, the SHA-256 kernel launched.  (b) and (c) run
+     under a device-only torch.profiler trace, which counts every kernel
+     the card ran; each prints its wall (traced), stages, the kernels'
+     launches and the eager launches, and its peak device memory beside
+     the resident proof's of the same level in this run (phase 8's level 3,
+     phase 12's last layer); its own peak (above what the process held when
+     the proof began: tables cached by earlier phases) must be below the
+     resident proof's own peak.
+Phases 7, 8, 12, 13 and 15 print each proof's wall, peak GiB and launches,
+and every phase its seconds.  The last three lines are the nvidia-smi line,
+a JSON line describing the kernels (prover_launches, level2_launches,
+level3_launches and last_layer_launches: phase 7's level 1, phase 8's
+levels 2 and 3 and phase 12's last layer; streamed_launches: phase 15's
+(b) and (c); np_launches, np_shape, np_ms, np_plain_ms and np_bound_ms:
+phase 10's launches and shapes, and the kernel's times there;
+mesh_launches: each rank's launches in phase 14 (c)), and {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -136,6 +163,16 @@ MESH_RANKS = 4  # phase 14: gloo ranks sharing the card
 MESH_SIZES = (1, 2, MESH_RANKS)  # the rank counts timed in phase 14 (d)
 MESH_RUNS = 5
 MESH_TIMEOUT = 300.0  # seconds a spawn of phase 14 may take
+# the SHA-256 kernel is held to its plain version on leaf levels of these
+# column counts (one block up to 13 words, two from 14, three at 40; 12 is
+# the last layer's widest tree, its trace columns) at these row counts
+# (tails of a warp and of a block of 128 threads)
+LAST_LAYER_WIDEST = 12
+SHA_COLS_CHECKED = (1, 8, 13, 14, 16, 40, LAST_LAYER_WIDEST)
+SHA_ROWS_CHECKED = (1, 7, 127, 129, (1 << 20) + 3)
+SHA_CHUNK_ROWS = 1 << 20  # a streamed tree's leaf chunk (prover/stream.py CHUNK_LOG)
+SHA_BIG_ROWS = 1 << 27  # the last layer's largest tree, the first FRI layer's (4 limb columns)
+STREAM_DEMO = dict(chunk_log=9, cutoff=5)  # phase 15 (a): several chunks of several tiles
 
 
 class SmokeError(RuntimeError):
@@ -303,6 +340,83 @@ def check_scan(torch, dev, programs: dict) -> dict:
     return result
 
 
+def check_sha_kernel(torch, dev) -> dict:
+    """Phase 3, the SHA-256 tree-level kernel: bit for bit against its plain
+    version on the card (SHA_COLS_CHECKED x SHA_ROWS_CHECKED leaf levels,
+    node levels with and without columns, a column slice) and against the
+    native host SHA-256 at 2**20 leaves.  Returns {max_abs_err, ms,
+    events_ms, plain_ms, bound_ms, bound_by} at a streamed leaf chunk
+    (LAST_LAYER_WIDEST columns x SHA_CHUNK_ROWS rows), with node_* at a
+    2**20-node level and big_* at a SHA_BIG_ROWS-row leaf level."""
+    from recursive_stwo_tpu_torch.core import sha256
+    from recursive_stwo_tpu_torch.ops import sha256_cuda
+    from recursive_stwo_tpu_torch.tools.kernel_times import cuda_ms, profiled_ms
+    from recursive_stwo_tpu_torch.utils import native
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand(shape, high):
+        x = torch.randint(0, high, shape, generator=gen, device=dev, dtype=torch.int64)
+        x[..., -1] = high - 1  # the largest word in the last entry of every row
+        return x
+
+    err = 0
+
+    def hold(label, children, cols):
+        nonlocal err
+        got, plain = sha256_cuda.sha256_level(children, cols), sha256.sha256_level_plain(children, cols)
+        torch.cuda.synchronize()
+        require(torch.equal(got, plain), f"sha256_level differs from its plain version on {label}")
+        err = max(err, int((got - plain).abs().max()))
+
+    for n in SHA_ROWS_CHECKED:
+        for n_cols in SHA_COLS_CHECKED:
+            hold(f"a leaf level of {n_cols} columns x {n} rows", None, rand((n_cols, n), P))
+        kids = rand((2 * n, 8), 2**32)
+        hold(f"a node level of {n} nodes", kids, None)
+        hold(f"a node level of {n} nodes with 4 columns", kids, rand((4, n), P))
+    hold("a column slice of a larger block", None, rand((5, 3000), P)[:, 1000:2029])
+    print(f"sha256_level: bit-exact vs plain on leaf levels of {SHA_COLS_CHECKED} columns and node levels "
+          f"with 0 and 4 columns at {SHA_ROWS_CHECKED} rows, and on a column slice")
+
+    require(native.sha_available(), "the native SHA-256 library is not available")
+    n = SHA_CHUNK_ROWS
+    cols, kids = rand((LAST_LAYER_WIDEST, n), P), rand((2 * n, 8), 2**32)
+    host_cols = cols.cpu().numpy().astype(np.uint32)
+    leaf = sha256_cuda.sha256_level(None, cols)
+    require(np.array_equal(leaf.cpu().numpy().astype(np.uint32), native.sha256_leaf_level(host_cols)),
+            "sha256_level differs from the native host SHA-256 on a leaf level")
+    node = sha256_cuda.sha256_level(kids, cols[:4])
+    require(np.array_equal(node.cpu().numpy().astype(np.uint32),
+                           native.sha256_node_level(kids.cpu().numpy().astype(np.uint32), host_cols[:4])),
+            "sha256_level differs from the native host SHA-256 on a node level")
+    print(f"sha256_level: equal to the native host SHA-256 on {n} leaves of {LAST_LAYER_WIDEST} columns "
+          f"and {n} nodes with 4 columns")
+
+    out = dict(max_abs_err=err, library_ms=None)
+    for key, children, c, reps in (("", None, cols, 20), ("node_", kids, None, 20)):
+        ms = profiled_ms(torch, lambda: sha256_cuda.sha256_level(children, c), reps, "sha256_level")
+        events_ms = cuda_ms(torch, lambda: sha256_cuda.sha256_level(children, c), reps)
+        plain_ms = cuda_ms(torch, lambda: sha256.sha256_level_plain(children, c), 2)
+        bound, bound_by = sha256_cuda.bound_ms(n, 0 if c is None else c.shape[0], children is not None)
+        shape = f"({LAST_LAYER_WIDEST}, {n}) leaves" if children is None else f"{n} nodes"
+        print(f"sha256_level {shape}: kernel {ms:.4f} ms device, {events_ms:.4f} ms per call back to back "
+              f"(bound {bound:.4f} ms by {bound_by}, {bound / ms:.1%}), plain {plain_ms:.4f} ms")
+        out.update({f"{key}ms": ms, f"{key}events_ms": events_ms, f"{key}plain_ms": plain_ms,
+                    f"{key}bound_ms": bound, f"{key}bound_by": bound_by})
+    del cols, kids, leaf, node, host_cols
+    big = rand((4, SHA_BIG_ROWS), P)
+    big_ms = profiled_ms(torch, lambda: sha256_cuda.sha256_level(None, big), 3, "sha256_level")
+    big_bound, big_by = sha256_cuda.bound_ms(SHA_BIG_ROWS, 4, False)
+    print(f"sha256_level (4, {SHA_BIG_ROWS}) leaves: kernel {big_ms:.4f} ms device (bound {big_bound:.4f} ms by "
+          f"{big_by}, {big_bound / big_ms:.1%}); plain not measured (its 64 schedule words at this size "
+          f"would take 64 GiB)")
+    out.update(big_ms=big_ms, big_bound_ms=big_bound)
+    del big
+    torch.cuda.empty_cache()
+    return out
+
+
 def _failing(checks: dict, slot: int) -> list:
     return sorted(k for k, v in checks.items() if not bool(v[slot]))
 
@@ -315,7 +429,7 @@ def hold_batch(torch, dev, label: str, run, pa, inputs) -> tuple:
     slot must agree; the corrupted slots must fail by their checks.  Returns
     the kernels' launch counts over one run on CUDA, and the CPU run's
     checks with the batch's inputs."""
-    from recursive_stwo_tpu_torch.ops import poseidon_cuda
+    from recursive_stwo_tpu_torch.ops import launches as kernel_launches
     from recursive_stwo_tpu_torch.verifier.arrays import to_torch
 
     batch = pa.commitments.shape[0]
@@ -323,10 +437,10 @@ def hold_batch(torch, dev, label: str, run, pa, inputs) -> tuple:
     pa_host = to_torch(pa, "cpu")
     torch.cuda.synchronize()
 
-    poseidon_cuda.reset_launches()
+    kernel_launches.reset()
     checks = run(pa_d, inputs)
     torch.cuda.synchronize()
-    launches = dict(poseidon_cuda.LAUNCHES)
+    launches = kernel_launches.counts()
     require(launches["permute_rows"] > 0, f"{label}: K1 never launched: {launches}")
     require(launches["wordmajor_scan"] == 2 and launches["permute_wordmajor"] == 1,
             f"{label}: expected 2 scan launches and 1 K2 leaf step, got {launches}")
@@ -448,41 +562,48 @@ def check_demo_proof(torch, dev) -> None:
 
 
 def print_timing(label: str, r: dict) -> None:
-    """Phases 7, 8, 12 and 13: a proof's wall, peak, launches, SHA-256 trees
-    and stages (a record of tools/chain.timed_proof)."""
+    """Phases 7, 8, 12, 13 and 15: a proof's wall, peak, launches, SHA-256
+    trees and stages (a record of tools/chain.timed_proof)."""
     print(f"{label}: proving wall {r['prove_s']:.3f} s; peak device memory {r['peak_gib']:.3f} GiB "
-          f"({r['peak_bytes']} bytes); kernel launches {r['prove_launches']}")
+          f"({r['peak_bytes']} bytes; {r['start_bytes']} held at the start); kernel launches {r['prove_launches']}")
+    if "cuda_kernels" in r:
+        print(f"{label}: {r['cuda_kernels']} CUDA kernels on the card under the trace, "
+              f"{r['cuda_kernels'] - sum(r['prove_launches'].values())} of them eager torch; "
+              f"{r['copies_and_fills']} copies and fills; kernels busy {r['busy_ms']:.1f} ms, "
+              f"{r['busy_ms'] / 1e3 / r['prove_s']:.1%} of the traced proving wall")
     trees = r["sha_trees"]
     if trees:
-        print(f"{label}: {len(trees)} SHA-256 trees, device-to-host copies {r['sha_copy_s']:.3f} s, host hashing "
-              f"{r['sha_hash_s']:.3f} s on {r['omp_threads']} OpenMP thread(s) "
+        print(f"{label}: {len(trees)} resident SHA-256 trees hashed on the card in {r['sha_hash_s']:.3f} s "
+              f"(synchronize()-bounded), digests copied back in {r['sha_copy_s']:.3f} s "
               f"(largest {max(t['leaves'] for t in trees)} leaves)")
     for s in r["stages"]:
         print(f"{label}:   {s['s']:8.3f} s  {s['stage']}")
 
 
-def prove_level(dev, level: int, seen: set, proof_in=None) -> dict:
-    """Phases 7, 8 and 12: chain level `level` (tools/chain.LAST: the last
-    layer) built, proved and verified on CUDA by tools/chain.run_level,
+def prove_level(dev, level: int, seen: set, proof_in=None, streamed: bool = False) -> dict:
+    """Phases 7, 8, 12 and 15: chain level `level` (tools/chain.LAST: the
+    last layer) built, proved and verified on CUDA by tools/chain.run_level,
     which holds its bytes to the digest docs/chain_artifacts.txt lists for
-    its .bin; that digest must be LEVEL_SHA256's.  Returns the kernels'
-    launches while proving."""
+    its .bin; that digest must be LEVEL_SHA256's.  K1 must launch at levels
+    1-13, the SHA-256 kernel at the last layer.  Streamed proofs run under
+    a device-only trace that counts the card's kernels.  Returns the
+    level's record (tools/chain.run_level)."""
     from recursive_stwo_tpu_torch.models import flagship
     from recursive_stwo_tpu_torch.tools import chain
 
-    label = "last layer" if level == chain.LAST else f"level {level}"
+    label = ("last layer" if level == chain.LAST else f"level {level}") + (", streamed" if streamed else "")
     name = chain.level_name(level)
     expected = flagship.expected_sha256(name)
     require(expected == LEVEL_SHA256[level], f"{label}: docs/chain_artifacts.txt lists {expected} for {name}.bin")
-    _, r = chain.run_level(level, proof_in, None, dev, seen)
+    _, r = chain.run_level(level, proof_in, None, dev, seen, streamed=streamed, count_kernels=streamed)
     print(f"{label}: circuit of {r['rows']} rows and {r['public_inputs']} public inputs built on the host in "
           f"{r['circuit_s']:.2f} s; pow {r['pow_bits']}, FRI {r['fri']}")
     print_timing(label, r)
-    if level != chain.LAST:
-        require(r["prove_launches"]["permute_rows"] > 0, f"{label}: K1 never launched while proving")
+    kernel = "sha256_level" if level == chain.LAST else "permute_rows"
+    require(r["prove_launches"][kernel] > 0, f"{label}: {kernel} never launched while proving")
     print(f"{label}: proof equals {name}.bin byte for byte ({r['bytes']} bytes, sha256 {r['sha256']}); "
           f"the port's verifier on CUDA accepts it ({r['verify_s']:.2f} s)")
-    return r["prove_launches"]
+    return r
 
 
 def check_demo_sha_proof(dev) -> None:
@@ -502,6 +623,75 @@ def check_demo_sha_proof(dev) -> None:
     require(on_card == on_cpu, "the demo prove_sha256p31 on CUDA differs from the CPU run")
     print(f"demo circuit, prove_sha256p31: proof on CUDA equals the CPU run ({time.perf_counter() - t:.2f} s), "
           f"{len(on_card)} bytes, sha256 {hashlib.sha256(on_card).hexdigest()}")
+
+
+def _np_demo_trace():
+    """A small PlonkWithoutPoseidon circuit (a QM31 square-and-add check),
+    as tests/test_torch_chain.py proves."""
+    from recursive_stwo_tpu_torch.cs.system import PlonkWithoutPoseidonCS
+    from recursive_stwo_tpu_torch.gadgets.fields import QM31Var
+
+    cs = PlonkWithoutPoseidonCS()
+    x = QM31Var.new_witness(cs, (5, 6, 7, 8))
+    y = (x * x) + x
+    y.equalverify(y)
+    cs.pad()
+    cs.check_arithmetics()
+    cs.populate_logup_arguments()
+    return cs.generate_trace()
+
+
+def check_streamed_demo(torch, dev) -> None:
+    """Phase 15 (a): the four streamed demo proofs on CUDA against the CPU."""
+    from recursive_stwo_tpu_torch.models import flagship
+    from recursive_stwo_tpu_torch.prover.commit import Sha256DeviceTree
+    from recursive_stwo_tpu_torch.prover.prove_sha256 import Sha256ProverChannel
+    from recursive_stwo_tpu_torch.prover.stream import prove_np_streamed, prove_streamed
+
+    demo, np_demo = flagship.demo_trace(), _np_demo_trace()
+    cases = (
+        ("prove_streamed, Poseidon31", lambda d: prove_streamed(demo, flagship.DEMO_CONFIG, device=d, **STREAM_DEMO)),
+        ("prove_streamed, Sha256Poseidon31", lambda d: prove_streamed(
+            demo, flagship.DEMO_CONFIG, device=d, channel=Sha256ProverChannel(), tree_cls=Sha256DeviceTree,
+            **STREAM_DEMO)),
+        ("prove_np_streamed, Poseidon31", lambda d: prove_np_streamed(
+            np_demo, flagship.DEMO_CONFIG, device=d, **STREAM_DEMO)),
+        ("prove_np_streamed, Sha256MerkleChannel", lambda d: prove_np_streamed(
+            np_demo, flagship.DEMO_CONFIG, device=d, channel=Sha256ProverChannel(), tree_cls=Sha256DeviceTree,
+            **STREAM_DEMO)),
+    )
+    for label, fn in cases:
+        t = time.perf_counter()
+        on_card = flagship.proof_bytes(fn(dev))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        on_cpu = flagship.proof_bytes(fn("cpu"))
+        require(on_card == on_cpu, f"demo {label} on CUDA differs from the CPU run")
+        print(f"demo {label} at {STREAM_DEMO}: proof on CUDA ({card_s:.2f} s) equals the CPU run "
+              f"({time.perf_counter() - t:.2f} s), {len(on_card)} bytes")
+
+
+def check_streamed(torch, dev, seen: set, resident: dict) -> dict:
+    """Phase 15.  `resident` holds phase 8's level-3 and phase 12's
+    last-layer records.  Returns the launches of (b) and (c)."""
+    from recursive_stwo_tpu_torch.models import flagship
+    from recursive_stwo_tpu_torch.tools import chain
+
+    check_streamed_demo(torch, dev)
+    out = {}
+    for level, proof_in in ((3, None), (chain.LAST, flagship.sha_artifact("level14"))):
+        r = prove_level(dev, level, seen, proof_in, streamed=True)
+        res = resident[level]
+        label = "last layer" if level == chain.LAST else f"level {level}"
+        print(f"{label}: peak device memory streamed {r['peak_gib']:.3f} GiB ({r['own_peak_gib']:.3f} GiB above the "
+              f"{r['start_bytes'] / 2**30:.3f} GiB held at its start) against {res['peak_gib']:.3f} GiB resident "
+              f"({res['own_peak_gib']:.3f} above {res['start_bytes'] / 2**30:.3f}) in this run; proving wall streamed "
+              f"{r['prove_s']:.3f} s (traced) against {res['prove_s']:.3f} s resident")
+        require(r["peak_bytes"] - r["start_bytes"] < res["peak_bytes"] - res["start_bytes"],
+                f"{label}: the streamed proof's own peak is not below the resident one's")
+        out[level] = r["prove_launches"]
+    return out
 
 
 def check_grind(torch, dev) -> None:
@@ -640,7 +830,7 @@ def mesh_rank(device) -> dict:
     import torch
 
     from recursive_stwo_tpu_torch.models import flagship
-    from recursive_stwo_tpu_torch.ops import poseidon_cuda
+    from recursive_stwo_tpu_torch.ops import launches as kernel_launches
     from recursive_stwo_tpu_torch.parallel import mesh as pmesh
     from recursive_stwo_tpu_torch.tools.mesh_times import time_shares
 
@@ -650,9 +840,9 @@ def mesh_rank(device) -> dict:
     inputs = flagship.FIXTURE_INPUTS[name]
     pa = _corrupted(flagship.tiled_batch(pa1, BATCH))
     torch.cuda.synchronize()
-    poseidon_cuda.reset_launches()
+    kernel_launches.reset()
     *_, named = pmesh.verify_sharded(spec, pa, inputs, pmesh.make_mesh(device), checks=True)
-    launches = dict(poseidon_cuda.LAUNCHES)
+    launches = kernel_launches.counts()
     seconds = [time.perf_counter() - t]
     t = time.perf_counter()
     timing = time_shares(device, spec, flagship.tiled_batch(pa1, BATCH), inputs, MESH_SIZES, MESH_RUNS)
@@ -663,6 +853,7 @@ def mesh_rank(device) -> dict:
 def check_mesh(torch, smi: str, host_checks: dict, launches: dict) -> list:
     """Phase 14.  `host_checks` and `launches` are phase 4's CPU checks and
     its CUDA run's launches.  Returns each rank's launches in (c)."""
+    from recursive_stwo_tpu_torch.ops import poseidon_cuda
     from recursive_stwo_tpu_torch.parallel import launch
     from recursive_stwo_tpu_torch.parallel.dryrun import dryrun_multichip
     from recursive_stwo_tpu_torch.tools.mesh_times import summary
@@ -682,7 +873,9 @@ def check_mesh(torch, smi: str, host_checks: dict, launches: dict) -> list:
     for (n, backend), future in zip(dry_runs, futures):
         results, wall = future.result()
         for rank, r in enumerate(results):
-            require(all(v > 0 for v in r["launches"].values()), f"dry run, {backend} rank {rank}: {r['launches']}")
+            got = r["launches"]
+            require(all(got[k] > 0 for k in poseidon_cuda.LAUNCHES) and got["sha256_level"] == 0,
+                    f"dry run, {backend} rank {rank}: {got}")
         print(f"dry run on {n} {backend} rank(s) on cuda:0: every case passed in {wall:.1f} s "
               f"({', '.join(results[0]['verdicts'])}); fault per host "
               f"{results[0]['verdicts'].get('fault per-host', np.array([])).tolist()}; launches per rank "
@@ -719,10 +912,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a GPU", file=sys.stderr)
         return 1
-    start = time.perf_counter()
+    start = clock = time.perf_counter()
     dev = torch.device("cuda")
     smi = card_line()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    def phase_done(label: str) -> None:
+        nonlocal clock
+        now = time.perf_counter()
+        print(f"phase {label}: {now - clock:.1f} s")
+        clock = now
 
     from recursive_stwo_tpu_torch.models import flagship
     from recursive_stwo_tpu_torch.ops import build
@@ -733,6 +932,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t:.2f} s -> {lib_path}")
     with open(lib_path + ".log") as f:
         print(f.read().strip())
+    phase_done("1-2 (card, build)")
 
     from recursive_stwo_tpu_torch.tools.scan_cases import fixture_programs
 
@@ -749,28 +949,35 @@ def main() -> int:
         **{f"np_{k}": scans["np_small"][k] for k in ("ms", "plain_ms", "bound_ms")},
     )
     del programs, leaf_state, np_leaf_state
+    kernels["sha256_level"] = check_sha_kernel(torch, dev)
     torch.cuda.synchronize()
+    phase_done("3 (kernels vs plain)")
 
     launches, host_checks = {}, {}
     for name in FIXTURES:
         launches[name], host_checks[name] = check_main_path(torch, dev, name)
         torch.cuda.synchronize()
+    phase_done("4-5 (verify_batch vs CPU)")
 
     for name in FIXTURES:
         rate = proofs_per_s(torch, dev, name)
         hash_ms = hash_phase_ms(torch, dev, name)
         print(f"{name}: {rate:.1f} proofs/s ({BATCH / rate * 1e3:.1f} ms a batch), hash phase "
               f"{hash_ms:.2f} ms a batch, at B={BATCH} on {smi}")
+    phase_done("6 (timing)")
 
     check_demo_proof(torch, dev)
     seen = set()  # shapes proved so far (tools/chain.run_level's `cold`)
-    prover_launches = {level: prove_level(dev, level, seen) for level in (1, 2, 3)}
+    levels = {level: prove_level(dev, level, seen) for level in (1, 2, 3)}
+    phase_done("7-8 (chain levels 1-3)")
     check_grind(torch, dev)
+    phase_done("9 (grind)")
 
     np_launches, _ = check_np_path(torch, dev)
     torch.cuda.synchronize()
     np_rate_v = np_rate(torch, dev)
     print(f"np_small: np_flavor_proofs_per_sec {np_rate_v:.1f} at B={NP_BATCH} on {smi}")
+    phase_done("10 (without-Poseidon)")
     sha = check_sha(torch, dev)
     print(f"bitcoin_np_host_verify_ms {sha['bitcoin_np_host_verify_ms']:.2f} (mean of 3, host); "
           f"bitcoin_device_proofs_per_sec {sha['bitcoin_device_proofs_per_sec']:.1f} at B={SHA_BATCH}; "
@@ -780,9 +987,15 @@ def main() -> int:
     print(f"sha256p31_device_proofs_per_sec {sha['sha256p31_device_proofs_per_sec']:.1f} at B={SHA_BATCH} "
           f"(new, not one of bench.py's metrics: device_checks_p31 on level 14, timed as bench.py times "
           f"bitcoin_device_proofs_per_sec)")
-    last_launches = prove_level(dev, LAST_LAYER, seen, flagship.sha_artifact("level14"))
+    phase_done("11 (SHA-256 flavours)")
+    levels[LAST_LAYER] = prove_level(dev, LAST_LAYER, seen, flagship.sha_artifact("level14"))
+    phase_done("12 (last layer)")
     check_demo_sha_proof(dev)
+    phase_done("13 (demo prove_sha256p31)")
     mesh_launches = check_mesh(torch, smi, host_checks[FIXTURES[0]], launches[FIXTURES[0]])
+    phase_done("14 (multi-device)")
+    streamed = check_streamed(torch, dev, seen, levels)
+    phase_done("15 (streamed provers)")
 
     require("jax" not in sys.modules, "jax was imported")
     require(not any(m.split(".")[0] == "recursive_stwo_tpu" for m in sys.modules), "the JAX package was imported")
@@ -791,14 +1004,23 @@ def main() -> int:
         "permute_wordmajor": "recursive_stwo_tpu/ops/poseidon_pallas.py:182",
         "wordmajor_scan": "recursive_stwo_tpu/ops/poseidon_pallas.py:182 and the scans at "
                           "recursive_stwo_tpu/verifier/hashplan.py:206,427",
+        "sha256_level": "recursive_stwo_tpu/core/sha256.py:85 (_compress_traced), reached from "
+                        "recursive_stwo_tpu/prover/stream.py:278-298",
     }
+    sources = {k: "recursive_stwo_tpu_torch/csrc/poseidon2.cu" for k in replaces}
+    sources["sha256_level"] = "recursive_stwo_tpu_torch/csrc/sha256.cu"
+    # the main path of each: phase 4's verify_batch for the Poseidon2
+    # kernels, phase 15 (c)'s streamed last layer for the SHA-256 kernel
+    main_launches = {k: launches[FIXTURES[0]][k] for k in replaces}
+    main_launches["sha256_level"] = streamed[LAST_LAYER]["sha256_level"]
     report = [
-        dict(name=k, route="cuda", source="recursive_stwo_tpu_torch/csrc/poseidon2.cu",
-             replaces=replaces[k], launches=launches[FIXTURES[0]][k],
-             prover_launches=prover_launches[1][k], level2_launches=prover_launches[2][k],
-             level3_launches=prover_launches[3][k],
-             last_layer_launches=last_launches[k], np_launches=np_launches[k],
-             mesh_launches=[r[k] for r in mesh_launches], **kernels[k])
+        dict(name=k, route="cuda", source=sources[k],
+             replaces=replaces[k], launches=main_launches[k],
+             prover_launches=levels[1]["prove_launches"][k], level2_launches=levels[2]["prove_launches"][k],
+             level3_launches=levels[3]["prove_launches"][k],
+             last_layer_launches=levels[LAST_LAYER]["prove_launches"][k],
+             streamed_launches={"level3": streamed[3][k], "last_layer": streamed[LAST_LAYER][k]},
+             np_launches=np_launches[k], mesh_launches=[r[k] for r in mesh_launches], **kernels[k])
         for k in replaces
     ]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - start:.1f} s")

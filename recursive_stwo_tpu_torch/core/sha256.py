@@ -15,10 +15,18 @@ digest stored as 8 uint32 words round-trips through hashlib.sha256 via
 the leading axis: hashing 2^24 Merkle nodes is ~128 rounds of elementwise
 uint32 ops over the batch.
 
-Host copy of recursive_stwo_tpu/core/sha256.py, numpy only: its traced
-branches (`_xp`, and `_compress_traced`, the `lax.scan` form of `compress`)
-are removed.  That scan is reached only from the JAX package's streamed
-prover's SHA-256 commits, and waits here for the port's SHA-256 prover.
+Host copy of recursive_stwo_tpu/core/sha256.py (numpy: `compress`,
+`sha256_words` and the byte helpers), with its traced branches (`_xp`, and
+`_compress_traced`, the `lax.scan` form of `compress`) replaced by a torch
+twin on int64 tensors of words in [0, 2**32): `compress_plain`,
+`sha256_words_plain` and `sha256_level_plain`, the plain PyTorch version of
+one Merkle tree level under the rules of verifier/sha256_merkle.py.
+`sha256_level` dispatches on the tensors' device: a CPU tensor takes the
+plain version, a CUDA tensor launches the hand-written kernel
+(ops/sha256_cuda.py, csrc/sha256.cu) or raises.  The JAX package reaches
+`_compress_traced` only from its streamed prover's SHA-256 commits
+(prover/stream.py:278-298); the port's streamed prover and its resident
+`Sha256DeviceTree` hash every level through `sha256_level`.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from __future__ import annotations
 import hashlib
 
 import numpy as np
+import torch
 
 _K = np.array([
     0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
@@ -105,3 +114,93 @@ def words_to_bytes(words8) -> bytes:
 def sha256_words_scalar(words) -> np.ndarray:
     """Reference path via hashlib (testing / host scalar transcripts)."""
     return digest_to_words(hashlib.sha256(words_to_bytes(words)).digest())
+
+
+# ---------------------------------------------------------------------------
+# torch twin: int64 tensors holding uint32 words
+# ---------------------------------------------------------------------------
+
+MASK = 0xFFFFFFFF
+
+
+def _doubled(x: torch.Tensor) -> torch.Tensor:
+    """x | x << 32: bits n..n+31 of it are rotr(x, n) for 0 <= n < 32.  The
+    left shift wraps into the sign bit; an arithmetic >> n then fills bits
+    64-n and up, which the mask after it drops."""
+    return x | (x << 32)
+
+
+def compress_plain(state: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    """state (N, 8) x block (N, 16) -> (N, 8): `compress` on int64 tensors
+    of uint32 words.  Each rotation is a shift of the doubled word; the
+    three rotations of a Sigma share one mask, a sum of at most five words
+    (< 2**35, exact in int64) is masked to 32 bits once, and ch is written
+    g ^ (e & (f ^ g)), maj (a & b) | (c & (a | b)), with no complement (~ of
+    a non-negative int64 is negative).  About 3,000 eager ops a
+    compression, against 4,200 for the word-for-word form."""
+    w = list(block.unbind(1))
+    for i in range(16, 64):
+        a, b = w[i - 15], w[i - 2]
+        da, db = _doubled(a), _doubled(b)
+        s0 = ((da >> 7) ^ (da >> 18)) & MASK ^ (a >> 3)
+        s1 = ((db >> 17) ^ (db >> 19)) & MASK ^ (b >> 10)
+        w.append((w[i - 16] + s0 + w[i - 7] + s1) & MASK)
+    a, b, c, d, e, f, g, h = state.unbind(1)
+    for i in range(64):
+        de = _doubled(e)
+        s1 = ((de >> 6) ^ (de >> 11) ^ (de >> 25)) & MASK
+        t1 = h + s1 + (g ^ (e & (f ^ g))) + (w[i] + int(_K[i]))
+        da = _doubled(a)
+        s0 = ((da >> 2) ^ (da >> 13) ^ (da >> 22)) & MASK
+        maj = (a & b) | (c & (a | b))
+        h, g, f, e, d, c, b, a = g, f, e, (d + t1) & MASK, c, b, a, (t1 + s0 + maj) & MASK
+    return (state + torch.stack([a, b, c, d, e, f, g, h], dim=1)) & MASK
+
+
+def sha256_words_plain(words: torch.Tensor) -> torch.Tensor:
+    """(N, K) int64 big-endian words -> (N, 8) digest words: `sha256_words`
+    on tensors (the message, the word 0x80000000, zeros, and the 64-bit bit
+    length as two words, in (K + 3 + 15) // 16 blocks)."""
+    n, k = words.shape
+    n_blocks = (k + 3 + 15) // 16
+    padded = torch.zeros((n, 16 * n_blocks), dtype=torch.int64, device=words.device)
+    padded[:, :k] = words
+    padded[:, k] = 0x80000000
+    padded[:, -2] = (32 * k) >> 32
+    padded[:, -1] = (32 * k) & MASK
+    state = torch.as_tensor(_H0.astype(np.int64), device=words.device).expand(n, 8)
+    for bi in range(n_blocks):
+        state = compress_plain(state, padded[:, 16 * bi : 16 * bi + 16])
+    return state
+
+
+def _level_size(children, cols) -> int:
+    if children is not None:
+        return children.shape[0] // 2
+    if cols is None:
+        raise ValueError("a tree level needs children, columns or both")
+    return cols.shape[1]
+
+
+def sha256_level_plain(children, cols) -> torch.Tensor:
+    """One level of n nodes of a SHA-256 Merkle tree: a leaf (children None)
+    hashes its row of the (n_cols, n) columns; a node hashes its two
+    children of the (2n, 8) level below, then the row's columns if `cols`
+    is given and has any."""
+    n = _level_size(children, cols)
+    parts = [] if children is None else [children.reshape(n, 16)]
+    if cols is not None and cols.shape[0]:
+        parts.append(cols.T)
+    return sha256_words_plain(torch.cat(parts, dim=1) if len(parts) > 1 else parts[0])
+
+
+def sha256_level(children, cols) -> torch.Tensor:
+    """One SHA-256 tree level (`sha256_level_plain`'s rules) on the tensors'
+    device: the plain version on the CPU, the kernel on CUDA.  Returns
+    (n, 8) int64 digest words in [0, 2**32)."""
+    ref = cols if children is None else children
+    if ref.device.type == "cpu":
+        return sha256_level_plain(children, cols)
+    from ..ops import sha256_cuda
+
+    return sha256_cuda.sha256_level(children, cols)

@@ -2,10 +2,11 @@
 
 `load()` runs nvcc at first use (a few seconds: the sources include no
 PyTorch header and export a plain C interface) into `build/`, next to this
-package and listed in .gitignore.  The library's file name carries a hash of
-the sources and flags, so an edited kernel is rebuilt and a stale one is
-never loaded.  nvcc's stderr, which holds ptxas' register and spill report,
-is kept beside the library as `<name>.log`.
+package and listed in .gitignore: one nvcc a source, all started together,
+then one link.  The library's file name carries a hash of the sources and
+flags, so an edited kernel is rebuilt and a stale one is never loaded.
+nvcc's stderr, which holds ptxas' register and spill report, is kept beside
+the library as `<name>.log`.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lock = threading.Lock()
 _lib = None
@@ -35,7 +37,7 @@ def _sources():
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in _sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -54,18 +56,38 @@ def _nvcc() -> str:
 
 
 def _compile(path: str) -> None:
+    """One nvcc a source, all started together, then one link; the object
+    files and the partial library are removed whether or not it succeeds."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
     cu = [s for s in _sources() if s.endswith(".cu")]
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    with open(path + ".log", "w") as f:
-        f.write(proc.stderr)
-    os.replace(tmp, path)
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cu]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, obj in zip(cu, objs)
+    ]
+    try:
+        log = []
+        failed = []
+        for src, proc in zip(cu, procs):
+            _, err = proc.communicate()
+            log.append(f"== {os.path.basename(src)}\n{err}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {src} ({proc.returncode}):\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp, *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n{link.stderr}")
+        with open(path + ".log", "w") as f:
+            f.write("\n".join(log) + link.stderr)
+        os.replace(tmp, path)
+    finally:
+        for leftover in objs + [tmp]:
+            if os.path.exists(leftover):
+                os.remove(leftover)
 
 
 def load() -> ctypes.CDLL:
@@ -85,5 +107,7 @@ def load() -> ctypes.CDLL:
             lib.p2_permute_wordmajor.restype = ctypes.c_int
             lib.p2_wordmajor_scan.argtypes = [vp, i64, i64, i64, ctypes.c_int, vp, vp]
             lib.p2_wordmajor_scan.restype = ctypes.c_int
+            lib.sha256_level.argtypes = [vp, vp, i64, i64, i64, vp, vp]
+            lib.sha256_level.restype = ctypes.c_int
             _lib = lib
         return _lib

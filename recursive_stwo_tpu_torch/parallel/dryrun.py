@@ -27,7 +27,7 @@ import numpy as np
 import torch.distributed as dist
 
 from ..models import flagship
-from ..ops import poseidon_cuda
+from ..ops import launches
 from ..verifier import hints
 from ..verifier.arrays import to_torch
 from ..verifier.verify import INPUTS_ONE, INPUTS_RECURSIVE
@@ -45,7 +45,7 @@ def _all_true(ok, all_ok, size: int, what: str) -> None:
 
 
 def _rank(device) -> dict:
-    poseidon_cuda.reset_launches()
+    launches.reset()
     n = dist.get_world_size()
     mesh = pmesh.make_mesh(device)
     mesh2 = pmesh.make_mesh_2d(device, (2, n // 2)) if n >= 2 else None
@@ -99,7 +99,7 @@ def _rank(device) -> dict:
     ok, all_ok = pmesh.verify_local(spec, own, INPUTS_ONE, mesh)
     _all_true(ok, all_ok, 2 * n, "sharded host hint preparation")
     out["sharded prep"] = ok.numpy()
-    return {"verdicts": out, "launches": dict(poseidon_cuda.LAUNCHES)}
+    return {"verdicts": out, "launches": launches.counts()}
 
 
 def dryrun_multichip(n_devices: int, backend: str = "gloo", devices=("cuda:0",), timeout: float = 300.0) -> list:

@@ -9,9 +9,9 @@ Each level is hashed in blocks of ROWS rows.
 
 `Sha256DeviceTree` is the twin of commit.py:178-188 `Sha256CommittedTree`:
 its columns stay on the device, as the quotient stage reads them there, and
-its levels are hashed on the host by the port's copy of
-`verifier/sha256_merkle` (the native SHA-256 kernels), as the JAX package
-hashes them.
+its levels are hashed there too, by `core/sha256.sha256_level` (the SHA-256
+tree-level kernel on CUDA, its plain version on the CPU); only each level's
+digests are copied to the host.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..core import poseidon2
-from ..verifier import sha256_merkle
+from ..core.sha256 import sha256_level
 from .arrays import to_numpy
 from .commit_host import CommittedTree
 
@@ -31,12 +31,13 @@ from .commit_host import CommittedTree
 # (a 2**26-leaf level hashed at once needs three (2**26, 16) int64 tensors,
 # 24 GiB)
 ROWS = 1 << 22
-# rows of a SHA-256 tree's columns copied to the host at a time, as int32 on
-# the device and uint32 on the host: no int64 block of a 2**26-row level is
-# held twice
+# leaf rows of a SHA-256 tree hashed as one block, down through every level
+# the block covers: a block's digests on the device are (SHA_ROWS, 8) int64
+# (256 MiB), where a whole 2**27-leaf level would be 8 GiB
 SHA_ROWS = 1 << 22
 # one entry per SHA-256 tree built since the last clear: its leaves, the
-# seconds of device-to-host column copies and of host hashing
+# seconds of hashing on the device (bounded by synchronize() on CUDA) and of
+# the digests' device-to-host copies
 SHA_TREE_TIMES: List[dict] = []
 
 
@@ -82,35 +83,46 @@ def commit_levels(cols_by_log: Dict[int, torch.Tensor]) -> List[torch.Tensor]:
 
 def sha256_levels(cols_by_log: Dict[int, torch.Tensor]) -> List[np.ndarray]:
     """Every level of the SHA-256 tree (`sha256_merkle.merkle_levels`) as
-    (2**L, 8) uint32 big-endian words on the host, leaf level first.  The
-    columns are copied to the host SHA_ROWS rows at a time; a node depends
-    only on its children and its own column entries, so hashing block by
-    block gives the whole level's digests."""
-    copy_s = hash_s = 0.0
-
-    def level(children, cols, n: int) -> np.ndarray:
-        nonlocal copy_s, hash_s
-        out = np.empty((n, 8), np.uint32)
-        for s in range(0, n, SHA_ROWS):
-            e = min(n, s + SHA_ROWS)
-            block = None
-            t = time.perf_counter()
-            if cols is not None and cols.shape[0]:
-                block = cols[:, s:e].to(torch.int32).cpu().numpy().view(np.uint32)
-            t2 = time.perf_counter()
-            if children is None:
-                out[s:e] = sha256_merkle.hash_leaf_level(block)
-            else:
-                out[s:e] = sha256_merkle.hash_node_level(children[2 * s : 2 * e], block)
-            copy_s += t2 - t
-            hash_s += time.perf_counter() - t2
-        return out
-
+    (2**L, 8) uint32 big-endian words on the host, leaf level first, hashed
+    where the columns lie.  An aligned block of SHA_ROWS leaf rows fixes
+    every node above it down to one digest, since a node depends only on its
+    children and its own column entries: each block is hashed down to that
+    digest, level by level, then the blocks' digests up to the root.  Each
+    level's digests are copied into its host array as int32 bit patterns
+    (the kernel writes int64 words in [0, 2**32)), which the array reads as
+    uint32."""
     max_log = max(cols_by_log)
-    levels = [level(None, cols_by_log[max_log], 1 << max_log)]
-    for L in range(max_log - 1, -1, -1):
-        levels.append(level(levels[-1], cols_by_log.get(L), 1 << L))
-    SHA_TREE_TIMES.append(dict(leaves=1 << max_log, copy_s=copy_s, hash_s=hash_s))
+    dev = cols_by_log[max_log].device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    levels = [np.empty((1 << L, 8), np.uint32) for L in range(max_log, -1, -1)]
+    hash_s = copy_s = 0.0
+
+    def level(children, L: int, lo: int, hi: int) -> torch.Tensor:
+        nonlocal hash_s, copy_s
+        cols = cols_by_log.get(L)
+        t = time.perf_counter()
+        h = sha256_level(children, None if cols is None else cols[:, lo:hi])
+        sync()
+        t2 = time.perf_counter()
+        # straight into the level's host array: no host tensor in between
+        torch.from_numpy(levels[max_log - L][lo:hi].view(np.int32)).copy_(h.to(torch.int32))
+        hash_s += t2 - t
+        copy_s += time.perf_counter() - t2
+        return h
+
+    block_log = min(max_log, SHA_ROWS.bit_length() - 1)
+    top = max_log - block_log  # the level where each block ends in one digest
+    summits = []
+    for s in range(0, 1 << max_log, 1 << block_log):
+        h = None
+        for L in range(max_log, top - 1, -1):
+            shift = max_log - L
+            h = level(h, L, s >> shift, (s >> shift) + (1 << (block_log - shift)))
+        summits.append(h)
+    h = torch.cat(summits) if len(summits) > 1 else summits[0]
+    for L in range(top - 1, -1, -1):
+        h = level(h, L, 0, 1 << L)
+    SHA_TREE_TIMES.append(dict(leaves=1 << max_log, hash_s=hash_s, copy_s=copy_s))
     return levels
 
 
@@ -154,8 +166,9 @@ class DeviceTree(CommittedTree):
 
 
 class Sha256DeviceTree(DeviceTree):
-    """The SHA-256 flavour: columns on the device, levels of uint32 digest
-    words on the host (a 2**26-leaf tree's levels take 4 GiB there)."""
+    """The SHA-256 flavour: columns on the device, hashed there, and levels
+    of uint32 digest words on the host (a 2**26-leaf tree's levels take
+    4 GiB there)."""
 
     def _build_levels(self):
         return sha256_levels(self.columns_by_log)

@@ -142,9 +142,9 @@ def composition_stage(
     """tables: ((pre, tr, inter) coefficient blocks, total_sum, log, evaluate_fn)
     per AIR, in emission order (plonk then poseidon; the one without-Poseidon
     table).  Returns the (8, 2**(bound-1)) split coefficient block (left
-    limbs then right limbs) and its LDE, which the caller commits."""
+    limbs then right limbs); the resident provers commit its LDE, the
+    streamed ones evaluate it chunk by chunk."""
     bound = spec.composition_log_degree_bound
-    blowup = spec.log_blowup_factor
     device = tables[0][0][0].device
     x_dom, _ = circle_fft.domain_points(bound, device)
     sink = vcomp.HornerSink(random_coeff, 1 << bound)
@@ -158,6 +158,5 @@ def composition_stage(
         del ev
     comp_coeffs = circle_fft.interpolate(torch.stack(list(sink.acc)))  # (4, 2**bound)
     half = 1 << (bound - 1)
-    split = torch.cat([comp_coeffs[:, :half], comp_coeffs[:, half:]])
-    return split, circle_fft.lde(split, bound - 1 + blowup)
+    return torch.cat([comp_coeffs[:, :half], comp_coeffs[:, half:]])
 

@@ -107,7 +107,7 @@ def prove_device(trace: dict, config: PcsConfig, progress, device, channel, tree
     random_coeff4 = channel.draw_felt()
 
     # ---- composition polynomial + tree 3 ----
-    split_coeffs, comp_lde = composition_stage(
+    split_coeffs = composition_stage(
         spec,
         (
             ((coeffs["p_pre"], coeffs["p_tr"], c_int_p), qm31_scalar(plonk_total), lp, vcomp.evaluate_plonk),
@@ -117,8 +117,7 @@ def prove_device(trace: dict, config: PcsConfig, progress, device, channel, tree
         qm31_scalar(random_coeff4),
     )
     plog("composition evals computed")
-    tree3 = tree_cls({bound - 1 + blowup: comp_lde})
-    del comp_lde
+    tree3 = tree_cls({bound - 1 + blowup: circle_fft.lde(split_coeffs, bound - 1 + blowup)})
     channel.mix_root(tree3.root)
     plog("tree3 (composition) committed")
 

@@ -1,7 +1,9 @@
 """FRI commit phase with device-resident layers, and the proof's tail.
 
 Twins of device_prove.py:572-623 (`_fold_line_jit`, `_join_commit_jit`) and
-of `_fri_tail_device` (:864-980).  The folds and commits run on the device;
+of `_fri_tail_device` (:864-980).  The folds and commits run on the device,
+the folds' 1/y and 1/x computed there from tile points (prover/tiles.py, as
+the JAX package's streamed folds do, stream.py:667-729);
 the last-layer interpolation, the query draws, the decommit plans and the
 witness plans are the JAX package's host code.  A witness plan names the
 positions it gathers; here the plan runs on the identity evaluation
@@ -15,13 +17,19 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..core import m31
 from ..core import qm31 as q
 from ..core.qm31 import QM31
 from ..cs import scalar
 from ..proof.containers import FriLayerProof, FriProof, StarkProof
 from . import fri_host as host_fri
-from .arrays import to_device, to_numpy
+from . import tiles
+from .arrays import to_numpy
 from .composition import qm31_scalar
+
+# tiles of 2**20 points at most for the fold inverses: host tables of 2**20
+# and 2**(n-20), however large the domain
+TILE_LOG = 20
 
 
 def _fold(l: QM31, r: QM31, inv: torch.Tensor, alpha: QM31) -> QM31:
@@ -33,16 +41,26 @@ def _halves(g: torch.Tensor):
     return QM31(*g[:, 0::2]), QM31(*g[:, 1::2])
 
 
+def _fold_inverses(log_size: int, line: bool, device) -> torch.Tensor:
+    """1/x (a half_odds line) or 1/y (a circle domain) at the even positions
+    of the 2**log_size domain, on `device`: the points from tiles of
+    2**min(log_size, TILE_LOG) (prover/tiles.py; even positions are never
+    conjugated), in the order of fri_host.line_fold_xinv / circle_fold_yinv."""
+    b = min(log_size, TILE_LOG)
+    tx, ty, _ = tiles.tile_consts(log_size, b, line, device)
+    bx, by = tiles.tile_bases(log_size, b, 0, 1 << (log_size - b), line, device)
+    cx, cy = tiles.tile_points(bx, by, tx[0::2], ty[0::2], None)
+    return m31.inv((cx if line else cy).reshape(-1))
+
+
 def fold_line(g: torch.Tensor, alpha: QM31, log_size: int) -> torch.Tensor:
     """(4, 2**n) line evaluations on half_odds(n) -> (4, 2**(n-1))."""
-    xinv = to_device(host_fri.line_fold_xinv(log_size), g.device)
-    return torch.stack(list(_fold(*_halves(g), xinv, alpha)))
+    return torch.stack(list(_fold(*_halves(g), _fold_inverses(log_size, True, g.device), alpha)))
 
 
 def fold_circle(g: torch.Tensor, alpha: QM31, log_size: int) -> torch.Tensor:
     """(4, 2**n) circle-domain evaluations -> (4, 2**(n-1)) line evaluations."""
-    yinv = to_device(host_fri.circle_fold_yinv(log_size), g.device)
-    return torch.stack(list(_fold(*_halves(g), yinv, alpha)))
+    return torch.stack(list(_fold(*_halves(g), _fold_inverses(log_size, False, g.device), alpha)))
 
 
 def _plan_positions(witness_fn, n: int, *args) -> np.ndarray:
@@ -87,7 +105,8 @@ def fri_tail(
     """FRI phase over device-resident layers (mirrors prove._fri_tail, whose
     `tree_cls` picks the Merkle flavour of the first-layer and inner-layer
     trees as it does here); first_cols: L -> (4, 2**L) first-layer quotient
-    limbs."""
+    limbs.  `tree_cls` is any callable from {log: (4, 2**log) limbs} to a
+    committed tree (the streamed prover's stream the large layers)."""
     plog("FRI first-layer quotients computed")
     first_tree = tree_cls(first_cols)
     channel.mix_root(first_tree.root)

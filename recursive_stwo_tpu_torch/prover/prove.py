@@ -5,9 +5,13 @@ device-resident prover at every size, with the channel and tree class the
 caller names.  Two flavours are ported: the default Poseidon31 channel with
 `DeviceTree`, and the Sha256Poseidon31 pair (`Sha256ProverChannel`,
 `Sha256DeviceTree`) of chain level 14 and the last layer.  Any other channel
-or tree raises.  The JAX package's streamed and host flows and their
-environment switches have no counterpart: the port has one resident path.
-Nothing falls back to the CPU: `device="cuda"` without a CUDA device raises.
+or tree raises.  `prove` is always the resident path: it does not route
+large domains to the streamed flow as the JAX package does
+(`RSTPU_STREAM_LOG`, prove.py:190-200); a caller who wants the streamed
+prover calls prover/stream.py's `prove_streamed`, which gives the same
+bytes.  The JAX package's host flow and its environment switches have no
+counterpart.  Nothing falls back to the CPU: `device="cuda"` without a CUDA
+device raises.
 """
 
 from __future__ import annotations

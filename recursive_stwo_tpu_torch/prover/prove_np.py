@@ -17,6 +17,9 @@ map onto the stages the PlonkWithPoseidon prover already runs on tensors:
 `channel` / `tree_cls` pick the flavour as `prove` does: the Poseidon31
 default, or (`Sha256ProverChannel()`, `Sha256DeviceTree`) for the bitcoin
 proof's Sha256MerkleChannel flavour (examples/last_layer.py:150-155).
+Like `prove`, it never routes by domain size to the streamed flow
+(prove_np.py:149-155 in the JAX package): that is prover/stream.py's
+`prove_np_streamed`, called by name.
 """
 
 from __future__ import annotations
@@ -110,15 +113,14 @@ def prove_np(
     plog("tree2 (interaction) committed")
 
     random_coeff4 = channel.draw_felt()
-    split_coeffs, comp_lde = composition_stage(
+    split_coeffs = composition_stage(
         spec,
         (((c_pre, c_tr, c_int), qm31_scalar(total), L, vcomp.evaluate_plonk_np),),
         lookup,
         qm31_scalar(random_coeff4),
     )
     plog("composition evals computed")
-    tree3 = Tree({bound - 1 + blowup: comp_lde})
-    del comp_lde
+    tree3 = Tree({bound - 1 + blowup: circle_fft.lde(split_coeffs, bound - 1 + blowup)})
     channel.mix_root(tree3.root)
     plog("tree3 (composition) committed")
 

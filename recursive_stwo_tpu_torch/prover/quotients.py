@@ -30,6 +30,30 @@ def _q_vec(v4, device) -> QM31:
     return QM31(*(torch.tensor([int(x)], dtype=torch.int64, device=device) for x in v4))
 
 
+def answer_inputs(samples_flat: np.ndarray, oods: Tuple[tuple, tuple], after_coeff, device):
+    """(samples (1, S, 4), OODS point, random coefficient) on `device`: the
+    proof-wide inputs of `group_answers`, a batch of one."""
+    samples = to_device(samples_flat, device)[None]
+    point = (_q_vec(oods[0], device), _q_vec(oods[1], device))
+    return samples, point, _q_vec(after_coeff, device)
+
+
+def group_answers(spec: VerifierSpec, g: int, inputs, blocks: List[torch.Tensor], dx, dy) -> torch.Tensor:
+    """(4, N) first-layer quotient limbs of group g at the N points (dx, dy)
+    of its domain, from its columns' values there: `blocks`, (n_cols, N)
+    tensors in group column order; CHUNK points at a time."""
+    samples, point, after = inputs
+    parts = []
+    for s in range(0, dx.shape[0], CHUNK):
+        rows = torch.cat([b[:, s : s + CHUNK] for b in blocks]).T[None]  # (1, points, n_cols)
+        parts.append(
+            vquot.fri_answers_for_group(
+                spec, g, point, after, samples, rows, dx[None, s : s + CHUNK], dy[None, s : s + CHUNK]
+            )
+        )
+    return torch.stack([torch.cat([p[i][0] for p in parts]) for i in range(4)])
+
+
 def quotients_stage(
     spec: VerifierSpec,
     blocks_by_log: Dict[int, List[torch.Tensor]],
@@ -41,20 +65,9 @@ def quotients_stage(
     column order (tree-major); samples_flat (S, 4).  Returns the first-layer
     columns {L: (4, 2**L) limbs}."""
     device = next(iter(blocks_by_log.values()))[0].device
-    samples = to_device(samples_flat, device)[None]
-    point = (_q_vec(oods[0], device), _q_vec(oods[1], device))
-    after = _q_vec(after_coeff, device)
+    inputs = answer_inputs(samples_flat, oods, after_coeff, device)
     first_cols = {}
     for g, L in enumerate(spec.all_log_sizes):
-        blocks = blocks_by_log[L]
         dx, dy = circle_fft.domain_points(L, device)
-        parts = []
-        for s in range(0, 1 << L, CHUNK):
-            rows = torch.cat([b[:, s : s + CHUNK] for b in blocks]).T[None]  # (1, points, n_cols)
-            parts.append(
-                vquot.fri_answers_for_group(
-                    spec, g, point, after, samples, rows, dx[None, s : s + CHUNK], dy[None, s : s + CHUNK]
-                )
-            )
-        first_cols[L] = torch.stack([torch.cat([p[i][0] for p in parts]) for i in range(4)])
+        first_cols[L] = group_answers(spec, g, inputs, blocks_by_log[L], dx, dy)
     return first_cols

@@ -1,7 +1,7 @@
 """The recursion chain re-proved on CUDA by the port, from level 3 to the
 bitcoin-facing last layer, each proof held to docs/chain_artifacts.txt.
 
-    python -m recursive_stwo_tpu_torch.tools.chain [--from N] [--to N] [--out DIR]
+    python -m recursive_stwo_tpu_torch.tools.chain [--from N] [--to N] [--out DIR] [--streamed]
 
 Twin of examples/recursion_chain.py (`demo_recurse`, `main`) and
 examples/last_layer.py (`main`).  Level N (3-14) verifies level N-1's proof
@@ -10,7 +10,11 @@ in one circuit (`flagship.chain_level_trace`) and proves it on CUDA: levels
 Sha256Poseidon31 flavour (`prove_sha256p31`).  Level 15 is the last layer:
 level 14 verified in a PlonkWithoutPoseidon circuit
 (`flagship.last_layer_trace`), proved with `prove_np` in the
-Sha256MerkleChannel flavour.  After each level:
+Sha256MerkleChannel flavour.  With --streamed every level is proved by the
+streamed provers instead (prover/stream.py: `prove_streamed` in the level's
+flavour, `prove_np_streamed` for the last layer), which keep the base-domain
+coefficients on the card and no LDE; the proofs are the same bytes.  After
+each level:
 
 - the port's verifier checks the proof on the card: levels 3-13 with
   `verify_batch` at batch 1, level 14 with `verify_sha256p31`, the last
@@ -27,11 +31,11 @@ DIR.  Each level prints one JSON line: the circuit's rows and Poseidon
 invocations, the proof's log sizes and largest domain, circuit, prove and
 verify seconds (`cold`: the first proof of that shape in the process), each
 prover stage's seconds (the `progress` messages), the PoW bits and seconds,
-the peak of `torch.cuda.max_memory_allocated`, K1, K2 and scan launches
-while proving and while verifying, and each SHA-256 tree's device-to-host
-copy and host hashing seconds.  The native host code (SHA-256 trees, the
-SHA grind) runs on RSTPU_OMP_THREADS OpenMP threads, 1 unless set; each
-line names the count.
+the peak of `torch.cuda.max_memory_allocated`, K1, K2, scan and SHA-256
+tree-level launches while proving and while verifying, and each resident
+SHA-256 tree's hashing and digest copy-back seconds.  The native host code
+(the SHA grind, the streamed trees' top levels) runs on RSTPU_OMP_THREADS
+OpenMP threads, 1 unless set; each line names the count.
 """
 
 from __future__ import annotations
@@ -48,16 +52,18 @@ import time
 import torch
 
 from ..models import flagship
-from ..ops import poseidon_cuda
+from ..ops import launches
 from ..proof.containers import PlonkWithoutPoseidonProof
 from ..prover import commit
 from ..prover.prove import prove
 from ..prover.prove_np import prove_np
 from ..prover.prove_sha256 import Sha256ProverChannel, prove_sha256p31
+from ..prover.stream import prove_np_streamed, prove_streamed
 from ..utils import native
 from ..verifier import hints, verify, verify_sha256
 from ..verifier.arrays import require_device, to_torch
 from ..verifier.spec import NoPoseidonVerifierSpec, VerifierSpec
+from .flavour_times import count_device_events
 
 FIRST = 3  # level 2's proof is committed (examples/data/level2-1.pkl); level 3's is not
 LAST = 15  # the last layer's place in the order
@@ -96,13 +102,16 @@ def build(level: int, proof_in):
     return trace, config, flagship.CHAIN_INPUTS
 
 
-def prove_level(level: int, trace: dict, config, progress, dev):
+def prove_level(level: int, trace: dict, config, progress, dev, streamed: bool = False):
     if level == LAST:
-        return prove_np(trace, config, progress, dev, channel=Sha256ProverChannel(),
-                        tree_cls=commit.Sha256DeviceTree)
+        fn = prove_np_streamed if streamed else prove_np
+        return fn(trace, config, progress, dev, channel=Sha256ProverChannel(), tree_cls=commit.Sha256DeviceTree)
     if level == flagship.SHA_LEVEL:
+        if streamed:
+            return prove_streamed(trace, config, progress, dev, channel=Sha256ProverChannel(),
+                                  tree_cls=commit.Sha256DeviceTree)
         return prove_sha256p31(trace, config, progress, dev)
-    return prove(trace, config, progress, dev)
+    return (prove_streamed if streamed else prove)(trace, config, progress, dev)
 
 
 def verify_level(level: int, proof, inputs, dev) -> dict:
@@ -127,13 +136,19 @@ def shape_of(proof) -> dict:
     return dict(**logs, max_domain_log=spec.max_first_layer_log)
 
 
-def timed_proof(prove_fn, dev) -> tuple:
+def timed_proof(prove_fn, dev, count_kernels: bool = False) -> tuple:
     """Run prove_fn(progress) on the card with the kernels' launch counts at
     0, the peak memory reset and the SHA-256 tree times cleared.  Returns
-    (proof, record): the wall, the peak of `torch.cuda.max_memory_allocated`,
-    the launches, each SHA-256 tree's device-to-host copy and host hashing
+    (proof, record): the wall, the peak of `torch.cuda.max_memory_allocated`
+    and what the process held when the proof began (`start_bytes`: tables
+    cached by earlier proofs; the proof's own peak is the difference), the
+    launches, each resident SHA-256 tree's hashing and digest copy-back
     seconds, the native code's OpenMP threads, and each stage (a `progress`
-    message) with its seconds, its own peak and the bytes held at its end."""
+    message) with its seconds, its own peak and the bytes held at its end.
+    With `count_kernels` the proof runs under a device-only torch.profiler
+    trace and the record gains `cuda_kernels`, every kernel the card ran
+    (eager torch's and the hand-written ones; copies and fills apart, as
+    `copies_and_fills`): its wall then includes the trace's cost."""
     stages = []
     clock = [0.0]
 
@@ -148,34 +163,50 @@ def timed_proof(prove_fn, dev) -> tuple:
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    poseidon_cuda.reset_launches()
+    start_bytes = torch.cuda.memory_allocated(dev)
+    launches.reset()
     commit.SHA_TREE_TIMES.clear()
+    counted = {}
     start = clock[0] = time.perf_counter()
-    proof = prove_fn(progress)
-    torch.cuda.synchronize(dev)
-    prove_s = time.perf_counter() - start
+    if count_kernels:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            proof = prove_fn(progress)
+            torch.cuda.synchronize(dev)
+        prove_s = time.perf_counter() - start
+        counted = count_device_events(torch, prof)
+    else:
+        proof = prove_fn(progress)
+        torch.cuda.synchronize(dev)
+        prove_s = time.perf_counter() - start
     peak = max([torch.cuda.max_memory_allocated(dev)] + [s["peak_bytes"] for s in stages])
     sha_trees = list(commit.SHA_TREE_TIMES)
     return proof, dict(
-        prove_s=prove_s, peak_gib=peak / 2**30, peak_bytes=peak, prove_launches=dict(poseidon_cuda.LAUNCHES),
+        prove_s=prove_s, peak_gib=peak / 2**30, peak_bytes=peak, start_bytes=start_bytes,
+        own_peak_gib=(peak - start_bytes) / 2**30, prove_launches=launches.counts(),
         sha_trees=sha_trees, sha_copy_s=sum(s["copy_s"] for s in sha_trees),
         sha_hash_s=sum(s["hash_s"] for s in sha_trees), omp_threads=native.omp_threads(), stages=stages,
+        **counted,
     )
 
 
-def run_level(level: int, proof_in, out_dir, dev, seen: set) -> tuple:
+def run_level(level: int, proof_in, out_dir, dev, seen: set, streamed: bool = False,
+              count_kernels: bool = False) -> tuple:
     """Build, prove, verify and hold one level (1-15; levels 1-3 read their
-    input from the repo when `proof_in` is None).  Writes the proof to
-    `out_dir` unless it is None.  Returns (proof, its JSON record)."""
+    input from the repo when `proof_in` is None), with the streamed provers
+    if `streamed`.  Writes the proof to `out_dir` unless it is None.
+    Returns (proof, its JSON record); `count_kernels` as timed_proof."""
     name = level_name(level)
     t = time.perf_counter()
     trace, config, inputs = build(level, proof_in)
     circuit_s = time.perf_counter() - t
     rows, invocations = len(trace["a_wire"]), len(trace.get("flow_wires", ()))
-    proof, timing = timed_proof(lambda progress: prove_level(level, trace, config, progress, dev), dev)
+    proof, timing = timed_proof(lambda progress: prove_level(level, trace, config, progress, dev, streamed), dev,
+                                count_kernels)
     del trace
 
-    poseidon_cuda.reset_launches()
+    launches.reset()
     t = time.perf_counter()
     checks = verify_level(level, proof, inputs, dev)
     failing = [k for k, v in checks.items() if not bool(v.all())]
@@ -195,16 +226,16 @@ def run_level(level: int, proof_in, out_dir, dev, seen: set) -> tuple:
             f.write(data)
 
     shape = shape_of(proof)
-    key = (tuple(sorted(shape.items())), config)
+    key = (tuple(sorted(shape.items())), config, streamed)
     cold = key not in seen
     seen.add(key)
     pow_s = sum(s["s"] for s in timing["stages"] if s["stage"] == "PoW ground")
     record = dict(
-        level="last_layer" if level == LAST else level, artifact=name,
+        level="last_layer" if level == LAST else level, artifact=name, streamed=streamed,
         channel="sha256" if level == LAST else "sha256_poseidon31" if level == flagship.SHA_LEVEL else "poseidon31",
         rows=rows, poseidon_invocations=invocations, public_inputs=len(inputs), **shape,
         pow_bits=config.pow_bits, fri=dataclasses.astuple(config.fri_config), circuit_s=circuit_s,
-        cold=cold, verify_s=verify_s, pow_s=pow_s, verify_launches=dict(poseidon_cuda.LAUNCHES),
+        cold=cold, verify_s=verify_s, pow_s=pow_s, verify_launches=launches.counts(),
         bytes=len(data), sha256=digest, matches_artifact=True, **timing,
     )
     return proof, record
@@ -217,6 +248,8 @@ def main(argv=None) -> None:
     ap.add_argument("--to", dest="last", type=int, default=LAST, choices=range(FIRST, LAST + 1),
                     help="last level to prove")
     ap.add_argument("--out", default=OUT, help="directory of the proofs written and read")
+    ap.add_argument("--streamed", action="store_true",
+                    help="prove every level with the streamed provers (prover/stream.py)")
     args = ap.parse_args(argv)
     if args.first > args.last:
         ap.error("--from is after --to")
@@ -224,12 +257,12 @@ def main(argv=None) -> None:
     os.makedirs(args.out, exist_ok=True)
     card = card_line()
     print(json.dumps(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
-                          levels=[args.first, args.last])), flush=True)
+                          levels=[args.first, args.last], streamed=args.streamed)), flush=True)
 
     start = time.perf_counter()
     proof, seen = input_proof(args.first, args.out), set()
     for level in range(args.first, args.last + 1):
-        proof, record = run_level(level, proof, args.out, dev, seen)
+        proof, record = run_level(level, proof, args.out, dev, seen, args.streamed)
         print(json.dumps(dict(**record, card=card)), flush=True)
     print(json.dumps(dict(chain="ok", levels=[args.first, args.last], wall_s=time.perf_counter() - start,
                           card=card)), flush=True)

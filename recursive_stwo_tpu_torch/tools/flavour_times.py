@@ -63,30 +63,39 @@ def raw_events(torch, prof) -> list:
                            "(prof.profiler.kineto_results.events()) cannot be read") from exc
 
 
+def count_device_events(torch, prof) -> dict:
+    """Kernels, copies and fills, and the kernels' summed device time (ms)
+    of a finished device-only trace, from its raw events."""
+    from torch.autograd import DeviceType
+
+    kernels = copies = 0
+    busy_us = 0.0
+    for device_type, name, duration_ns in raw_events(torch, prof):
+        if device_type != DeviceType.CUDA:
+            continue
+        if name.startswith(("Memcpy", "Memset")):
+            copies += 1
+        else:
+            kernels += 1
+            busy_us += duration_ns / 1e3
+    return dict(cuda_kernels=kernels, copies_and_fills=copies, busy_ms=busy_us / 1e3)
+
+
 def device_profile(torch, fn) -> dict:
     """Kernels, copies and fills, and the kernels' summed device time (ms)
     in one call of fn under torch.profiler, tracing the device only, from
     the raw events.  A trace with no device events is taken again, up to
     three times: CUPTI now and then returns none."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        kernels = copies = 0
-        busy_us = 0.0
-        for device_type, name, duration_ns in raw_events(torch, prof):
-            if device_type != DeviceType.CUDA:
-                continue
-            if name.startswith(("Memcpy", "Memset")):
-                copies += 1
-            else:
-                kernels += 1
-                busy_us += duration_ns / 1e3
-        if kernels:
-            return dict(kernels=kernels, copies_and_fills=copies, busy_ms=busy_us / 1e3)
+        counted = count_device_events(torch, prof)
+        if counted["cuda_kernels"]:
+            return dict(kernels=counted["cuda_kernels"], copies_and_fills=counted["copies_and_fills"],
+                        busy_ms=counted["busy_ms"])
     raise RuntimeError("the profiler saw no device event in three traces")
 
 

@@ -96,8 +96,9 @@ def _flavour(name, package):
 def test_sha_tree_matches_committed_tree(rows, monkeypatch):
     """Root, every level, a decommitment and a pair decommitment of the
     SHA-256 tree at mixed log sizes (below and above the native kernels'
-    thresholds), its columns copied to the host in one block a level and in
-    blocks of 2**3 rows."""
+    thresholds), hashed where its columns lie (the plain version here) in
+    one block and in blocks of 2**3 leaf rows; each tree records its
+    hashing and digest copy-back seconds."""
     monkeypatch.setattr(t_commit, "SHA_ROWS", rows)
     columns = {10: _rand(1, 5, 1 << 10), 8: _rand(2, 3, 1 << 8), 5: _rand(3, 9, 1 << 5), 2: _rand(4, 2, 4)}
     ref = Sha256CommittedTree({L: c.astype(np.uint32) for L, c in columns.items()})
@@ -108,6 +109,8 @@ def test_sha_tree_matches_committed_tree(rows, monkeypatch):
         assert got.dtype == want.dtype == np.uint32 and np.array_equal(got, want)
     assert tree.root.dtype == np.uint32 and np.array_equal(tree.root, ref.root)
     assert [t["leaves"] for t in t_commit.SHA_TREE_TIMES] == [1 << 10]
+    times = t_commit.SHA_TREE_TIMES[0]
+    assert set(times) == {"leaves", "hash_s", "copy_s"} and times["hash_s"] > 0 and times["copy_s"] >= 0
     queries = [int(v) for v in np.random.default_rng(5).integers(0, 1 << 10, 13)]
     vals, dec = tree.decommit(queries)
     ref_vals, ref_dec = ref.decommit(queries)
@@ -238,8 +241,9 @@ def test_chain_tool_reads_its_own_proofs(tmp_path):
 
 
 def test_chain_provers_never_import_jax():
-    """prove_np in the Sha256MerkleChannel flavour, prove_sha256p31 and the
-    chain tool's tables, with jax and the JAX package refused."""
+    """prove_np and prove_np_streamed in the Sha256MerkleChannel flavour,
+    prove_sha256p31 and the chain tool's tables, with jax and the JAX
+    package refused."""
     run_blocked(
         "from recursive_stwo_tpu_torch.cs.system import PlonkWithoutPoseidonCS\n"
         "from recursive_stwo_tpu_torch.gadgets.fields import QM31Var\n"
@@ -258,6 +262,10 @@ def test_chain_provers_never_import_jax():
         "out = prove_np(cs.generate_trace(), config, device='cpu', channel=Sha256ProverChannel(),\n"
         "               tree_cls=Sha256DeviceTree)\n"
         "assert vh.verify_sha256np_host(out, flagship.CHAIN_INPUTS)['ok'].all()\n"
+        "from recursive_stwo_tpu_torch.prover.stream import prove_np_streamed\n"
+        "st = prove_np_streamed(cs.generate_trace(), config, device='cpu', channel=Sha256ProverChannel(),\n"
+        "                       tree_cls=Sha256DeviceTree, chunk_log=6, cutoff=3)\n"
+        "assert flagship.proof_bytes(st) == flagship.proof_bytes(out)\n"
         "p31 = prove_sha256p31(flagship.demo_trace(), config, device='cpu')\n"
         "assert vh.verify_sha256p31_host(p31, flagship.CHAIN_INPUTS)['ok'].all()\n"
         "assert chain.level_name(chain.LAST) == 'bitcoin_proof'\n"

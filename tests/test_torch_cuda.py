@@ -212,17 +212,21 @@ def test_sha_fast_path_on_cuda_matches_cpu(cuda, kind):
 
 
 def test_sha_tree_on_cuda_matches_committed_tree(cuda, monkeypatch):
-    """The SHA-256 tree with its columns on the card, copied to the host in
-    blocks of 2**6 rows: every level, the root and a decommitment equal the
-    JAX package's Sha256CommittedTree."""
+    """The SHA-256 tree with its columns on the card, hashed there by the
+    SHA-256 kernel in blocks of 2**6 leaf rows: every level, the root and a
+    decommitment equal the JAX package's Sha256CommittedTree."""
     from recursive_stwo_tpu.prover.commit import Sha256CommittedTree
+    from recursive_stwo_tpu_torch.ops import sha256_cuda
     from recursive_stwo_tpu_torch.prover import commit
 
     monkeypatch.setattr(commit, "SHA_ROWS", 1 << 6)
     rng = np.random.default_rng(9)
     cols = {12: rng.integers(0, P, (7, 1 << 12)), 9: rng.integers(0, P, (4, 1 << 9))}
     ref = Sha256CommittedTree({L: c.astype(np.uint32) for L, c in cols.items()})
+    sha256_cuda.reset_launches()
     tree = commit.Sha256DeviceTree({L: torch.from_numpy(c).to(cuda) for L, c in cols.items()})
+    # 2**6 blocks of 7 levels each, then the 6 levels above them
+    assert sha256_cuda.LAUNCHES["sha256_level"] == (1 << 6) * 7 + 6
     assert all(np.array_equal(g, w) for g, w in zip(tree.levels, ref.levels))
     assert np.array_equal(tree.root, ref.root)
     queries = [int(v) for v in rng.integers(0, 1 << 12, 9)]
@@ -273,3 +277,70 @@ def test_prove_sha256p31_on_cuda_matches_host(cuda, monkeypatch):
     got = prove_sha256p31(flagship.demo_trace(), T_CONFIG, device=cuda)
     monkeypatch.setenv("RSTPU_DEVICE_PROVER", "0")
     assert flagship.proof_bytes(got) == r_ser(r_prove_sha256p31(flagship.demo_trace(), CONFIG), "bytes32")
+
+
+@pytest.mark.parametrize("n", [1, 7, 127, 129, (1 << 20) + 3])
+@pytest.mark.parametrize("n_cols,children", [(1, False), (13, False), (14, False), (40, False), (0, True),
+                                             (4, True)])
+def test_sha256_level_bit_exact(cuda, n, n_cols, children):
+    """The SHA-256 tree-level kernel against its plain version and the JAX
+    package's sha256_merkle level functions, at the tails of a warp and of a
+    block; words of 2**31 and above in the children."""
+    from recursive_stwo_tpu.verifier import sha256_merkle as r_merkle
+    from recursive_stwo_tpu_torch.core import sha256 as t_sha
+    from recursive_stwo_tpu_torch.ops import sha256_cuda
+
+    rng = np.random.default_rng(n + n_cols)
+    cols = rng.integers(0, P, (n_cols, n), dtype=np.int64)
+    kids = rng.integers(0, 2**32, (2 * n, 8), dtype=np.int64) if children else None
+    c = torch.from_numpy(cols).to(cuda) if n_cols else None
+    k = None if kids is None else torch.from_numpy(kids).to(cuda)
+    before = sha256_cuda.LAUNCHES["sha256_level"]
+    got = sha256_cuda.sha256_level(k, c)
+    torch.cuda.synchronize()
+    assert sha256_cuda.LAUNCHES["sha256_level"] == before + 1
+    assert torch.equal(got, t_sha.sha256_level_plain(k, c))
+    if children:
+        want = r_merkle.hash_node_level(kids.astype(np.uint32), cols.astype(np.uint32) if n_cols else None)
+    else:
+        want = r_merkle.hash_leaf_level(cols.astype(np.uint32))
+    assert np.array_equal(got.cpu().numpy(), want.astype(np.int64))
+
+
+@pytest.mark.parametrize("flavor", ["p31", "sha256"])
+def test_streamed_tree_on_cuda_matches_cpu(cuda, flavor):
+    """A StreamedTree of mixed eval/res sources on the card against the same
+    tree on the CPU: root, decommitment and pair decommitment."""
+    from test_torch_stream import TREE_CASES
+
+    from recursive_stwo_tpu_torch.prover import fri_host, stream
+
+    spec, chunking = TREE_CASES["mixed"]
+    rng = np.random.default_rng(17)
+    trees = {}
+    for device in (cuda, torch.device("cpu")):
+        sources = {}
+        for L, n_cols, kind, blowup in spec:
+            width = L - blowup if kind == "eval" else L
+            x = torch.from_numpy(np.random.default_rng(L).integers(0, P, (n_cols, 1 << width))).to(device)
+            sources[L] = stream.CoeffSource(x, L) if kind == "eval" else stream.ResidentSource(x)
+        trees[device.type] = stream.StreamedTree(sources, flavor=flavor, **chunking)
+    assert np.array_equal(trees["cuda"].root, trees["cpu"].root)
+    queries = sorted(rng.integers(0, 1 << 12, 9).tolist())
+    (v1, d1), (v2, d2) = trees["cuda"].decommit(queries), trees["cpu"].decommit(queries)
+    assert np.array_equal(v1, v2) and np.array_equal(d1.hash_witness, d2.hash_witness)
+    p1, p2 = (fri_host.decommit_pair(trees[k], queries) for k in ("cuda", "cpu"))
+    assert np.array_equal(p1.hash_witness, p2.hash_witness)
+
+
+def test_prove_streamed_on_cuda_matches_cpu(cuda):
+    """The demo prove_streamed on CUDA against the CPU run, byte for byte;
+    K1 commits its trees."""
+    from recursive_stwo_tpu_torch.prover.stream import prove_streamed
+
+    poseidon_cuda.reset_launches()
+    got = prove_streamed(flagship.demo_trace(), flagship.DEMO_CONFIG, device=cuda, chunk_log=9, cutoff=5)
+    torch.cuda.synchronize()
+    assert poseidon_cuda.LAUNCHES["permute_rows"] > 0
+    ref = prove_streamed(flagship.demo_trace(), flagship.DEMO_CONFIG, device="cpu", chunk_log=9, cutoff=5)
+    assert flagship.proof_bytes(got) == flagship.proof_bytes(ref)

@@ -21,7 +21,7 @@ import torch.distributed as dist
 from torch.multiprocessing import ProcessRaisedException
 
 from recursive_stwo_tpu_torch.models import flagship
-from recursive_stwo_tpu_torch.ops import poseidon_cuda
+from recursive_stwo_tpu_torch.ops import launches, poseidon_cuda
 from recursive_stwo_tpu_torch.parallel import dryrun, launch
 from recursive_stwo_tpu_torch.parallel import mesh as pmesh
 from recursive_stwo_tpu_torch.verifier.verify import INPUTS_ONE
@@ -153,6 +153,8 @@ def test_dryrun_multichip(n):
     for case in ("small 1-D", "small 2-D", "deep 1-D", "deep 2-D", "padded", "sharded prep"):
         assert verdicts[case].all(), case
     assert [len(verdicts[c]) for c in ("small 1-D", "deep 1-D", "padded", "sharded prep")] == [2 * n, n, 2 * n + 1, 2 * n]
+    # every hand-written kernel is counted, and CPU ranks launch none
+    assert all(r["launches"] == dict.fromkeys(launches.KERNELS, 0) for r in results)
 
 
 def never(device):

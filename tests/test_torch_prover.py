@@ -166,8 +166,9 @@ def test_prove_refuses_what_is_not_ported():
 
 def test_prover_never_imports_jax():
     """With jax and the JAX package refused: the demo circuit is proved on
-    the CPU, and chain level 1's artifact loads into the port's containers
-    and serialises to the bytes docs/chain_artifacts.txt names."""
+    the CPU, resident and streamed, and chain level 1's artifact loads into
+    the port's containers and serialises to the bytes
+    docs/chain_artifacts.txt names."""
     run_blocked(
         "import hashlib, os\n"
         "from recursive_stwo_tpu_torch.models import flagship\n"
@@ -175,6 +176,10 @@ def test_prover_never_imports_jax():
         "from recursive_stwo_tpu_torch.prover.prove import prove\n"
         "proof = prove(flagship.demo_trace(), PcsConfig(5, FriConfig(1, 3, 9)), device='cpu')\n"
         "assert len(flagship.proof_bytes(proof)) > 0\n"
+        "from recursive_stwo_tpu_torch.prover.stream import prove_streamed\n"
+        "streamed = prove_streamed(flagship.demo_trace(), PcsConfig(5, FriConfig(1, 3, 9)), device='cpu',\n"
+        "                          chunk_log=9, cutoff=5)\n"
+        "assert flagship.proof_bytes(streamed) == flagship.proof_bytes(proof)\n"
         "art = flagship.load_artifact(os.path.join(flagship.CHAIN_DATA, 'level1-5.pkl'))\n"
         "assert type(art).__module__ == 'recursive_stwo_tpu_torch.proof.containers'\n"
         "digest = hashlib.sha256(flagship.proof_bytes(art)).hexdigest()\n"
