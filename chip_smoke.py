@@ -5,8 +5,8 @@
 
 Phases; any failure ends the run with a non-zero exit and no result line:
   1. card: the GPU's name and power limit, as nvidia-smi prints them;
-  2. build: nvcc builds the Poseidon2-16 and SHA-256 kernels from csrc/ (one
-     nvcc a source, all at once, then a link; seconds);
+  2. build: nvcc builds the Poseidon2-16, SHA-256 and composition kernels
+     from csrc/ (one nvcc a source, all at once, then a link; seconds);
   3. kernels vs plain: K1 and K2 against their plain PyTorch versions on
      the card and on the host CPU, bit for bit, at 2**20 states and at the
      main path's shapes, plus the Poseidon2-16 known-answer test; each of
@@ -23,25 +23,35 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      layer's widest tree), node levels with and without columns, at 1, 7,
      127, 129 and 2**20 + 3 rows, and a column slice; against the native
      host SHA-256 at 2**20 leaves; its times at a 2**20-row leaf chunk, a
-     2**20-node level and a 2**27-row leaf level;
+     2**20-node level and a 2**27-row leaf level; the composition check
+     kernel against its plain version on the card, on the value and on the
+     bool, bit for bit: every verifier's fixture (small_proof,
+     recursive_proof_16_15, np_small, level 14, bitcoin) at B = 1, 7 and
+     1024 with a sampled value corrupted in one slot, and random canonical
+     inputs of each spec; the domain kernel against its plain version table
+     by table on the demo circuits (both AIR pairs) and chain level 1; their
+     times (the check at small_proof's B=1024, np_small's B=512 and level
+     14's B=1; the domain kernel on level 1's tables) beside their bounds;
   4. main path, small_proof at B=1024: the port's verify_batch on CUDA over
      a batch with a flipped sibling hash and a flipped nonce, and again with
      a wrong public input; every named check of every slot must equal the
      port's own CPU path (plain PyTorch, which tests/test_torch_verify.py
      holds equal to the JAX package's verifier); K1 must have launched, the
-     scan exactly twice (the absorb and the walk pass) and K2 exactly once
-     (the leaf step);
+     scan exactly twice (the absorb and the walk pass), K2 exactly once
+     (the leaf step) and the composition check kernel exactly once;
   5. the same for the deep fixture recursive_proof_16_15;
   6. timing: warm proofs/s of verify_batch at B=1024 for both fixtures, and
-     the hash phase's wall per batch (bounded by synchronize()) beside it;
+     the walls of the hash phase and of the composition check per batch
+     (each bounded by synchronize()) beside it;
   7. prover, recursion-chain level 1: the demo circuit's proof on CUDA must
      equal the port's CPU proof byte for byte (a quick first check); then
      the level-1 circuit (recursive_proof_16_15 verified five times) is
      built on the host and proved on CUDA with the port's `prove`
      (tools/chain.run_level); its m31x8 bytes must hash to level1-5.bin's
      digest in docs/chain_artifacts.txt (a51ea3f3...), the port's
-     verify_batch on CUDA must accept it, and K1 must have launched while
-     proving; prints the wall time, each stage's time, K1's launches and
+     verify_batch on CUDA must accept it, K1 must have launched while
+     proving and the composition domain kernel once an AIR table (twice);
+     prints the wall time, each stage's time, the kernels' launches and
      the peak device memory;
   8. the same for level 2 (the committed level1-5.pkl verified once,
      fast_prover2, largest domain 2**23; level2-1.bin, 7476baa5...) and
@@ -53,24 +63,27 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      batch for np_flavor_proofs_per_sec): verify_batch_np on CUDA over a
      batch with a flipped sibling hash and a flipped nonce, and again with a
      wrong public input, every named check of every slot equal to the CPU
-     run; K1 must launch, the scan exactly twice and K2 once; then warm
-     proofs/s (median of 5, synchronize()-bounded);
+     run; K1 must launch, the scan exactly twice, K2 once and the check
+     kernel once; then warm proofs/s (median of 5, synchronize()-bounded);
  11. the SHA-256 flavours, chain level 14 and the bitcoin-facing last-layer
      proof, with the native SHA-256 library required: both host verifiers
      and both fast paths (composition on CUDA) accept, and the fast paths
      reject a corrupted sampled value (level 14), a corrupted first-layer
      FRI witness and a wrong public input (bitcoin) by the named check; the
      device checks at B=128 on CUDA, with a flipped sampled value and a
-     flipped pow digest in two slots, equal the CPU run per slot; prints
-     bench.py's SHA metrics (the fast path's time with the composition on
-     CUDA and on the CPU) and the level-14 device checks' proofs/s;
+     flipped pow digest in two slots, equal the CPU run per slot; each
+     accepting fast path and each device-check call launches the check
+     kernel exactly once; prints bench.py's SHA metrics (the fast path's
+     time with the composition on CUDA and on the CPU), the bitcoin fast
+     path's times on both and the level-14 device checks' proofs/s;
  12. the last layer: the committed level-14 proof verified in the
      PlonkWithoutPoseidon circuit, proved on CUDA with prove_np in the
      Sha256MerkleChannel flavour at pow 28, FRI(0, 9, 8) (largest domain
      2**27; tools/chain.run_level); its "bytes32" bytes must hash to
      bitcoin_proof.bin's 71da12a3..., and verify_sha256np on CUDA must
      accept it; its 22 SHA-256 trees are hashed on the card by the SHA-256
-     kernel (which must launch); prints the wall, each stage, the peak
+     kernel (which must launch), its one AIR table by one launch of the
+     domain kernel; prints the wall, each stage, the peak
      device memory, the kernels' launches and the trees' hashing and digest
      copy-back time;
  13. prove_sha256p31 of the demo circuit on CUDA equals the CPU run, byte
@@ -82,8 +95,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      MESH_RANKS gloo ranks on the card with verify_sharded: every named
      check of every slot must equal phase 4's CPU run, and each rank's
      verify_batch must launch K1 as often as the whole batch did, the scan
-     twice and K2 once; (d) warm proofs/s of the clean B=1024 batch split
-     over 1, 2 and MESH_RANKS ranks sharing the card (verify_local: the
+     twice, K2 once and the check kernel once; (d) warm proofs/s of the
+     clean B=1024 batch split over 1, 2 and MESH_RANKS ranks sharing the
+     card (verify_local: the
      batch over the slowest rank's synchronize()-bounded wall, median of
      MESH_RUNS), each rank's kernels and copies and fills in one call, and
      the card's busy share (the ranks' kernel time under torch.profiler,
@@ -97,7 +111,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      CUDA, K1 launched; (c) the last layer streamed in the
      Sha256MerkleChannel flavour (largest domain 2**27), its "bytes32" bytes
      hashing to bitcoin_proof.bin's 71da12a3..., accepted by
-     verify_sha256np on CUDA, the SHA-256 kernel launched.  (b) and (c) run
+     verify_sha256np on CUDA, the SHA-256 kernel launched; each streamed
+     proof launches the domain kernel once an AIR table.  (b) and (c) run
      under a device-only torch.profiler trace, which counts every kernel
      the card ran; each prints its wall (traced), stages, the kernels'
      launches and the eager launches, and its peak device memory beside
@@ -112,8 +127,10 @@ level3_launches and last_layer_launches: phase 7's level 1, phase 8's
 levels 2 and 3 and phase 12's last layer; streamed_launches: phase 15's
 (b) and (c); np_launches, np_shape, np_ms, np_plain_ms and np_bound_ms:
 phase 10's launches and shapes, and the kernel's times there;
-mesh_launches: each rank's launches in phase 14 (c)), and {"ok": true,
-"device": {...}}.
+mesh_launches: each rank's launches in phase 14 (c); launches is each
+kernel's count in its main path: phase 4's verify_batch, phase 7's level 1
+for the domain kernel, phase 15 (c) for the SHA-256 kernel), and {"ok":
+true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -173,6 +190,11 @@ SHA_ROWS_CHECKED = (1, 7, 127, 129, (1 << 20) + 3)
 SHA_CHUNK_ROWS = 1 << 20  # a streamed tree's leaf chunk (prover/stream.py CHUNK_LOG)
 SHA_BIG_ROWS = 1 << 27  # the last layer's largest tree, the first FRI layer's (4 limb columns)
 STREAM_DEMO = dict(chunk_log=9, cutoff=5)  # phase 15 (a): several chunks of several tiles
+# the check kernel is held to its plain version at these batch sizes (one
+# proof, a warp's tail, the main path's batch); the domain kernel on the
+# demo circuits' tables and chain level 1's
+COMP_BATCHES = (1, 7, BATCH)
+DOMAIN_LEVEL = 1
 
 
 class SmokeError(RuntimeError):
@@ -417,6 +439,109 @@ def check_sha_kernel(torch, dev) -> dict:
     return out
 
 
+def check_composition_kernels(torch, dev) -> tuple:
+    """Phase 3, the composition kernels against their plain versions on the
+    card, bit for bit.  The check kernel on the value and the bool: every
+    verifier's fixture (tools/composition_cases.CHECK_FIXTURES) at
+    COMP_BATCHES proofs, a sampled value corrupted in one slot, and random
+    canonical inputs of the same spec (every constraint nonzero).  The
+    domain kernel on each table of the demo circuits (both AIR pairs) and of
+    chain level DOMAIN_LEVEL, table by table into one accumulator.  Returns
+    ({max_abs_err, ms, events_ms, plain_ms, bound_ms, bound_by} of each) at
+    the main path's shapes: the check at small_proof's B=1024 (np_*: phase
+    10's B=512, sha_*: level 14's fast path at B=1), the domain kernel on
+    level 1's poseidon table (plonk_*: its plonk table)."""
+    from recursive_stwo_tpu_torch.models import flagship
+    from recursive_stwo_tpu_torch.ops import composition_cuda
+    from recursive_stwo_tpu_torch.tools import composition_cases as cases
+    from recursive_stwo_tpu_torch.tools.kernel_times import cuda_ms, profiled_ms
+
+    err = 0
+
+    def hold(label, case):
+        nonlocal err
+        (ok_k, v_k), (ok_p, v_p) = cases.check_value(case), cases.check_value(case, plain=True)
+        torch.cuda.synchronize()
+        require(torch.equal(ok_k, ok_p), f"composition_check's bool differs from its plain version on {label}")
+        for got, want in zip(v_k, v_p):
+            require(torch.equal(got, want), f"composition_check's value differs from its plain version on {label}")
+            err = max(err, int((got - want).abs().max()))
+        return ok_k.cpu()
+
+    for name in cases.CHECK_FIXTURES:
+        for batch in COMP_BATCHES:
+            slot = batch // 2 if batch > 1 else None
+            case = cases.check_case(name, batch, dev, corrupt_slot=slot)
+            ok = hold(f"{name} at B={batch}", case)
+            want = torch.ones(batch, dtype=torch.bool)
+            if slot is not None:
+                want[slot] = False
+            require(torch.equal(ok, want), f"{name} at B={batch}: the check accepts {ok.tolist()}")
+            hold(f"random inputs of {name}'s spec at B={batch}", cases.random_check_case(case.spec, batch, SEED + batch,
+                                                                                        dev))
+    print(f"composition_check: bit-exact vs plain (value and bool) on {cases.CHECK_FIXTURES} at B={COMP_BATCHES} "
+          f"with a corrupted slot (rejected, every other slot accepted), and on random inputs of each spec")
+
+    def timed(label, name, batch, reps=50):
+        case = cases.check_case(name, batch, dev)
+        ms = profiled_ms(torch, lambda: cases.check_value(case), reps, "composition_check")
+        events_ms = cuda_ms(torch, lambda: cases.check_value(case), reps)
+        plain_ms = cuda_ms(torch, lambda: cases.check_value(case, plain=True), 3)
+        bound, bound_by = composition_cuda.check_bound_ms(case.spec, batch)
+        print(f"composition_check {label} ({name}, B={batch}): kernel {ms:.4f} ms device, {events_ms:.4f} ms per call "
+              f"back to back (bound {bound:.6f} ms by {bound_by}, {bound / ms:.1%}), plain {plain_ms:.4f} ms")
+        return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+
+    check = timed("main path", FIXTURES[0], BATCH)
+    check.update(max_abs_err=err, library_ms=None)
+    for key, (label, name, batch) in (("np_", ("phase 10", "np_small", NP_BATCH)),
+                                      ("sha_", ("fast path", "level14", 1))):
+        check.update({f"{key}{k}": v for k, v in timed(label, name, batch).items() if k != "bound_by"})
+
+    err = 0
+    domain = {}
+    for label, trace, config, without_poseidon in (
+        ("demo circuit", flagship.demo_trace(), flagship.DEMO_CONFIG, False),
+        ("without-Poseidon demo circuit", _np_demo_trace(), flagship.DEMO_CONFIG, True),
+        (f"chain level {DOMAIN_LEVEL}", *flagship.chain_level_trace(DOMAIN_LEVEL)[:2], False),
+    ):
+        t = time.perf_counter()
+        spec, tables, lookup, rc = cases.prover_tables(trace, config, dev, without_poseidon)
+        calls = cases.domain_calls(spec, tables)
+        del tables
+        n = 1 << spec.composition_log_degree_bound
+        acc = torch.zeros((4, n), dtype=torch.int64, device=dev)
+        for call in calls:
+            air = composition_cuda.air_id(call.evaluate_fn)
+            plain = cases.run_domain(call, acc, lookup, rc, plain=True)
+            got = cases.run_domain(call, acc.clone(), lookup, rc)
+            torch.cuda.synchronize()
+            require(torch.equal(got, plain), f"composition_domain differs from its plain version on the {label}, "
+                                             f"AIR {air}")
+            err = max(err, int((got - plain).abs().max()))
+            if label.startswith("chain level"):
+                work = acc.clone()
+                ms = profiled_ms(torch, lambda: cases.run_domain(call, work, lookup, rc), 10, "composition_domain")
+                events_ms = cuda_ms(torch, lambda: cases.run_domain(call, work, lookup, rc), 10)
+                plain_ms = cuda_ms(torch, lambda: cases.run_domain(call, acc, lookup, rc, plain=True), 1)
+                bound, bound_by = composition_cuda.domain_bound_ms(call.evaluate_fn, n, call.first)
+                print(f"composition_domain {label}, AIR {air} ({call.pre.shape[0]} + {call.tr.shape[0]} + "
+                      f"{call.inter.shape[0]} rows x {n} points): kernel {ms:.4f} ms device, {events_ms:.4f} ms per "
+                      f"call back to back (bound {bound:.4f} ms by {bound_by}, {bound / ms:.1%}), plain "
+                      f"{plain_ms:.4f} ms")
+                key = "plonk_" if air == composition_cuda.PLONK else ""
+                domain.update({f"{key}ms": ms, f"{key}events_ms": events_ms, f"{key}plain_ms": plain_ms,
+                               f"{key}bound_ms": bound, f"{key}bound_by": bound_by})
+                del work
+            acc = plain
+        print(f"composition_domain: bit-exact vs plain on the {label}'s {len(calls)} tables of {n} points "
+              f"({time.perf_counter() - t:.1f} s with its stages before the composition)")
+        del calls, acc, plain, got
+    torch.cuda.empty_cache()
+    domain.update(max_abs_err=err, library_ms=None)
+    return check, domain
+
+
 def _failing(checks: dict, slot: int) -> list:
     return sorted(k for k, v in checks.items() if not bool(v[slot]))
 
@@ -444,6 +569,8 @@ def hold_batch(torch, dev, label: str, run, pa, inputs) -> tuple:
     require(launches["permute_rows"] > 0, f"{label}: K1 never launched: {launches}")
     require(launches["wordmajor_scan"] == 2 and launches["permute_wordmajor"] == 1,
             f"{label}: expected 2 scan launches and 1 K2 leaf step, got {launches}")
+    require(launches["composition_check"] == 1 and launches["composition_domain"] == 0,
+            f"{label}: expected 1 launch of the composition check kernel, got {launches}")
 
     wrong_inputs = ((inputs[0][0], (2, 0, 0, 0)),) + tuple(inputs[1:])
     for case, inp in (("batch inputs", inputs), ("wrong public input", wrong_inputs)):
@@ -527,19 +654,24 @@ def proofs_per_s(torch, dev, name: str) -> float:
     return _median_rate(torch, f"{name} verify_batch", step, arrays, BATCH)
 
 
-def hash_phase_ms(torch, dev, name: str, runs: int = 5) -> float:
-    """Phase 6: the hash phase's wall per verify_batch at B=1024 (warm,
-    median of `runs`), bounded by synchronize() on both sides.  Separate
-    runs from the proofs/s ones, whose pipeline these two syncs would cut."""
+def phase_ms(torch, dev, name: str, runs: int = 5) -> dict:
+    """Phase 6: the walls of the hash phase and of the composition check
+    per verify_batch at B=1024 (warm, median of `runs`), each bounded by
+    synchronize() on both sides.  Separate runs from the proofs/s ones,
+    whose pipeline these syncs would cut."""
     from recursive_stwo_tpu_torch.models import flagship
-    from recursive_stwo_tpu_torch.tools.verify_times import hash_phase_walls
+    from recursive_stwo_tpu_torch.tools.verify_times import phase_walls
+    from recursive_stwo_tpu_torch.verifier import composition, verify
 
     step, arrays = flagship.verifier_step(name, BATCH, device=dev)
-    times = hash_phase_walls(torch, step, arrays, runs + 1)[1:]
-    med = statistics.median(times)
-    print(f"{name} B={BATCH}: hash phase {med * 1e3:.2f} ms median of {runs} "
-          f"({', '.join(f'{s * 1e3:.2f}' for s in times)} ms)")
-    return med * 1e3
+    out = {}
+    for label, owner, attr in (("hash phase", verify, "hash_phase"), ("composition", composition, "composition_check")):
+        times = phase_walls(torch, step, arrays, runs + 1, owner, attr)[1:]
+        med = statistics.median(times)
+        print(f"{name} B={BATCH}: {label} {med * 1e3:.2f} ms median of {runs} "
+              f"({', '.join(f'{s * 1e3:.2f}' for s in times)} ms)")
+        out[label] = med * 1e3
+    return out
 
 
 def check_demo_proof(torch, dev) -> None:
@@ -601,6 +733,9 @@ def prove_level(dev, level: int, seen: set, proof_in=None, streamed: bool = Fals
     print_timing(label, r)
     kernel = "sha256_level" if level == chain.LAST else "permute_rows"
     require(r["prove_launches"][kernel] > 0, f"{label}: {kernel} never launched while proving")
+    tables = 1 if level == chain.LAST else 2
+    require(r["prove_launches"]["composition_domain"] == tables,
+            f"{label}: expected {tables} composition_domain launches (one an AIR table), got {r['prove_launches']}")
     print(f"{label}: proof equals {name}.bin byte for byte ({r['bytes']} bytes, sha256 {r['sha256']}); "
           f"the port's verifier on CUDA accepts it ({r['verify_s']:.2f} s)")
     return r
@@ -617,6 +752,8 @@ def check_demo_sha_proof(dev) -> None:
     config = flagship.DEMO_CONFIG
     proof, timing = timed_proof(lambda progress: prove_sha256p31(trace, config, progress, dev), dev)
     print_timing("demo circuit, prove_sha256p31", timing)
+    require(timing["prove_launches"]["composition_domain"] == 2,
+            f"demo prove_sha256p31: expected 2 composition_domain launches, got {timing['prove_launches']}")
     on_card = flagship.proof_bytes(proof)
     t = time.perf_counter()
     on_cpu = flagship.proof_bytes(prove_sha256p31(trace, config, device="cpu"))
@@ -746,12 +883,24 @@ def check_sha(torch, dev) -> dict:
     import copy
 
     from recursive_stwo_tpu_torch.models import flagship
+    from recursive_stwo_tpu_torch.ops import launches as kernel_launches
     from recursive_stwo_tpu_torch.utils import native
     from recursive_stwo_tpu_torch.verifier import verify_sha256 as vs
     from recursive_stwo_tpu_torch.verifier import verify_sha256_host as vh
 
     require(native.sha_available(), "the native SHA-256 library is not available")
     print("native SHA-256 library: available (the host path timed is the native one)")
+
+    def once(label, fn):
+        """fn(), which must launch the composition check kernel exactly once."""
+        torch.cuda.synchronize()
+        kernel_launches.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        got = kernel_launches.counts()
+        require(got["composition_check"] == 1, f"{label}: expected 1 composition_check launch, got {got}")
+        return out
+
     level14, bitcoin = flagship.sha_artifacts()
     inner = flagship.CHAIN_INPUTS
     t = time.perf_counter()
@@ -761,8 +910,10 @@ def check_sha(torch, dev) -> dict:
 
     require(vh.verify_sha256p31_host(level14, inner)["ok"].all(), "level 14 rejected on the host")
     require(vh.verify_sha256np_host(bitcoin, btc_inputs)["ok"].all(), "bitcoin proof rejected on the host")
-    require(vs.verify_sha256p31(level14, inner, device=dev)["ok"].all(), "level 14 rejected (fast path)")
-    require(vs.verify_sha256np(bitcoin, btc_inputs, device=dev)["ok"].all(), "bitcoin proof rejected (fast path)")
+    require(once("level 14 fast path", lambda: vs.verify_sha256p31(level14, inner, device=dev))["ok"].all(),
+            "level 14 rejected (fast path)")
+    require(once("bitcoin fast path", lambda: vs.verify_sha256np(bitcoin, btc_inputs, device=dev))["ok"].all(),
+            "bitcoin proof rejected (fast path)")
 
     # the corruptions of tests/test_sha256_device.py:64-100
     bad = copy.deepcopy(level14)
@@ -779,10 +930,11 @@ def check_sha(torch, dev) -> dict:
     wrong = list(btc_inputs)
     idx, val = wrong[5]
     wrong[5] = (idx, ((val[0] + 1) % P,) + val[1:])
-    r = vs.verify_sha256np(bitcoin, tuple(wrong), device=dev)
+    r = once("bitcoin fast path, wrong public input", lambda: vs.verify_sha256np(bitcoin, tuple(wrong), device=dev))
     require(not r["ok"].any() and _failing(r, 0) == ["ok", "total_sum"], f"bitcoin, wrong public input: {r}")
     print("fast paths on CUDA: level 14 and bitcoin accepted; corrupted sampled value -> merkle_fri, "
-          "corrupted FRI witness -> merkle_fri, wrong public input -> total_sum")
+          "corrupted FRI witness -> merkle_fri, wrong public input -> total_sum; the composition check kernel "
+          "launched once in each accepting call")
 
     def corrupted_checks(kind, device):
         step, arrays, fs = flagship.sha_checks_step(kind, SHA_BATCH, device=device)
@@ -792,8 +944,7 @@ def check_sha(torch, dev) -> dict:
 
     metrics = {}
     for kind in ("level14", "bitcoin"):
-        got = corrupted_checks(kind, dev)
-        torch.cuda.synchronize()
+        got = once(f"{kind} device checks", lambda: corrupted_checks(kind, dev))
         ref = corrupted_checks(kind, "cpu")
         require(list(got) == list(ref), f"{kind}: device check names differ from the CPU run")
         for k in ref:
@@ -811,13 +962,15 @@ def check_sha(torch, dev) -> dict:
 
     metrics["bitcoin_np_host_verify_ms"] = _mean_ms(lambda: vh.verify_sha256np_host(bitcoin, btc_inputs))
     metrics["sha256p31_host_verify_ms"] = _mean_ms(lambda: vh.verify_sha256p31_host(level14, inner))
-    for device, key in ((dev, "sha256p31_verify_ms"), ("cpu", "sha256p31_verify_ms_cpu")):
-        trials = []
-        for _ in range(3):
-            t = time.perf_counter()
-            vs.verify_sha256p31(level14, inner, device=device)
-            trials.append((time.perf_counter() - t) * 1e3)
-        metrics[key] = min(trials)
+    for fast, args, key in ((vs.verify_sha256p31, (level14, inner), "sha256p31_verify_ms"),
+                            (vs.verify_sha256np, (bitcoin, btc_inputs), "bitcoin_fast_path_ms")):
+        for device, suffix in ((dev, ""), ("cpu", "_cpu")):
+            trials = []
+            for _ in range(3):
+                t = time.perf_counter()
+                fast(*args, device=device)
+                trials.append((time.perf_counter() - t) * 1e3)
+            metrics[key + suffix] = min(trials)
     return metrics
 
 
@@ -874,7 +1027,8 @@ def check_mesh(torch, smi: str, host_checks: dict, launches: dict) -> list:
         results, wall = future.result()
         for rank, r in enumerate(results):
             got = r["launches"]
-            require(all(got[k] > 0 for k in poseidon_cuda.LAUNCHES) and got["sha256_level"] == 0,
+            require(all(got[k] > 0 for k in poseidon_cuda.LAUNCHES) and got["sha256_level"] == 0
+                    and got["composition_check"] > 0 and got["composition_domain"] == 0,
                     f"dry run, {backend} rank {rank}: {got}")
         print(f"dry run on {n} {backend} rank(s) on cuda:0: every case passed in {wall:.1f} s "
               f"({', '.join(results[0]['verdicts'])}); fault per host "
@@ -890,8 +1044,9 @@ def check_mesh(torch, smi: str, host_checks: dict, launches: dict) -> list:
             require(np.array_equal(named[k], v.numpy()), f"mesh rank {rank}: check {k} differs from phase 4's CPU run")
         got = r["launches"]
         require(got["permute_rows"] == launches["permute_rows"] and got["wordmajor_scan"] == 2
-                and got["permute_wordmajor"] == 1,
-                f"mesh rank {rank}: launches {got}, expected K1 {launches['permute_rows']}, 2 scans, 1 K2 step")
+                and got["permute_wordmajor"] == 1 and got["composition_check"] == 1,
+                f"mesh rank {rank}: launches {got}, expected K1 {launches['permute_rows']}, 2 scans, 1 K2 step, "
+                f"1 composition check")
     print(f"{FIXTURES[0]} B={BATCH} over {MESH_RANKS} gloo ranks on cuda:0 (verify_sharded): all "
           f"{len(host_checks)} checks equal phase 4's CPU run per slot; launches per rank "
           f"{[r['launches'] for r in ranks]} ({time.perf_counter() - t:.1f} s with phase (d); in the slowest rank "
@@ -950,6 +1105,7 @@ def main() -> int:
     )
     del programs, leaf_state, np_leaf_state
     kernels["sha256_level"] = check_sha_kernel(torch, dev)
+    kernels["composition_check"], kernels["composition_domain"] = check_composition_kernels(torch, dev)
     torch.cuda.synchronize()
     phase_done("3 (kernels vs plain)")
 
@@ -961,9 +1117,9 @@ def main() -> int:
 
     for name in FIXTURES:
         rate = proofs_per_s(torch, dev, name)
-        hash_ms = hash_phase_ms(torch, dev, name)
+        walls = phase_ms(torch, dev, name)
         print(f"{name}: {rate:.1f} proofs/s ({BATCH / rate * 1e3:.1f} ms a batch), hash phase "
-              f"{hash_ms:.2f} ms a batch, at B={BATCH} on {smi}")
+              f"{walls['hash phase']:.2f} ms, composition {walls['composition']:.2f} ms a batch, at B={BATCH} on {smi}")
     phase_done("6 (timing)")
 
     check_demo_proof(torch, dev)
@@ -984,6 +1140,9 @@ def main() -> int:
           f"sha256p31_host_verify_ms {sha['sha256p31_host_verify_ms']:.2f} (mean of 3, host); "
           f"sha256p31_verify_ms {sha['sha256p31_verify_ms']:.2f} with the composition on CUDA, "
           f"{sha['sha256p31_verify_ms_cpu']:.2f} on the CPU (min of 3); on {smi}")
+    print(f"bitcoin fast path (verify_sha256np, timed as bench.py times sha256p31_verify_ms; not one of its "
+          f"metrics) {sha['bitcoin_fast_path_ms']:.2f} ms on CUDA, {sha['bitcoin_fast_path_ms_cpu']:.2f} on the CPU "
+          f"(min of 3)")
     print(f"sha256p31_device_proofs_per_sec {sha['sha256p31_device_proofs_per_sec']:.1f} at B={SHA_BATCH} "
           f"(new, not one of bench.py's metrics: device_checks_p31 on level 14, timed as bench.py times "
           f"bitcoin_device_proofs_per_sec)")
@@ -1006,13 +1165,20 @@ def main() -> int:
                           "recursive_stwo_tpu/verifier/hashplan.py:206,427",
         "sha256_level": "recursive_stwo_tpu/core/sha256.py:85 (_compress_traced), reached from "
                         "recursive_stwo_tpu/prover/stream.py:278-298",
+        "composition_check": "recursive_stwo_tpu/verifier/composition.py:533 (composition_check, with the "
+                             "lax.scans at :437 and :529; composition_check_np :280)",
+        "composition_domain": "recursive_stwo_tpu/prover/device_prove.py:417 (_stage_composition_jit, "
+                              "_ProverEval :202)",
     }
     sources = {k: "recursive_stwo_tpu_torch/csrc/poseidon2.cu" for k in replaces}
     sources["sha256_level"] = "recursive_stwo_tpu_torch/csrc/sha256.cu"
-    # the main path of each: phase 4's verify_batch for the Poseidon2
-    # kernels, phase 15 (c)'s streamed last layer for the SHA-256 kernel
+    sources["composition_check"] = sources["composition_domain"] = "recursive_stwo_tpu_torch/csrc/composition.cu"
+    # the main path of each: phase 4's verify_batch for the Poseidon2 and
+    # check kernels, phase 15 (c)'s streamed last layer for the SHA-256
+    # kernel, phase 7's level-1 proof for the domain kernel
     main_launches = {k: launches[FIXTURES[0]][k] for k in replaces}
     main_launches["sha256_level"] = streamed[LAST_LAYER]["sha256_level"]
+    main_launches["composition_domain"] = levels[1]["prove_launches"]["composition_domain"]
     report = [
         dict(name=k, route="cuda", source=sources[k],
              replaces=replaces[k], launches=main_launches[k],

@@ -1,0 +1,415 @@
+// QM31 arithmetic in registers and the three composition AIRs, emitting
+// their constraints straight into a Horner accumulator.
+//
+// Twin of recursive_stwo_tpu/verifier/composition.py (`_Eval`,
+// `evaluate_plonk` :176-210, `evaluate_plonk_np` :230-277,
+// `evaluate_poseidon` :373-501 with its partial-round scan at :437, and the
+// Horner scan `_horner` :508-530), which XLA fused on the TPU, and of the
+// port's eager version (verifier/composition.py).  Every value is a
+// canonical residue, so a correct field operation gives the eager version's
+// residue whatever its order of evaluation; what must match is the set of
+// constraints and their emission order, which is the Horner order:
+//   plonk     3 enforce_c_m31, the gate, 2 logup
+//   poseidon  16 first-round, 16 + 16 full-round, 14 partial, 16
+//             partial-out, 2 logup
+//   np        4 a^4 - b, the gate, 2 logup
+// Blocks go out lane by lane, and the partial rounds' constraints are
+// emitted as each round computes them (nothing else is emitted between
+// them, so the order is the reference's block order).  acc = acc * rc + c
+// from acc = 0 gives c first, as HornerSink's first step does.
+//
+// A source supplies a component's masks (ops below): the verifier's reads one
+// proof's samples at the OODS point through an index table, the prover's one
+// point of the evaluation domain from LDE rows.  It also scales a
+// constraint by the component's 1/vanishing.
+#pragma once
+
+#include <cstdint>
+
+#include "m31.cuh"
+
+namespace composition {
+
+using poseidon2_m31::add;
+using poseidon2_m31::mul;
+using poseidon2_m31::neg;
+using poseidon2_m31::sub;
+
+// (a + b i) + (c + d i) u, i^2 = -1, u^2 = 2 + i (core/qm31.py)
+struct Q {
+  uint32_t a, b, c, d;
+};
+
+__device__ __forceinline__ Q q_zero() { return Q{0u, 0u, 0u, 0u}; }
+__device__ __forceinline__ Q q_one() { return Q{1u, 0u, 0u, 0u}; }
+__device__ __forceinline__ Q q_m31(uint32_t v) { return Q{v, 0u, 0u, 0u}; }
+
+__device__ __forceinline__ Q q_add(Q x, Q y) {
+  return Q{add(x.a, y.a), add(x.b, y.b), add(x.c, y.c), add(x.d, y.d)};
+}
+
+__device__ __forceinline__ Q q_sub(Q x, Q y) {
+  return Q{sub(x.a, y.a), sub(x.b, y.b), sub(x.c, y.c), sub(x.d, y.d)};
+}
+
+__device__ __forceinline__ Q q_neg(Q x) { return Q{neg(x.a), neg(x.b), neg(x.c), neg(x.d)}; }
+
+__device__ __forceinline__ Q q_mul_m31(Q x, uint32_t s) {
+  return Q{mul(x.a, s), mul(x.b, s), mul(x.c, s), mul(x.d, s)};
+}
+
+// (p + q u)(r + s u) = p r + (2 + i) q s + (p s + q r) u, each CM31 product
+// (x0 + x1 i)(y0 + y1 i) = (x0 y0 - x1 y1) + (x0 y1 + x1 y0) i.
+__device__ __forceinline__ Q q_mul(Q x, Q y) {
+  const uint32_t pr_re = sub(mul(x.a, y.a), mul(x.b, y.b));
+  const uint32_t pr_im = add(mul(x.a, y.b), mul(x.b, y.a));
+  const uint32_t qs_re = sub(mul(x.c, y.c), mul(x.d, y.d));
+  const uint32_t qs_im = add(mul(x.c, y.d), mul(x.d, y.c));
+  const uint32_t ps_re = sub(mul(x.a, y.c), mul(x.b, y.d));
+  const uint32_t ps_im = add(mul(x.a, y.d), mul(x.b, y.c));
+  const uint32_t qr_re = sub(mul(x.c, y.a), mul(x.d, y.b));
+  const uint32_t qr_im = add(mul(x.c, y.b), mul(x.d, y.a));
+  // (2 + i)(re + im i) = (2 re - im) + (2 im + re) i
+  const uint32_t t_re = sub(add(qs_re, qs_re), qs_im);
+  const uint32_t t_im = add(add(qs_im, qs_im), qs_re);
+  return Q{add(pr_re, t_re), add(pr_im, t_im), add(ps_re, qr_re), add(ps_im, qr_im)};
+}
+
+// a^(p-2) by the addition chain of core/m31.py::inv; inv(0) = 0.
+__device__ __forceinline__ uint32_t m31_sqn(uint32_t a, int k) {
+  for (int i = 0; i < k; ++i) a = mul(a, a);
+  return a;
+}
+
+__device__ __forceinline__ uint32_t m31_inv(uint32_t a) {
+  const uint32_t t0 = mul(m31_sqn(a, 2), a);
+  const uint32_t t1 = mul(m31_sqn(t0, 1), t0);
+  const uint32_t t2 = mul(m31_sqn(t1, 3), t0);
+  const uint32_t t3 = mul(m31_sqn(t2, 1), t0);
+  const uint32_t t4 = mul(m31_sqn(t3, 8), t3);
+  const uint32_t t5 = mul(m31_sqn(t4, 8), t3);
+  return mul(m31_sqn(t5, 7), t2);
+}
+
+// 1/(p + q u) = (p - q u) / (p^2 - (2 + i) q^2), and 1/(a + b i) =
+// (a - b i) / (a^2 + b^2)
+__device__ __forceinline__ Q q_inv(Q x) {
+  const uint32_t pp_re = sub(mul(x.a, x.a), mul(x.b, x.b));
+  const uint32_t pp_im = add(mul(x.a, x.b), mul(x.b, x.a));
+  const uint32_t qq_re = sub(mul(x.c, x.c), mul(x.d, x.d));
+  const uint32_t qq_im = add(mul(x.c, x.d), mul(x.d, x.c));
+  const uint32_t n_re = sub(pp_re, sub(add(qq_re, qq_re), qq_im));
+  const uint32_t n_im = sub(pp_im, add(add(qq_im, qq_im), qq_re));
+  const uint32_t ninv = m31_inv(add(mul(n_re, n_re), mul(n_im, n_im)));
+  const uint32_t i_re = mul(n_re, ninv), i_im = mul(neg(n_im), ninv);
+  const uint32_t nc = neg(x.c), nd = neg(x.d);
+  return Q{sub(mul(x.a, i_re), mul(x.b, i_im)), add(mul(x.a, i_im), mul(x.b, i_re)),
+           sub(mul(nc, i_re), mul(nd, i_im)), add(mul(nc, i_im), mul(nd, i_re))};
+}
+
+// x -> 2 x^2 - 1, the x-coordinate of the doubled point (points.py)
+__device__ __forceinline__ Q q_double_x(Q x) {
+  const Q sq = q_mul(x, x);
+  return q_sub(q_add(sq, sq), q_one());
+}
+
+__device__ __forceinline__ Q q_pow5(Q x) {
+  const Q x2 = q_mul(x, x);
+  return q_mul(q_mul(x2, x2), x);
+}
+
+// v0 + v1 i + v2 u + v3 i u (q_combine4)
+__device__ __forceinline__ Q q_combine4(Q v0, Q v1, Q v2, Q v3) {
+  const Q s_i = Q{neg(v1.b), v1.a, neg(v1.d), v1.c};
+  // (p + q u) u = (2 + i) q + p u
+  const Q s_j = Q{sub(add(v2.c, v2.c), v2.d), add(add(v2.d, v2.d), v2.c), v2.a, v2.b};
+  const Q v3i = Q{neg(v3.b), v3.a, neg(v3.d), v3.c};
+  const Q s_ij = Q{sub(add(v3i.c, v3i.c), v3i.d), add(add(v3i.d, v3i.d), v3i.c), v3i.a, v3i.b};
+  return q_add(q_add(v0, s_i), q_add(s_j, s_ij));
+}
+
+// A 16-word QM31 state, limb-major, so that the linear layers (adds and
+// constant scalings only) run limb by limb through m31.cuh.
+struct State {
+  uint32_t l[4][16];
+};
+
+__device__ __forceinline__ Q get(const State& s, int i) {
+  return Q{s.l[0][i], s.l[1][i], s.l[2][i], s.l[3][i]};
+}
+
+__device__ __forceinline__ void set(State& s, int i, Q v) {
+  s.l[0][i] = v.a;
+  s.l[1][i] = v.b;
+  s.l[2][i] = v.c;
+  s.l[3][i] = v.d;
+}
+
+__device__ __forceinline__ void mds16(State& s) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) poseidon2_m31::mds16(s.l[k]);
+}
+
+__device__ __forceinline__ void internal16(State& s) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) poseidon2_m31::internal16(s.l[k]);
+}
+
+struct Horner {
+  Q acc, rc;
+};
+
+// Interaction masks a component of n fractions in batches of bs reads: one
+// row of four columns a batch, and the previous row too for the last.
+__host__ __device__ constexpr int interaction_reads(int n, int bs) { return 4 * ((n + bs - 1) / bs) + 4; }
+
+// One component (one AIR over one table): `Src` has pre(i), tr(i) (the
+// component's i-th preprocessed / trace mask), ext(m) (the m-th interaction
+// mask, four columns combined), ext_pair(m, prev, cur) (its previous and
+// current row) and scale(v) (v / vanishing).  N fractions, batched by BS.
+template <class Src, int N, int BS>
+struct Component {
+  const Src& src;
+  Horner& h;
+  Q z, alpha, alpha2, shift;  // lookup elements, alpha^2 and the cumsum_shift
+  Q num[N], den[N];
+  int n;
+
+  __device__ __forceinline__ Component(const Src& s, Horner& hh, Q z_, Q alpha_, Q shift_)
+      : src(s), h(hh), z(z_), alpha(alpha_), alpha2(q_mul(alpha_, alpha_)), shift(shift_), n(0) {}
+
+  __device__ __forceinline__ void emit(Q v) { h.acc = q_add(q_mul(h.acc, h.rc), src.scale(v)); }
+
+  // add_to_relation: values[0] + alpha values[1] (+ alpha^2 values[2]) - z
+  __device__ __forceinline__ void relation(Q mult, Q v0, Q v1) {
+    num[n] = mult;
+    den[n] = q_sub(q_add(v0, q_mul(alpha, v1)), z);
+    ++n;
+  }
+
+  __device__ __forceinline__ void relation(Q mult, Q v0, Q v1, Q v2) {
+    num[n] = mult;
+    den[n] = q_sub(q_add(q_add(v0, q_mul(alpha, v1)), q_mul(alpha2, v2)), z);
+    ++n;
+  }
+
+  // finalize_logup: fractions p/q folded p = p den + num q, q = q den per
+  // batch; each batch but the last against one interaction row (the running
+  // column sums), the last against its previous and current row.
+  __device__ __forceinline__ void finalize() {
+    constexpr int NB = (N + BS - 1) / BS;
+    Q prev_cum = q_zero();
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      Q p = num[b * BS], q = den[b * BS];
+#pragma unroll
+      for (int i = b * BS + 1; i < (b + 1) * BS && i < N; ++i) {
+        p = q_add(q_mul(p, den[i]), q_mul(num[i], q));
+        q = q_mul(q, den[i]);
+      }
+      if (b < NB - 1) {
+        const Q cur = src.ext(b);
+        const Q diff = q_sub(cur, prev_cum);
+        prev_cum = cur;
+        emit(q_sub(q_mul(diff, q), p));
+      } else {
+        Q prev_row, cur;
+        src.ext_pair(b, prev_row, cur);
+        const Q fixed = q_add(q_sub(q_sub(cur, prev_row), prev_cum), shift);
+        emit(q_sub(q_mul(fixed, q), p));
+      }
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// plonk AIR: 10 preprocessed, 12 trace columns, 4 fractions in batches of 2
+// ---------------------------------------------------------------------------
+constexpr int kPlonkPre = 10, kPlonkTrace = 12, kPlonkFracs = 4, kPlonkBatch = 2;
+
+template <class Src>
+__device__ __forceinline__ void evaluate_plonk(const Src& s, Horner& h, Q z, Q alpha, Q shift) {
+  Component<Src, kPlonkFracs, kPlonkBatch> ev(s, h, z, alpha, shift);
+  const Q a_wire = s.pre(0), b_wire = s.pre(1), c_wire = s.pre(2), op = s.pre(3);
+  const Q mult_a = s.pre(4), mult_b = s.pre(5), mult_c = s.pre(6);
+  const Q poseidon_wire = s.pre(7), mult_poseidon = s.pre(8), enforce_c_m31 = s.pre(9);
+
+  ev.emit(q_mul(enforce_c_m31, s.tr(9)));
+  ev.emit(q_mul(enforce_c_m31, s.tr(10)));
+  ev.emit(q_mul(enforce_c_m31, s.tr(11)));
+
+  const Q a_val = q_combine4(s.tr(0), s.tr(1), s.tr(2), s.tr(3));
+  const Q b_val = q_combine4(s.tr(4), s.tr(5), s.tr(6), s.tr(7));
+  const Q c_val = q_combine4(s.tr(8), s.tr(9), s.tr(10), s.tr(11));
+  const Q gate = q_sub(q_sub(c_val, q_mul(op, q_add(a_val, b_val))),
+                       q_mul(q_mul(q_sub(q_one(), op), a_val), b_val));
+  ev.emit(gate);
+
+  ev.relation(mult_a, a_val, a_wire);
+  ev.relation(mult_b, b_val, b_wire);
+  ev.relation(mult_c, c_val, c_wire);
+  ev.relation(q_neg(mult_poseidon), poseidon_wire, a_val, b_val);
+  ev.finalize();
+}
+
+// ---------------------------------------------------------------------------
+// PlonkWithoutPoseidon AIR: 8 preprocessed, 12 trace columns, 3 fractions in
+// batches of 2
+// ---------------------------------------------------------------------------
+constexpr int kNpPre = 8, kNpTrace = 12, kNpFracs = 3, kNpBatch = 2;
+
+template <class Src>
+__device__ __forceinline__ void evaluate_plonk_np(const Src& s, Horner& h, Q z, Q alpha, Q shift) {
+  Component<Src, kNpFracs, kNpBatch> ev(s, h, z, alpha, shift);
+  const Q a_wire = s.pre(0), b_wire = s.pre(1), c_wire = s.pre(2);
+  const Q op1 = s.pre(3), op2 = s.pre(4), op3 = s.pre(5), op4 = s.pre(6), mult_c = s.pre(7);
+  Q a4[4], b4[4], c4[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    a4[k] = s.tr(k);
+    b4[k] = s.tr(4 + k);
+    c4[k] = s.tr(8 + k);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const Q a2 = q_mul(a4[k], a4[k]);
+    ev.emit(q_mul(op2, q_sub(q_mul(a2, a2), b4[k])));
+  }
+
+  Q hh[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) hh[k] = q_mul(a4[k], b4[k]);
+  // _m4_list
+  const Q t0 = q_add(hh[0], hh[1]);
+  const Q t1 = q_add(hh[2], hh[3]);
+  const Q t2 = q_add(q_add(hh[1], hh[1]), t1);
+  const Q t3 = q_add(q_add(hh[3], hh[3]), t0);
+  const Q t02 = q_add(t0, t0), t12 = q_add(t1, t1);
+  const Q t4 = q_add(q_add(t12, t12), t3);
+  const Q t5 = q_add(q_add(t02, t02), t2);
+  const Q m4 = q_combine4(q_add(t3, t5), t5, q_add(t2, t4), t4);
+  const Q gs = q_add(q_add(q_add(a4[0], a4[1]), q_add(a4[2], a4[3])),
+                     q_add(q_add(b4[0], b4[1]), q_add(b4[2], b4[3])));
+
+  const Q a_val = q_combine4(a4[0], a4[1], a4[2], a4[3]);
+  const Q b_val = q_combine4(b4[0], b4[1], b4[2], b4[3]);
+  const Q c_val = q_combine4(c4[0], c4[1], c4[2], c4[3]);
+  const Q one = q_one();
+  const Q one_m_op3 = q_sub(one, op3), one_m_op4 = q_sub(one, op4);
+  const Q is_arith = q_mul(one_m_op3, one_m_op4);
+  const Q is_m4 = q_mul(op3, one_m_op4);
+  const Q is_hadamard = q_mul(one_m_op3, op4);
+  const Q is_grandsum = q_mul(op3, op4);
+  const Q expected = q_add(
+      q_add(q_add(q_mul(is_arith, q_mul(op1, q_add(a_val, b_val))),
+                  q_mul(q_mul(q_sub(one, op1), a_val), b_val)),
+            q_mul(is_m4, m4)),
+      q_add(q_mul(is_hadamard, q_combine4(hh[0], hh[1], hh[2], hh[3])),
+            q_mul(is_grandsum, q_combine4(gs, gs, gs, gs))));
+  ev.emit(q_sub(c_val, expected));
+
+  ev.relation(one, a_val, a_wire);
+  ev.relation(one, b_val, b_wire);
+  ev.relation(mult_c, c_val, c_wire);
+  ev.finalize();
+}
+
+// ---------------------------------------------------------------------------
+// poseidon AIR: 40 preprocessed (is_first, is_last, is_full, round_id, rc0
+// x16, rc1 x16, ext1, ext2, ext1_nz, ext2_nz), 48 trace columns (in_state,
+// inter, out_state, 16 each), 5 fractions in batches of 3
+// ---------------------------------------------------------------------------
+constexpr int kPoseidonPre = 40, kPoseidonTrace = 48, kPoseidonFracs = 5, kPoseidonBatch = 3;
+constexpr int kRc0 = 4, kRc1 = 20, kExt = 36;     // preprocessed positions
+constexpr int kIn = 0, kInter = 16, kOut = 32;    // trace positions
+
+template <class Src>
+__device__ __forceinline__ Q quarter(const Src& s, int base, int i) {
+  return q_combine4(s.tr(base + 4 * i), s.tr(base + 4 * i + 1), s.tr(base + 4 * i + 2),
+                    s.tr(base + 4 * i + 3));
+}
+
+template <class Src>
+__device__ __forceinline__ void evaluate_poseidon(const Src& s, Horner& h, Q z, Q alpha, Q shift) {
+  Component<Src, kPoseidonFracs, kPoseidonBatch> ev(s, h, z, alpha, shift);
+  const Q one = q_one();
+  const Q is_first = s.pre(0), is_last = s.pre(1), is_full = s.pre(2);
+  const Q is_not_first = q_sub(one, is_first), is_not_last = q_sub(one, is_last);
+  const Q is_partial = q_sub(is_not_first, is_full);
+  const Q swap_bit_value = s.tr(kInter);
+
+  // first round: swap halves (in_state rolled by 8 where the bit is set),
+  // then the external matrix
+  {
+    const Q nsw = q_sub(one, swap_bit_value);
+    State st;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      set(st, i, q_add(q_mul(s.tr(kIn + i), nsw), q_mul(s.tr(kIn + ((i + 8) & 15)), swap_bit_value)));
+    }
+    mds16(st);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) ev.emit(q_mul(is_first, q_sub(get(st, i), s.tr(kOut + i))));
+  }
+
+  // full round: inter = pow5(in + rc0), out = mds16(pow5(mds16(inter) + rc1))
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const Q frs = q_pow5(q_add(s.tr(kIn + i), s.pre(kRc0 + i)));
+    ev.emit(q_mul(is_full, q_sub(s.tr(kInter + i), frs)));
+  }
+  {
+    State st;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) set(st, i, s.tr(kInter + i));
+    mds16(st);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) set(st, i, q_pow5(q_add(get(st, i), s.pre(kRc1 + i))));
+    mds16(st);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) ev.emit(q_mul(is_full, q_sub(s.tr(kOut + i), get(st, i))));
+  }
+
+  // 14 partial rounds: inter[r] - pow5(state[0] + rc0[r]), then the
+  // committed inter[r] (not the S-box) goes into word 0 before the internal
+  // matrix; then out_state - state
+  {
+    State st;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) set(st, i, s.tr(kIn + i));
+#pragma unroll 1
+    for (int r = 0; r < 14; ++r) {
+      const Q inter_r = s.tr(kInter + r);
+      ev.emit(q_mul(is_partial, q_sub(inter_r, q_pow5(q_add(get(st, 0), s.pre(kRc0 + r))))));
+      set(st, 0, inter_r);
+      internal16(st);
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) ev.emit(q_mul(is_partial, q_sub(s.tr(kOut + i), get(st, i))));
+  }
+
+  // lookup relations
+  const Q round_id = s.pre(3);
+  const Q ext1 = s.pre(kExt), ext2 = s.pre(kExt + 1), ext1_nz = s.pre(kExt + 2), ext2_nz = s.pre(kExt + 3);
+  const Q in_left_id = q_add(round_id, round_id);
+  const Q in_right_id = q_add(in_left_id, one);
+  const Q out_left_id = q_add(in_right_id, one);
+  const Q out_right_id = q_add(out_left_id, one);
+
+  ev.relation(q_sub(q_mul(ext1_nz, is_first), is_not_first),
+              q_add(q_mul(is_first, ext1), q_mul(is_not_first, in_left_id)),
+              quarter(s, kIn, 0), quarter(s, kIn, 1));
+  ev.relation(q_sub(q_mul(ext2_nz, is_first), is_not_first),
+              q_add(q_mul(is_first, ext2), q_mul(is_not_first, in_right_id)),
+              quarter(s, kIn, 2), quarter(s, kIn, 3));
+  ev.relation(q_add(q_mul(ext1_nz, is_last), is_not_last),
+              q_add(q_mul(is_last, ext1), q_mul(is_not_last, out_left_id)),
+              quarter(s, kOut, 0), quarter(s, kOut, 1));
+  ev.relation(q_add(q_mul(ext2_nz, is_last), is_not_last),
+              q_add(q_mul(is_last, ext2), q_mul(is_not_last, out_right_id)),
+              quarter(s, kOut, 2), quarter(s, kOut, 3));
+  ev.relation(q_mul(is_first, is_not_last), swap_bit_value, s.pre(kRc0));
+  ev.finalize();
+}
+
+}  // namespace composition

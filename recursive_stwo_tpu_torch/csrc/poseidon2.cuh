@@ -8,14 +8,14 @@
 // The TPU kernel splits every product into 16-bit limbs because the TPU
 // vector unit has no 32x32->64 multiply.  Here a product is one widening
 // IMAD; two folds with 2^31 == 1 (mod p) and one conditional subtract give
-// the canonical residue.
+// the canonical residue (m31.cuh, which also holds the linear layers).
 #pragma once
 
 #include <cstdint>
 
-namespace poseidon2_m31 {
+#include "m31.cuh"
 
-constexpr uint32_t P = 0x7FFFFFFFu;
+namespace poseidon2_m31 {
 
 // Round constants, the same tables as FIRST_FOUR_ROUND_RC, PARTIAL_ROUNDS_RC
 // and LAST_FOUR_ROUNDS_RC in recursive_stwo_tpu/core/poseidon2.py (a CPU test
@@ -56,56 +56,6 @@ __constant__ uint32_t LAST_FOUR_ROUNDS_RC[4][16] = {
      0x4f5f3c70, 0x0245af6c, 0x238359d3, 0x49966a59},
 };
 
-// a, b in [0, p): a + b < 2^32, one conditional subtract.
-__device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) {
-  uint32_t s = a + b;
-  return s >= P ? s - P : s;
-}
-
-// a, b in [0, p): x = a*b < 2^62.  First fold < 2^32, second fold <= 2^31.
-__device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
-  uint64_t x = (uint64_t)a * b;
-  x = (x & P) + (x >> 31);
-  uint32_t r = (uint32_t)((x & P) + (x >> 31));
-  return r >= P ? r - P : r;
-}
-
-// a * 2^k mod p for canonical a, 1 <= k <= 16: a 31-bit rotation.
-__device__ __forceinline__ uint32_t mul_pow2(uint32_t a, int k) {
-  return ((a << k) & P) + (a >> (31 - k));
-}
-
-__device__ __forceinline__ uint32_t pow5(uint32_t a) {
-  uint32_t b = mul(a, a);
-  return mul(mul(b, b), a);
-}
-
-__device__ __forceinline__ void mds16(uint32_t s[16]) {
-  uint32_t t[16];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    uint32_t x0 = s[4 * g], x1 = s[4 * g + 1], x2 = s[4 * g + 2], x3 = s[4 * g + 3];
-    uint32_t t0 = add(x0, x1);
-    uint32_t t1 = add(x2, x3);
-    uint32_t t2 = add(add(x1, x1), t1);
-    uint32_t t3 = add(add(x3, x3), t0);
-    uint32_t t1d = add(t1, t1);
-    uint32_t t0d = add(t0, t0);
-    uint32_t t4 = add(add(t1d, t1d), t3);
-    uint32_t t5 = add(add(t0d, t0d), t2);
-    t[4 * g + 0] = add(t3, t5);
-    t[4 * g + 1] = t5;
-    t[4 * g + 2] = add(t2, t4);
-    t[4 * g + 3] = t4;
-  }
-#pragma unroll
-  for (int pos = 0; pos < 4; ++pos) {
-    uint32_t sum = add(add(t[pos], t[4 + pos]), add(t[8 + pos], t[12 + pos]));
-#pragma unroll
-    for (int g = 0; g < 4; ++g) s[4 * g + pos] = add(t[4 * g + pos], sum);
-  }
-}
-
 __device__ __forceinline__ void full_round(uint32_t s[16], const uint32_t rc[16]) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) s[i] = pow5(add(s[i], rc[i]));
@@ -114,12 +64,7 @@ __device__ __forceinline__ void full_round(uint32_t s[16], const uint32_t rc[16]
 
 __device__ __forceinline__ void partial_round(uint32_t s[16], uint32_t rc) {
   s[0] = pow5(add(s[0], rc));
-  uint32_t total = s[0];
-#pragma unroll
-  for (int i = 1; i < 16; ++i) total = add(total, s[i]);
-  s[0] = add(total, add(add(s[0], s[0]), s[0]));
-#pragma unroll
-  for (int i = 1; i < 16; ++i) s[i] = add(total, mul_pow2(s[i], i + 1));
+  internal16(s);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Build the CUDA sources under csrc/ into one shared library and load it.
 
-`load()` runs nvcc at first use (a few seconds: the sources include no
-PyTorch header and export a plain C interface) into `build/`, next to this
+`load()` runs nvcc at first use (the sources include no PyTorch header and
+export a plain C interface; about 40 s on an 8-core host, most of it the
+unrolled AIRs of composition.cu) into `build/`, next to this
 package and listed in .gitignore: one nvcc a source, all started together,
 then one link.  The library's file name carries a hash of the sources and
 flags, so an edited kernel is rebuilt and a stale one is never loaded.
@@ -109,5 +110,10 @@ def load() -> ctypes.CDLL:
             lib.p2_wordmajor_scan.restype = ctypes.c_int
             lib.sha256_level.argtypes = [vp, vp, i64, i64, i64, vp, vp]
             lib.sha256_level.restype = ctypes.c_int
+            i64p, i32 = ctypes.POINTER(i64), ctypes.c_int
+            lib.composition_check.argtypes = [i32, vp, i64, vp, vp, i64, i64, i64p, i64p, vp, vp, vp]
+            lib.composition_check.restype = ctypes.c_int
+            lib.composition_domain.argtypes = [i32, vp, vp, vp, vp, vp, vp, i32, i64, i64p, vp]
+            lib.composition_domain.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -9,7 +9,10 @@ four limb rows, and the previous-row mask is a gather by `perm`.
 The JAX stage concatenates all 86 constraint columns before the Horner fold;
 at 2**21 points that list alone is about 5.8 GB of int64.  Here constraints
 go to the verifier's `HornerSink`, whose `append` folds each column in
-emission order: the same sum, with one (N,) QM31 accumulator live.
+emission order: the same sum, with one (N,) QM31 accumulator live.  That
+eager evaluation is the plain version (`composition_evals_plain`); on CUDA
+each table is one launch of the domain kernel (csrc/composition.cu), which
+folds the same constraints in the same order into a (4, N) accumulator.
 """
 
 from __future__ import annotations
@@ -133,6 +136,55 @@ def _vanishing_inv(x: torch.Tensor, log_size: int) -> torch.Tensor:
     return m31.inv(v)
 
 
+def each_table(spec: VerifierSpec, tables, evaluate_table) -> None:
+    """Call evaluate_table(i, evaluate_fn, pre, tr, inter, perm, total,
+    denom_inv, log) for each table, with its LDE blocks over the 2**bound
+    domain (made here, so they are freed as each call returns), the
+    previous-row permutation and the M31 1/vanishing of every point."""
+    bound = spec.composition_log_degree_bound
+    device = tables[0][0][0].device
+    x_dom, _ = circle_fft.domain_points(bound, device)
+    for i, ((c_pre, c_tr, c_int), total, log, evaluate_fn) in enumerate(tables):
+        perm = to_device(point_sub_step_perm(bound, ccircle.Coset.odds(log).step_index), device)
+        evaluate_table(
+            i, evaluate_fn, circle_fft.lde(c_pre, bound), circle_fft.lde(c_tr, bound),
+            circle_fft.lde(c_int, bound), perm, total, _vanishing_inv(x_dom, log), log,
+        )
+
+
+def composition_evals_plain(spec: VerifierSpec, tables, lookup: Tuple[QM31, QM31], random_coeff: QM31):
+    """The plain version of `composition_evals`: each table's evaluator on a
+    `_ProverEval`, its constraints folded by a `HornerSink`."""
+    sink = vcomp.HornerSink(random_coeff, 1 << spec.composition_log_degree_bound)
+
+    def evaluate(i, evaluate_fn, pre, tr, inter, perm, total, denom_inv, log):
+        evaluate_fn(_ProverEval(pre, tr, inter, perm, total, denom_inv, log, sink), lookup)
+
+    each_table(spec, tables, evaluate)
+    return torch.stack(list(sink.acc))
+
+
+def composition_evals(spec: VerifierSpec, tables, lookup: Tuple[QM31, QM31], random_coeff: QM31):
+    """The (4, 2**bound) composition evaluations, Horner-folded over every
+    table's constraints in emission order.  On the CPU the plain version;
+    on CUDA one launch of the domain kernel a table (ops/composition_cuda.py),
+    each folding its AIR into the same accumulator."""
+    device = tables[0][0][0].device
+    if device.type == "cpu":
+        return composition_evals_plain(spec, tables, lookup, random_coeff)
+    from ..ops import composition_cuda
+
+    acc = torch.empty((4, 1 << spec.composition_log_degree_bound), dtype=torch.int64, device=device)
+
+    def evaluate(i, evaluate_fn, pre, tr, inter, perm, total, denom_inv, log):
+        composition_cuda.domain(
+            evaluate_fn, pre, tr, inter, perm, denom_inv, acc, i == 0, total, lookup, random_coeff, log
+        )
+
+    each_table(spec, tables, evaluate)
+    return acc
+
+
 def composition_stage(
     spec: VerifierSpec,
     tables,
@@ -144,19 +196,6 @@ def composition_stage(
     table).  Returns the (8, 2**(bound-1)) split coefficient block (left
     limbs then right limbs); the resident provers commit its LDE, the
     streamed ones evaluate it chunk by chunk."""
-    bound = spec.composition_log_degree_bound
-    device = tables[0][0][0].device
-    x_dom, _ = circle_fft.domain_points(bound, device)
-    sink = vcomp.HornerSink(random_coeff, 1 << bound)
-    for (c_pre, c_tr, c_int), total, log, evaluate_fn in tables:
-        perm = to_device(point_sub_step_perm(bound, ccircle.Coset.odds(log).step_index), device)
-        ev = _ProverEval(
-            circle_fft.lde(c_pre, bound), circle_fft.lde(c_tr, bound), circle_fft.lde(c_int, bound),
-            perm, total, _vanishing_inv(x_dom, log), log, sink,
-        )
-        evaluate_fn(ev, lookup)
-        del ev
-    comp_coeffs = circle_fft.interpolate(torch.stack(list(sink.acc)))  # (4, 2**bound)
-    half = 1 << (bound - 1)
+    comp_coeffs = circle_fft.interpolate(composition_evals(spec, tables, lookup, random_coeff))  # (4, 2**bound)
+    half = 1 << (spec.composition_log_degree_bound - 1)
     return torch.cat([comp_coeffs[:, :half], comp_coeffs[:, half:]])
-

@@ -1,6 +1,9 @@
 """Walls, CUDA launches and device busy time of the other proof flavours.
 
-    python recursive_stwo_tpu_torch/tools/flavour_times.py [--runs K]
+    python recursive_stwo_tpu_torch/tools/flavour_times.py [--root DIR] [--label NAME] [--runs K]
+
+Imports recursive_stwo_tpu_torch from DIR (default: the checkout holding this
+script), so that a parent and a change can be timed in turns in one call.
 
 Steps, each warm:
   - np_small: verify_batch_np at B=512 on a device-resident batch;
@@ -101,9 +104,11 @@ def device_profile(torch, fn) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+    ap.add_argument("--label", default=None, help="name printed with every line (default: the root)")
     ap.add_argument("--runs", type=int, default=9)
     args = ap.parse_args()
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+    sys.path.insert(0, os.path.abspath(args.root))
 
     import torch
 
@@ -139,8 +144,8 @@ def main() -> int:
     for name, batch, device, fn in steps:
         walls = walls_ms(torch, fn, args.runs)
         med = statistics.median(walls)
-        line = dict(step=name, batch=batch, device=device, wall_ms_median=med, wall_ms=walls,
-                    proofs_per_s=batch / med * 1e3)
+        line = dict(label=args.label or args.root, step=name, batch=batch, device=device, wall_ms_median=med,
+                    wall_ms=walls, proofs_per_s=batch / med * 1e3)
         if device == "cuda":
             prof = device_profile(torch, fn)
             line.update(prof, busy_share=prof["busy_ms"] / med, wall_us_per_kernel=med * 1e3 / prof["kernels"])

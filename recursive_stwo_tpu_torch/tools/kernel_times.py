@@ -14,6 +14,13 @@ times, at the shapes the port calls them with:
      walk pass of one verify_batch at B=1024 of each fixture, and the same
      passes of small_proof at B=2**14 run over their first N = 2**12 .. 2**18
      slots; beside it K2 at its main-path shape, the leaf step (W, 16, B*Q).
+  The composition kernels, where the checkout has them: the check kernel
+     (composition_check) at B=1024 on small_proof, recursive_proof_16_15
+     and np_small, at np_small's B=512 and at the SHA fast paths' batch 1
+     (level 14, bitcoin); the domain kernel (composition_domain) on each
+     table of chain levels 1 and 2 (the tables `prove` hands its composition
+     stage), beside the plain version's time on the card.
+`--kernels poseidon` or `--kernels composition` times only those.
 Before timing, every kernel output is held to the plain version bit for bit.
 Two times per shape: CUDA events around `reps` back-to-back calls (what a
 caller's loop pays, the wrapper's host cost included once it exceeds the
@@ -37,6 +44,11 @@ ROW_SHAPES = ((1024, 200), (1 << 12, 200), (1 << 14, 100), (1 << 15, 100), (1 <<
 WORDMAJOR_SHAPES = (((4, 16, 16384), 100), ((4, 16, 1 << 18), 20))
 FIXTURES = ("small_proof", "recursive_proof_16_15")
 SCAN_BATCH, SWEEP_BATCH, SWEEP_LOG_N = 1024, 1 << 14, range(12, 19)
+# the check kernel's shapes (fixture, batch): verify_batch's, verify_batch_np's
+# and the SHA fast paths'; the domain kernel at these chain levels' tables
+CHECK_SHAPES = (("small_proof", 1024), ("recursive_proof_16_15", 1024), ("np_small", 1024), ("np_small", 512),
+                ("level14", 1), ("bitcoin", 1))
+DOMAIN_LEVELS = (1, 2)
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -124,30 +136,9 @@ def scan_runs(torch, poseidon_cuda, dev) -> list:
     return runs
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
-    ap.add_argument("--label", default=None, help="name printed with every line (default: the root)")
-    args = ap.parse_args()
-    sys.path.insert(0, os.path.abspath(args.root))
-
-    import torch
-
-    if not torch.cuda.is_available():
-        print("kernel_times: torch.cuda.is_available() is false; this needs a GPU", file=sys.stderr)
-        return 1
-    from recursive_stwo_tpu_torch.core import poseidon2
-    from recursive_stwo_tpu_torch.ops import build, poseidon_cuda
-
-    label = args.label or args.root
-    lib = build.load()
-    log = build.library_path() + ".log"
-    if os.path.exists(log):
-        with open(log) as f:
-            print(f"[{label}] ptxas:\n{f.read().strip()}")
-    print(f"[{label}] library {os.path.basename(build.library_path())} from {lib._name}")
-
-    dev = torch.device("cuda")
+def poseidon_runs(torch, poseidon2, poseidon_cuda, dev) -> list:
+    """(kernel, schedule, shape, permutations, reps, fn) of K1, K2 and the
+    scan, each held to its plain version first."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     if hasattr(poseidon_cuda, "permute_rows_schedule"):
         schedules = {s: (lambda x, s=s: poseidon_cuda.permute_rows_schedule(x, s)) for s in poseidon_cuda.ROWS_SCHEDULES}
@@ -172,7 +163,90 @@ def main() -> int:
 
     if hasattr(poseidon_cuda, "wordmajor_scan"):
         runs += scan_runs(torch, poseidon_cuda, dev)
+    return runs
 
+
+def composition_lines(torch, dev) -> list:
+    """One dict a shape of the check kernel (CHECK_SHAPES) and the domain
+    kernel (each table of DOMAIN_LEVELS), each held bit for bit to its plain
+    version first: events and device ms, the plain version's ms, the bound."""
+    from recursive_stwo_tpu_torch.models import flagship
+    from recursive_stwo_tpu_torch.ops import composition_cuda
+    from recursive_stwo_tpu_torch.tools import composition_cases as cases
+
+    lines = []
+    for name, batch in CHECK_SHAPES:
+        case = cases.check_case(name, batch, dev, corrupt_slot=batch // 2 if batch > 1 else None)
+        (ok_k, v_k), (ok_p, v_p) = cases.check_value(case), cases.check_value(case, plain=True)
+        if not (torch.equal(ok_k, ok_p) and all(torch.equal(a, b) for a, b in zip(v_k, v_p))):
+            raise RuntimeError(f"composition_check differs from the plain version on {name} at B={batch}")
+        bound, by = composition_cuda.check_bound_ms(case.spec, batch)
+        lines.append(dict(kernel="composition_check", shape=f"{name} B={batch}", batch=batch,
+                          int_ops=batch * composition_cuda.check_ops(case.spec),
+                          events_ms=cuda_ms(torch, lambda: cases.check_value(case), 50),
+                          device_ms=profiled_ms(torch, lambda: cases.check_value(case), 50, "composition_check"),
+                          plain_ms=cuda_ms(torch, lambda: cases.check_value(case, plain=True), 3),
+                          bound_ms=bound, bound_by=by))
+    for level in DOMAIN_LEVELS:
+        trace, config, _ = flagship.chain_level_trace(level)
+        spec, tables, lookup, rc = cases.prover_tables(trace, config, dev)
+        calls = cases.domain_calls(spec, tables)
+        del trace, tables
+        n = 1 << spec.composition_log_degree_bound
+        acc = torch.zeros((4, n), dtype=torch.int64, device=dev)
+        for call in calls:
+            air = composition_cuda.air_id(call.evaluate_fn)
+            plain = cases.run_domain(call, acc, lookup, rc, plain=True)
+            if not torch.equal(cases.run_domain(call, acc.clone(), lookup, rc), plain):
+                raise RuntimeError(f"composition_domain differs from the plain version at level {level}, AIR {air}")
+            bound, by = composition_cuda.domain_bound_ms(call.evaluate_fn, n, call.first)
+            work = acc.clone()
+            lines.append(dict(kernel="composition_domain", shape=f"level {level} AIR {air} ({call.pre.shape[0]} + "
+                              f"{call.tr.shape[0]} + {call.inter.shape[0]} rows x {n})", points=n,
+                              int_ops=n * composition_cuda.air_ops(air, composition_cuda.Q_MUL_M31, 0),
+                              events_ms=cuda_ms(torch, lambda: cases.run_domain(call, work, lookup, rc), 10),
+                              device_ms=profiled_ms(torch, lambda: cases.run_domain(call, work, lookup, rc), 10,
+                                                    "composition_domain"),
+                              plain_ms=cuda_ms(torch, lambda: cases.run_domain(call, acc, lookup, rc, plain=True), 1),
+                              bound_ms=bound, bound_by=by))
+            acc = plain
+            del work
+        del calls, acc
+        torch.cuda.empty_cache()
+    return lines
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+    ap.add_argument("--label", default=None, help="name printed with every line (default: the root)")
+    ap.add_argument("--kernels", choices=("all", "poseidon", "composition"), default="all")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: torch.cuda.is_available() is false; this needs a GPU", file=sys.stderr)
+        return 1
+    from recursive_stwo_tpu_torch.core import poseidon2
+    from recursive_stwo_tpu_torch.ops import build, poseidon_cuda
+
+    label = args.label or args.root
+    lib = build.load()
+    log = build.library_path() + ".log"
+    if os.path.exists(log):
+        with open(log) as f:
+            print(f"[{label}] ptxas:\n{f.read().strip()}")
+    print(f"[{label}] library {os.path.basename(build.library_path())} from {lib._name}")
+
+    dev = torch.device("cuda")
+    if args.kernels != "poseidon" and os.path.exists(os.path.join(os.path.dirname(build.__file__),
+                                                                   "composition_cuda.py")):
+        for line in composition_lines(torch, dev):
+            line.update(label=label, share_of_bound=line["bound_ms"] / line["device_ms"])
+            print(json.dumps(line), flush=True)
+    runs = [] if args.kernels == "composition" else poseidon_runs(torch, poseidon2, poseidon_cuda, dev)
     for kernel, sched, shape, n_states, reps, fn in runs:
         ms = cuda_ms(torch, fn, reps)
         dev_ms = profiled_ms(torch, fn, reps, kernel)

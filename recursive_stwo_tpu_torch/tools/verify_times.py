@@ -5,14 +5,16 @@
 Imports recursive_stwo_tpu_torch from DIR (default: the checkout holding this
 script), so that a parent and a change can be timed in turns in one call on
 one card.  For each fixture at B=1024, on a device-resident batch, warm:
-  - the kernels' launches over one verify_batch (poseidon_cuda.LAUNCHES);
+  - the hand-written kernels' launches over one verify_batch (ops/launches);
   - proofs/s: B over the median of K synchronize()-bounded verify_batch runs;
-  - the hash phase's wall: the median over K further runs of
-    verify.hash_phase, bounded by synchronize() on both sides (separate runs,
-    since those two syncs cut the host's run-ahead);
-  - the device time of the hash kernels (every kernel whose name holds
-    "wordmajor": K2's steps, or the scans and K2's leaf step) in one
-    verify_batch under torch.profiler.
+  - the walls of the transcript, the composition check, the fold phase and
+    the hash phase: the median over K further runs of each, bounded by
+    synchronize() on both sides (separate runs, since those syncs cut the
+    host's run-ahead);
+  - one verify_batch under torch.profiler: the device time of the hash
+    kernels (every kernel whose name holds "wordmajor": K2's steps, or the
+    scans and K2's leaf step), and every CUDA kernel, copy and fill the call
+    issued with the kernels' summed device time (tools/flavour_times).
 Prints one JSON line per fixture, then the card's nvidia-smi line.
 """
 
@@ -30,13 +32,12 @@ BATCH = 1024
 FIXTURES = ("small_proof", "recursive_proof_16_15")
 
 
-def hash_phase_walls(torch, step, arrays, runs: int) -> list:
-    """Seconds of verify.hash_phase in each of `runs` calls of step(arrays),
-    bounded by synchronize() on both sides."""
-    from recursive_stwo_tpu_torch.verifier import verify
-
+def phase_walls(torch, step, arrays, runs: int, owner, name: str) -> list:
+    """Seconds of owner.name (a function step calls through its module) in
+    each of `runs` calls of step(arrays), bounded by synchronize() on both
+    sides."""
     walls = []
-    phase = verify.hash_phase
+    phase = getattr(owner, name)
 
     def timed(*a):
         torch.cuda.synchronize()
@@ -46,12 +47,12 @@ def hash_phase_walls(torch, step, arrays, runs: int) -> list:
         walls.append(time.perf_counter() - t)
         return out
 
-    verify.hash_phase = timed
+    setattr(owner, name, timed)
     try:
         for _ in range(runs):
             step(arrays)
     finally:
-        verify.hash_phase = phase
+        setattr(owner, name, phase)
     return walls
 
 
@@ -69,7 +70,9 @@ def main() -> int:
         print("verify_times: torch.cuda.is_available() is false; this needs a GPU", file=sys.stderr)
         return 1
     from recursive_stwo_tpu_torch.models import flagship
-    from recursive_stwo_tpu_torch.ops import poseidon_cuda
+    from recursive_stwo_tpu_torch.ops import launches as kernel_launches
+    from recursive_stwo_tpu_torch.tools.flavour_times import device_profile
+    from recursive_stwo_tpu_torch.verifier import composition, transcript, verify
 
     dev = torch.device("cuda")
     for name in FIXTURES:
@@ -77,10 +80,10 @@ def main() -> int:
         if not bool(step(arrays)["ok"].all()):
             raise RuntimeError(f"{name}: clean batch rejected")
         torch.cuda.synchronize()
-        poseidon_cuda.reset_launches()
+        kernel_launches.reset()
         step(arrays)
         torch.cuda.synchronize()
-        launches = dict(poseidon_cuda.LAUNCHES)
+        launches = kernel_launches.counts()
 
         walls = []
         for _ in range(args.runs):
@@ -90,7 +93,12 @@ def main() -> int:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
 
-        hash_walls = hash_phase_walls(torch, step, arrays, args.runs)
+        phases = {phase: phase_walls(torch, step, arrays, args.runs, owner, attr)
+                  for phase, owner, attr in (("transcript", transcript, "run_transcript"),
+                                            ("composition", composition, "composition_check"),
+                                            ("fold_phase", verify, "fold_phase"),
+                                            ("hash_phase", verify, "hash_phase"))}
+        issued = device_profile(torch, lambda: step(arrays))
 
         from torch.profiler import ProfilerActivity, profile
 
@@ -104,9 +112,11 @@ def main() -> int:
             label=args.label or args.root, fixture=name, batch=BATCH, launches=launches,
             proofs_per_s=BATCH / statistics.median(walls),
             verify_ms=[w * 1e3 for w in walls],
-            hash_phase_ms_median=statistics.median(hash_walls) * 1e3,
-            hash_phase_ms=[w * 1e3 for w in hash_walls],
+            **{f"{phase}_ms_median": statistics.median(w) * 1e3 for phase, w in phases.items()},
+            **{f"{phase}_ms": [x * 1e3 for x in w] for phase, w in phases.items()},
             hash_kernel_device_ms=hash_kernel_ms,
+            cuda_kernels=issued["kernels"], copies_and_fills=issued["copies_and_fills"],
+            kernels_busy_ms=issued["busy_ms"], busy_share=issued["busy_ms"] / statistics.median(walls) / 1e3,
         )), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)

@@ -8,6 +8,12 @@ the 16-word poseidon state as stacked (B, 16) QM31 tensors, and Horner
 accumulation over all emitted constraints as they are emitted
 (`HornerSink`).  The reference's `lax.scan`s (14 partial rounds, Horner) are
 Python loops here.
+
+This eager code is the plain version (`composition_value_plain`, and the
+prover's evaluation over the domain).  On a CUDA batch the check is one
+launch of the check kernel (csrc/composition.cu, ops/composition_cuda.py),
+which evaluates the same AIRs in the same emission order, one thread a
+proof.  `composition_value[_np]` return the Horner value beside the bool.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from .spec import (
     N_INTERACTION_PLONK,
     N_PREPROCESSED_PLONK,
     N_TRACE_PLONK,
+    NoPoseidonVerifierSpec,
     VerifierSpec,
 )
 
@@ -409,6 +416,74 @@ def evaluate_poseidon(ev: _Eval, lookup):
 # top level
 # ---------------------------------------------------------------------------
 
+def composition_value_plain(spec, samples_flat: torch.Tensor, sums, lookup, random_coeff: QM31, oods) -> tuple:
+    """The plain version of the check: ((B,) bool, the (B,) QM31 Horner
+    value of every constraint).  `sums` is the components' total sums:
+    (plonk, poseidon) for a VerifierSpec, (total,) for a
+    NoPoseidonVerifierSpec."""
+    oods_x, _ = oods
+    constraints = HornerSink(random_coeff, samples_flat.shape[0])
+    if isinstance(spec, NoPoseidonVerifierSpec):
+        (total_sum,) = sums
+        denom_inv = q.q_inv(points_mod.coset_vanishing_canonic(oods_x, spec.log_size))
+        ev = _Eval(spec, samples_flat, (0, 0, 0), total_sum, denom_inv, spec.log_size, constraints)
+        evaluate_plonk_np(ev, lookup)
+    else:
+        plonk_total_sum, poseidon_total_sum = sums
+        denom_inv_plonk = q.q_inv(
+            points_mod.coset_vanishing_canonic(oods_x, spec.log_size_plonk)
+        )
+        ev = _Eval(
+            spec, samples_flat, (0, 0, 0), plonk_total_sum,
+            denom_inv_plonk, spec.log_size_plonk, constraints,
+        )
+        evaluate_plonk(ev, lookup)
+
+        denom_inv_pos = q.q_inv(
+            points_mod.coset_vanishing_canonic(oods_x, spec.log_size_poseidon)
+        )
+        ev = _Eval(
+            spec, samples_flat,
+            (N_PREPROCESSED_PLONK, N_TRACE_PLONK, N_INTERACTION_PLONK),
+            poseidon_total_sum, denom_inv_pos, spec.log_size_poseidon, constraints,
+        )
+        evaluate_poseidon(ev, lookup)
+    computed = constraints.acc
+    return _matches_committed(spec, samples_flat, oods_x, computed), computed
+
+
+def _composition_value(spec, samples_flat: torch.Tensor, sums, lookup, random_coeff: QM31, oods) -> tuple:
+    """A CPU batch takes the plain version, a CUDA one the check kernel
+    (ops/composition_cuda.py: one launch for the whole batch)."""
+    if samples_flat.device.type == "cpu":
+        return composition_value_plain(spec, samples_flat, sums, lookup, random_coeff, oods)
+    from ..ops import composition_cuda
+
+    ok, value = composition_cuda.check(spec, samples_flat.contiguous(), sums, lookup, random_coeff, oods[0])
+    return ok, QM31(*value.unbind(-1))
+
+
+def composition_value(
+    spec: VerifierSpec,
+    samples_flat: torch.Tensor,
+    plonk_total_sum: QM31,
+    poseidon_total_sum: QM31,
+    lookup,
+    random_coeff: QM31,
+    oods,
+) -> tuple:
+    """((B,) bool, (B,) QM31): whether the evaluated composition equals the
+    committed split values, and the evaluated (Horner-folded) value."""
+    return _composition_value(
+        spec, samples_flat, (plonk_total_sum, poseidon_total_sum), lookup, random_coeff, oods
+    )
+
+
+def composition_value_np(spec, samples_flat: torch.Tensor, total_sum: QM31, lookup, random_coeff: QM31, oods) -> tuple:
+    """composition_value for the without-poseidon AIR."""
+    return _composition_value(spec, samples_flat, (total_sum,), lookup, random_coeff, oods)
+
+
 def composition_check(
     spec: VerifierSpec,
     samples_flat: torch.Tensor,
@@ -419,28 +494,9 @@ def composition_check(
     oods,
 ) -> torch.Tensor:
     """(B,) bool: evaluated composition equals the committed split values."""
-    oods_x, _ = oods
-    constraints = HornerSink(random_coeff, samples_flat.shape[0])
-
-    denom_inv_plonk = q.q_inv(
-        points_mod.coset_vanishing_canonic(oods_x, spec.log_size_plonk)
-    )
-    ev = _Eval(
-        spec, samples_flat, (0, 0, 0), plonk_total_sum,
-        denom_inv_plonk, spec.log_size_plonk, constraints,
-    )
-    evaluate_plonk(ev, lookup)
-
-    denom_inv_pos = q.q_inv(
-        points_mod.coset_vanishing_canonic(oods_x, spec.log_size_poseidon)
-    )
-    ev = _Eval(
-        spec, samples_flat,
-        (N_PREPROCESSED_PLONK, N_TRACE_PLONK, N_INTERACTION_PLONK),
-        poseidon_total_sum, denom_inv_pos, spec.log_size_poseidon, constraints,
-    )
-    evaluate_poseidon(ev, lookup)
-    return _matches_committed(spec, samples_flat, oods_x, constraints.acc)
+    return composition_value(
+        spec, samples_flat, plonk_total_sum, poseidon_total_sum, lookup, random_coeff, oods
+    )[0]
 
 
 def composition_check_np(
@@ -452,12 +508,7 @@ def composition_check_np(
     oods,
 ) -> torch.Tensor:
     """(B,) bool composition identity for the without-poseidon AIR."""
-    oods_x, _ = oods
-    constraints = HornerSink(random_coeff, samples_flat.shape[0])
-    denom_inv = q.q_inv(points_mod.coset_vanishing_canonic(oods_x, spec.log_size))
-    ev = _Eval(spec, samples_flat, (0, 0, 0), total_sum, denom_inv, spec.log_size, constraints)
-    evaluate_plonk_np(ev, lookup)
-    return _matches_committed(spec, samples_flat, oods_x, constraints.acc)
+    return composition_value_np(spec, samples_flat, total_sum, lookup, random_coeff, oods)[0]
 
 
 def _matches_committed(spec, samples_flat: torch.Tensor, oods_x: QM31, computed: QM31) -> torch.Tensor:

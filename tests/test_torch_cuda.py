@@ -344,3 +344,90 @@ def test_prove_streamed_on_cuda_matches_cpu(cuda):
     assert poseidon_cuda.LAUNCHES["permute_rows"] > 0
     ref = prove_streamed(flagship.demo_trace(), flagship.DEMO_CONFIG, device="cpu", chunk_log=9, cutoff=5)
     assert flagship.proof_bytes(got) == flagship.proof_bytes(ref)
+
+
+@pytest.mark.parametrize("batch", [1, 7, 1024])
+@pytest.mark.parametrize("name", ["small_proof", "recursive_proof_16_15", "np_small", "level14", "bitcoin"])
+def test_composition_check_bit_exact(cuda, name, batch):
+    """The composition check kernel against its plain version on the card,
+    on the Horner value and the bool, in one launch: the fixture with one
+    sampled value corrupted, and random canonical inputs of its spec (where
+    every constraint is nonzero)."""
+    from recursive_stwo_tpu_torch.ops import composition_cuda
+    from recursive_stwo_tpu_torch.tools import composition_cases as cases
+
+    slot = batch // 2 if batch > 1 else None
+    case = cases.check_case(name, batch, cuda, corrupt_slot=slot)
+    for c in (case, cases.random_check_case(case.spec, batch, batch, cuda)):
+        before = composition_cuda.LAUNCHES["composition_check"]
+        ok, value = cases.check_value(c)
+        torch.cuda.synchronize()
+        assert composition_cuda.LAUNCHES["composition_check"] == before + 1
+        ok_plain, value_plain = cases.check_value(c, plain=True)
+        assert torch.equal(ok, ok_plain)
+        assert all(torch.equal(got, want) for got, want in zip(value, value_plain))
+    want = [True] * batch
+    if slot is not None:
+        want[slot] = False
+    assert cases.check_value(case)[0].tolist() == want
+
+
+@pytest.mark.parametrize("circuit", ["demo", "without-Poseidon demo", "level 1"])
+def test_composition_domain_bit_exact(cuda, circuit):
+    """The domain kernel against its plain version on the card, table by
+    table into one accumulator, on the tables `prove` / `prove_np` hand
+    their composition stage; composition_evals launches it once a table."""
+    from test_torch_chain import T_NP_CONFIG, _np_trace
+
+    from recursive_stwo_tpu_torch.ops import composition_cuda
+    from recursive_stwo_tpu_torch.prover import composition as t_comp
+    from recursive_stwo_tpu_torch.tools import composition_cases as cases
+
+    if circuit == "demo":
+        trace, config = flagship.demo_trace(), flagship.DEMO_CONFIG
+    elif circuit == "level 1":
+        trace, config, _ = flagship.chain_level_trace(1)
+    else:
+        trace, config = _np_trace(), T_NP_CONFIG
+    spec, tables, lookup, rc = cases.prover_tables(trace, config, cuda, circuit.startswith("without"))
+    acc = torch.zeros((4, 1 << spec.composition_log_degree_bound), dtype=torch.int64, device=cuda)
+    for call in cases.domain_calls(spec, tables):
+        plain = cases.run_domain(call, acc, lookup, rc, plain=True)
+        assert torch.equal(cases.run_domain(call, acc.clone(), lookup, rc), plain)
+        acc = plain
+    composition_cuda.reset_launches()
+    assert torch.equal(t_comp.composition_evals(spec, tables, lookup, rc), acc)
+    assert composition_cuda.LAUNCHES["composition_domain"] == len(tables)
+
+
+def test_composition_kernels_launch_once_per_call(cuda):
+    """On CUDA every verifier's composition check is one launch of the check
+    kernel, and a proof's composition stage one launch of the domain kernel
+    an AIR table."""
+    from test_torch_chain import T_NP_CONFIG, _np_trace
+
+    from recursive_stwo_tpu_torch.ops import launches
+    from recursive_stwo_tpu_torch.prover.prove import prove
+    from recursive_stwo_tpu_torch.prover.prove_np import prove_np
+    from recursive_stwo_tpu_torch.verifier import verify_sha256
+
+    step, arrays = flagship.verifier_step("small_proof", 8, device=cuda)
+    step_np, arrays_np = flagship.verifier_step_np("np_small", 8, device=cuda)
+    calls = {
+        "verify_batch": (lambda: step(arrays), 1, 0),
+        "verify_batch_np": (lambda: step_np(arrays_np), 1, 0),
+        "device_checks_p31": (lambda: _corrupted_sha_checks("level14", cuda), 1, 0),
+        "device_checks_np": (lambda: _corrupted_sha_checks("bitcoin", cuda), 1, 0),
+        "verify_sha256p31": (lambda: verify_sha256.verify_sha256p31(
+            flagship.sha_artifact("level14"), flagship.sha_inputs("level14"), device=cuda), 1, 0),
+        "verify_sha256np": (lambda: verify_sha256.verify_sha256np(
+            flagship.sha_artifact("bitcoin"), flagship.sha_inputs("bitcoin"), device=cuda), 1, 0),
+        "prove": (lambda: prove(flagship.demo_trace(), flagship.DEMO_CONFIG, device=cuda), 0, 2),
+        "prove_np": (lambda: prove_np(_np_trace(), T_NP_CONFIG, device=cuda), 0, 1),
+    }
+    for label, (fn, checks, tables) in calls.items():
+        launches.reset()
+        fn()
+        torch.cuda.synchronize()
+        got = launches.counts()
+        assert (got["composition_check"], got["composition_domain"]) == (checks, tables), (label, got)
