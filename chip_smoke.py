@@ -5,8 +5,9 @@
 
 Phases; any failure ends the run with a non-zero exit and no result line:
   1. card: the GPU's name and power limit, as nvidia-smi prints them;
-  2. build: nvcc builds the Poseidon2-16, SHA-256 and composition kernels
-     from csrc/ (one nvcc a source, all at once, then a link; seconds);
+  2. build: nvcc builds the Poseidon2-16, SHA-256, composition and fold
+     kernels from csrc/ (one nvcc a source, all at once, then a link;
+     seconds);
   3. kernels vs plain: K1 and K2 against their plain PyTorch versions on
      the card and on the host CPU, bit for bit, at 2**20 states and at the
      main path's shapes, plus the Poseidon2-16 known-answer test; each of
@@ -32,17 +33,27 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      by table on the demo circuits (both AIR pairs) and chain level 1; their
      times (the check at small_proof's B=1024, np_small's B=512 and level
      14's B=1; the domain kernel on level 1's tables) beside their bounds;
+     the fold kernel (csrc/fold.cu) against its plain version on the card,
+     bit for bit (every group's answers, every inner layer's self values,
+     the last-layer check): small_proof and recursive_proof_16_15 at B = 1,
+     7 and 1024, np_small at B=512, level 14 and bitcoin at B=128, each with
+     four corrupted slots (a sampled value, a first-layer sibling, an
+     inner-layer sibling, an OODS point whose quotient denominators are
+     zero) and on random canonical inputs of its shapes; its times (both
+     fixtures at B=1024, np_small at B=512, level 14 at B=128) beside its
+     bound;
   4. main path, small_proof at B=1024: the port's verify_batch on CUDA over
      a batch with a flipped sibling hash and a flipped nonce, and again with
      a wrong public input; every named check of every slot must equal the
      port's own CPU path (plain PyTorch, which tests/test_torch_verify.py
      holds equal to the JAX package's verifier); K1 must have launched, the
      scan exactly twice (the absorb and the walk pass), K2 exactly once
-     (the leaf step) and the composition check kernel exactly once;
+     (the leaf step), the composition check kernel exactly once and the
+     fold kernel exactly once;
   5. the same for the deep fixture recursive_proof_16_15;
   6. timing: warm proofs/s of verify_batch at B=1024 for both fixtures, and
-     the walls of the hash phase and of the composition check per batch
-     (each bounded by synchronize()) beside it;
+     the walls of the fold phase, the hash phase and the composition check
+     per batch (each bounded by synchronize()) beside it;
   7. prover, recursion-chain level 1: the demo circuit's proof on CUDA must
      equal the port's CPU proof byte for byte (a quick first check); then
      the level-1 circuit (recursive_proof_16_15 verified five times) is
@@ -63,8 +74,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      batch for np_flavor_proofs_per_sec): verify_batch_np on CUDA over a
      batch with a flipped sibling hash and a flipped nonce, and again with a
      wrong public input, every named check of every slot equal to the CPU
-     run; K1 must launch, the scan exactly twice, K2 once and the check
-     kernel once; then warm proofs/s (median of 5, synchronize()-bounded);
+     run; K1 must launch, the scan exactly twice, K2 once, the check
+     kernel once and the fold kernel once; then warm proofs/s (median of 5, synchronize()-bounded);
  11. the SHA-256 flavours, chain level 14 and the bitcoin-facing last-layer
      proof, with the native SHA-256 library required: both host verifiers
      and both fast paths (composition on CUDA) accept, and the fast paths
@@ -73,7 +84,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      device checks at B=128 on CUDA, with a flipped sampled value and a
      flipped pow digest in two slots, equal the CPU run per slot; each
      accepting fast path and each device-check call launches the check
-     kernel exactly once; prints bench.py's SHA metrics (the fast path's
+     kernel exactly once, each device-check call the fold kernel once; prints bench.py's SHA metrics (the fast path's
      time with the composition on CUDA and on the CPU), the bitcoin fast
      path's times on both and the level-14 device checks' proofs/s;
  12. the last layer: the committed level-14 proof verified in the
@@ -95,7 +106,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      MESH_RANKS gloo ranks on the card with verify_sharded: every named
      check of every slot must equal phase 4's CPU run, and each rank's
      verify_batch must launch K1 as often as the whole batch did, the scan
-     twice, K2 once and the check kernel once; (d) warm proofs/s of the
+     twice, K2 once, the check kernel once and the fold kernel once; (d) warm proofs/s of the
      clean B=1024 batch split over 1, 2 and MESH_RANKS ranks sharing the
      card (verify_local: the
      batch over the slowest rank's synchronize()-bounded wall, median of
@@ -195,6 +206,9 @@ STREAM_DEMO = dict(chunk_log=9, cutoff=5)  # phase 15 (a): several chunks of sev
 # demo circuits' tables and chain level 1's
 COMP_BATCHES = (1, 7, BATCH)
 DOMAIN_LEVEL = 1
+# the fold kernel is held to its plain version at these batch sizes of both
+# fixtures, and at the other flavours' batches
+FOLD_BATCHES = (1, 7, BATCH)
 
 
 class SmokeError(RuntimeError):
@@ -542,6 +556,64 @@ def check_composition_kernels(torch, dev) -> tuple:
     return check, domain
 
 
+def check_fold_kernel(torch, dev) -> dict:
+    """Phase 3, the fold kernel against its plain version on the card, bit
+    for bit: the answers, the self values and the last-layer check, on both
+    fixtures at FOLD_BATCHES proofs, np_small at NP_BATCH and the SHA-256
+    artifacts at SHA_BATCH, each with tools/fold_cases.CORRUPTIONS in four
+    slots and on random canonical inputs of its shapes (slot 0's quotient
+    denominators zero).  Returns {max_abs_err, ms, events_ms, plain_ms,
+    bound_ms, bound_by} at the main path's shape (small_proof, B=1024;
+    deep_*: recursive_proof_16_15's, np_*: phase 10's, sha_*: level 14's
+    device checks at B=SHA_BATCH)."""
+    from recursive_stwo_tpu_torch.ops import fold_cuda
+    from recursive_stwo_tpu_torch.tools import fold_cases as cases
+    from recursive_stwo_tpu_torch.tools.kernel_times import cuda_ms, profiled_ms
+
+    err = 0
+    parts = ("answers", "self values", "last-layer check")
+
+    def hold(label, case):
+        nonlocal err
+        got, want = cases.fold_values(case), cases.fold_values(case, plain=True)
+        torch.cuda.synchronize()
+        for g, w, part in zip(got, want, parts):
+            require(torch.equal(g, w), f"fold_phase's {part} differ from its plain version on {label}")
+            if g.numel():
+                err = max(err, int((g.long() - w.long()).abs().max()))
+        return got[2].cpu()
+
+    shapes = [(name, batch) for name in FIXTURES for batch in FOLD_BATCHES]
+    shapes += [("np_small", NP_BATCH), ("level14", SHA_BATCH), ("bitcoin", SHA_BATCH)]
+    for name, batch in shapes:
+        ok = hold(f"{name} at B={batch}", cases.fold_case(name, batch, dev, corrupt=True))
+        if batch > max(cases.CORRUPT_SLOTS):
+            rejected = [b for b in range(batch) if not ok[b]]
+            require(rejected == list(cases.CORRUPT_SLOTS), f"{name} at B={batch}: the fold rejects {rejected}")
+        hold(f"random inputs of {name}'s shapes at B={batch}", cases.random_fold_case(name, batch, SEED + batch, dev))
+    print(f"fold_phase: bit-exact vs plain (answers, self values, last-layer check) on {shapes}, each with "
+          f"{', '.join(cases.CORRUPTIONS)} corrupted in slots {cases.CORRUPT_SLOTS} (rejected, every other slot "
+          f"accepted), and on random inputs of each")
+
+    def timed(label, name, batch, reps=50):
+        case = cases.fold_case(name, batch, dev)
+        ms = profiled_ms(torch, lambda: cases.fold_values(case), reps, "fold_kernel")
+        events_ms = cuda_ms(torch, lambda: cases.fold_values(case), reps)
+        plain_ms = cuda_ms(torch, lambda: cases.fold_values(case, plain=True), 3)
+        bound, bound_by = fold_cuda.fold_bound_ms(case.spec, case.fs.raw_queries)
+        print(f"fold_phase {label} ({name}, B={batch}): kernel {ms:.4f} ms device, {events_ms:.4f} ms per call "
+              f"back to back (bound {bound:.6f} ms by {bound_by}, {bound / ms:.1%}), plain {plain_ms:.4f} ms")
+        return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+
+    out = timed("main path", FIXTURES[0], BATCH)
+    out.update(max_abs_err=err, library_ms=None)
+    for key, (label, name, batch) in (("deep_", ("phase 5", FIXTURES[1], BATCH)),
+                                      ("np_", ("phase 10", "np_small", NP_BATCH)),
+                                      ("sha_", ("device checks", "level14", SHA_BATCH))):
+        out.update({f"{key}{k}": v for k, v in timed(label, name, batch).items() if k != "bound_by"})
+    return out
+
+
 def _failing(checks: dict, slot: int) -> list:
     return sorted(k for k, v in checks.items() if not bool(v[slot]))
 
@@ -571,6 +643,7 @@ def hold_batch(torch, dev, label: str, run, pa, inputs) -> tuple:
             f"{label}: expected 2 scan launches and 1 K2 leaf step, got {launches}")
     require(launches["composition_check"] == 1 and launches["composition_domain"] == 0,
             f"{label}: expected 1 launch of the composition check kernel, got {launches}")
+    require(launches["fold_phase"] == 1, f"{label}: expected 1 launch of the fold kernel, got {launches}")
 
     wrong_inputs = ((inputs[0][0], (2, 0, 0, 0)),) + tuple(inputs[1:])
     for case, inp in (("batch inputs", inputs), ("wrong public input", wrong_inputs)):
@@ -655,8 +728,8 @@ def proofs_per_s(torch, dev, name: str) -> float:
 
 
 def phase_ms(torch, dev, name: str, runs: int = 5) -> dict:
-    """Phase 6: the walls of the hash phase and of the composition check
-    per verify_batch at B=1024 (warm, median of `runs`), each bounded by
+    """Phase 6: the walls of the fold phase, the hash phase and the
+    composition check per verify_batch at B=1024 (warm, median of `runs`), each bounded by
     synchronize() on both sides.  Separate runs from the proofs/s ones,
     whose pipeline these syncs would cut."""
     from recursive_stwo_tpu_torch.models import flagship
@@ -665,7 +738,8 @@ def phase_ms(torch, dev, name: str, runs: int = 5) -> dict:
 
     step, arrays = flagship.verifier_step(name, BATCH, device=dev)
     out = {}
-    for label, owner, attr in (("hash phase", verify, "hash_phase"), ("composition", composition, "composition_check")):
+    for label, owner, attr in (("fold phase", verify, "fold_phase"), ("hash phase", verify, "hash_phase"),
+                               ("composition", composition, "composition_check")):
         times = phase_walls(torch, step, arrays, runs + 1, owner, attr)[1:]
         med = statistics.median(times)
         print(f"{name} B={BATCH}: {label} {med * 1e3:.2f} ms median of {runs} "
@@ -891,14 +965,16 @@ def check_sha(torch, dev) -> dict:
     require(native.sha_available(), "the native SHA-256 library is not available")
     print("native SHA-256 library: available (the host path timed is the native one)")
 
-    def once(label, fn):
-        """fn(), which must launch the composition check kernel exactly once."""
+    def once(label, fn, folds=0):
+        """fn(), which must launch the composition check kernel exactly
+        once and the fold kernel `folds` times."""
         torch.cuda.synchronize()
         kernel_launches.reset()
         out = fn()
         torch.cuda.synchronize()
         got = kernel_launches.counts()
-        require(got["composition_check"] == 1, f"{label}: expected 1 composition_check launch, got {got}")
+        require(got["composition_check"] == 1 and got["fold_phase"] == folds,
+                f"{label}: expected 1 composition_check and {folds} fold_phase launches, got {got}")
         return out
 
     level14, bitcoin = flagship.sha_artifacts()
@@ -934,7 +1010,7 @@ def check_sha(torch, dev) -> dict:
     require(not r["ok"].any() and _failing(r, 0) == ["ok", "total_sum"], f"bitcoin, wrong public input: {r}")
     print("fast paths on CUDA: level 14 and bitcoin accepted; corrupted sampled value -> merkle_fri, "
           "corrupted FRI witness -> merkle_fri, wrong public input -> total_sum; the composition check kernel "
-          "launched once in each accepting call")
+          "launched once in each accepting call, the fold kernel in none")
 
     def corrupted_checks(kind, device):
         step, arrays, fs = flagship.sha_checks_step(kind, SHA_BATCH, device=device)
@@ -944,7 +1020,7 @@ def check_sha(torch, dev) -> dict:
 
     metrics = {}
     for kind in ("level14", "bitcoin"):
-        got = once(f"{kind} device checks", lambda: corrupted_checks(kind, dev))
+        got = once(f"{kind} device checks", lambda: corrupted_checks(kind, dev), folds=1)
         ref = corrupted_checks(kind, "cpu")
         require(list(got) == list(ref), f"{kind}: device check names differ from the CPU run")
         for k in ref:
@@ -1028,7 +1104,7 @@ def check_mesh(torch, smi: str, host_checks: dict, launches: dict) -> list:
         for rank, r in enumerate(results):
             got = r["launches"]
             require(all(got[k] > 0 for k in poseidon_cuda.LAUNCHES) and got["sha256_level"] == 0
-                    and got["composition_check"] > 0 and got["composition_domain"] == 0,
+                    and got["composition_check"] > 0 and got["composition_domain"] == 0 and got["fold_phase"] > 0,
                     f"dry run, {backend} rank {rank}: {got}")
         print(f"dry run on {n} {backend} rank(s) on cuda:0: every case passed in {wall:.1f} s "
               f"({', '.join(results[0]['verdicts'])}); fault per host "
@@ -1044,9 +1120,9 @@ def check_mesh(torch, smi: str, host_checks: dict, launches: dict) -> list:
             require(np.array_equal(named[k], v.numpy()), f"mesh rank {rank}: check {k} differs from phase 4's CPU run")
         got = r["launches"]
         require(got["permute_rows"] == launches["permute_rows"] and got["wordmajor_scan"] == 2
-                and got["permute_wordmajor"] == 1 and got["composition_check"] == 1,
+                and got["permute_wordmajor"] == 1 and got["composition_check"] == 1 and got["fold_phase"] == 1,
                 f"mesh rank {rank}: launches {got}, expected K1 {launches['permute_rows']}, 2 scans, 1 K2 step, "
-                f"1 composition check")
+                f"1 composition check, 1 fold")
     print(f"{FIXTURES[0]} B={BATCH} over {MESH_RANKS} gloo ranks on cuda:0 (verify_sharded): all "
           f"{len(host_checks)} checks equal phase 4's CPU run per slot; launches per rank "
           f"{[r['launches'] for r in ranks]} ({time.perf_counter() - t:.1f} s with phase (d); in the slowest rank "
@@ -1106,6 +1182,7 @@ def main() -> int:
     del programs, leaf_state, np_leaf_state
     kernels["sha256_level"] = check_sha_kernel(torch, dev)
     kernels["composition_check"], kernels["composition_domain"] = check_composition_kernels(torch, dev)
+    kernels["fold_phase"] = check_fold_kernel(torch, dev)
     torch.cuda.synchronize()
     phase_done("3 (kernels vs plain)")
 
@@ -1118,8 +1195,9 @@ def main() -> int:
     for name in FIXTURES:
         rate = proofs_per_s(torch, dev, name)
         walls = phase_ms(torch, dev, name)
-        print(f"{name}: {rate:.1f} proofs/s ({BATCH / rate * 1e3:.1f} ms a batch), hash phase "
-              f"{walls['hash phase']:.2f} ms, composition {walls['composition']:.2f} ms a batch, at B={BATCH} on {smi}")
+        print(f"{name}: {rate:.1f} proofs/s ({BATCH / rate * 1e3:.1f} ms a batch), fold phase "
+              f"{walls['fold phase']:.2f} ms, hash phase {walls['hash phase']:.2f} ms, composition "
+              f"{walls['composition']:.2f} ms a batch, at B={BATCH} on {smi}")
     phase_done("6 (timing)")
 
     check_demo_proof(torch, dev)
@@ -1169,12 +1247,16 @@ def main() -> int:
                              "lax.scans at :437 and :529; composition_check_np :280)",
         "composition_domain": "recursive_stwo_tpu/prover/device_prove.py:417 (_stage_composition_jit, "
                               "_ProverEval :202)",
+        "fold_phase": "recursive_stwo_tpu/verifier/verify.py:97 (fold_phase, with the lax.scans at "
+                      "recursive_stwo_tpu/verifier/points.py:119,155, quotients.py:105, fri.py:139 and "
+                      "core/m31.py:195)",
     }
     sources = {k: "recursive_stwo_tpu_torch/csrc/poseidon2.cu" for k in replaces}
     sources["sha256_level"] = "recursive_stwo_tpu_torch/csrc/sha256.cu"
     sources["composition_check"] = sources["composition_domain"] = "recursive_stwo_tpu_torch/csrc/composition.cu"
-    # the main path of each: phase 4's verify_batch for the Poseidon2 and
-    # check kernels, phase 15 (c)'s streamed last layer for the SHA-256
+    sources["fold_phase"] = "recursive_stwo_tpu_torch/csrc/fold.cu"
+    # the main path of each: phase 4's verify_batch for the Poseidon2, check
+    # and fold kernels, phase 15 (c)'s streamed last layer for the SHA-256
     # kernel, phase 7's level-1 proof for the domain kernel
     main_launches = {k: launches[FIXTURES[0]][k] for k in replaces}
     main_launches["sha256_level"] = streamed[LAST_LAYER]["sha256_level"]

@@ -1,6 +1,7 @@
 // M31 (p = 2^31 - 1) arithmetic on canonical residues in registers, and the
 // two linear layers of Poseidon2-16 (the external mds16 and the internal
-// diagonal layer), shared by poseidon2.cuh and composition.cu.
+// diagonal layer), shared by poseidon2.cuh, qm31.cuh, composition.cu and
+// fold.cu.
 //
 // The header holds no __constant__ data, so more than one translation unit
 // may include it.  A product is one widening IMAD; two folds with
@@ -31,6 +32,22 @@ __device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
   x = (x & P) + (x >> 31);
   uint32_t r = (uint32_t)((x & P) + (x >> 31));
   return r >= P ? r - P : r;
+}
+
+// a^(p-2) by the addition chain of core/m31.py::inv; inv(0) = 0.
+__device__ __forceinline__ uint32_t sqn(uint32_t a, int k) {
+  for (int i = 0; i < k; ++i) a = mul(a, a);
+  return a;
+}
+
+__device__ __forceinline__ uint32_t inv(uint32_t a) {
+  const uint32_t t0 = mul(sqn(a, 2), a);
+  const uint32_t t1 = mul(sqn(t0, 1), t0);
+  const uint32_t t2 = mul(sqn(t1, 3), t0);
+  const uint32_t t3 = mul(sqn(t2, 1), t0);
+  const uint32_t t4 = mul(sqn(t3, 8), t3);
+  const uint32_t t5 = mul(sqn(t4, 8), t3);
+  return mul(sqn(t5, 7), t2);
 }
 
 // a * 2^k mod p for canonical a, 1 <= k <= 16: a 31-bit rotation.

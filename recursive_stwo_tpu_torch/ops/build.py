@@ -115,5 +115,7 @@ def load() -> ctypes.CDLL:
             lib.composition_check.restype = ctypes.c_int
             lib.composition_domain.argtypes = [i32, vp, vp, vp, vp, vp, vp, i32, i64, i64p, vp]
             lib.composition_domain.restype = ctypes.c_int
+            lib.fold_phase.argtypes = [i64p, i64p, vp]
+            lib.fold_phase.restype = ctypes.c_int
             _lib = lib
         return _lib

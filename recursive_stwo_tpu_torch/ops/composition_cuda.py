@@ -247,7 +247,11 @@ class _Ops:
         self.muls += x and y
         return x and y
 
-    # QM31 (composition_air.cuh)
+    def inv(self, x):
+        self.muls += 37 * x  # a^(p-2): 30 squarings and 7 products
+        return x
+
+    # QM31 (qm31.cuh, composition_air.cuh)
     def q_add(self, x, y):
         return tuple(self.add(u, v) for u, v in zip(x, y))
 
@@ -263,6 +267,17 @@ class _Ops:
     def _cmul(self, x0, x1, y0, y1):
         return (self.sub(self.mul(x0, y0), self.mul(x1, y1)), self.add(self.mul(x0, y1), self.mul(x1, y0)))
 
+    # CM31 (qm31.cuh): a pair of limb flags
+    def c_mul(self, x, y):
+        return self._cmul(x[0], x[1], y[0], y[1])
+
+    def c_inv(self, x):
+        n = self.inv(self.add(self.mul(x[0], x[0]), self.mul(x[1], x[1])))
+        return (self.mul(x[0], n), self.mul(self.neg(x[1]), n))
+
+    def q_mul_cm31(self, x, s):
+        return self.c_mul(x[:2], s) + self.c_mul(x[2:], s)
+
     def q_mul(self, x, y):
         a, b, c, d = x
         e, f, g, h = y
@@ -275,8 +290,7 @@ class _Ops:
         pp, qq = self._cmul(a, b, a, b), self._cmul(c, d, c, d)
         n_re = self.sub(pp[0], self.sub(self.add(qq[0], qq[0]), qq[1]))
         n_im = self.sub(pp[1], self.add(self.add(qq[1], qq[1]), qq[0]))
-        ninv = self.add(self.mul(n_re, n_re), self.mul(n_im, n_im))
-        self.muls += 37 * ninv  # a^(p-2): 30 squarings and 7 products
+        ninv = self.inv(self.add(self.mul(n_re, n_re), self.mul(n_im, n_im)))
         i_re, i_im = self.mul(n_re, ninv), self.mul(self.neg(n_im), ninv)
         nc, nd = self.neg(c), self.neg(d)
         return (self.sub(self.mul(a, i_re), self.mul(b, i_im)), self.add(self.mul(a, i_im), self.mul(b, i_re)),

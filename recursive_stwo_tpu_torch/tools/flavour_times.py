@@ -17,7 +17,9 @@ Steps, each warm:
     (host SHA transcript and path expansion included), on CUDA and on the
     CPU.
 For each: every one of K synchronize()-bounded walls and their median; for
-the CUDA steps, one further run under torch.profiler: the kernels launched,
+the CUDA steps, the hand-written kernels' launches over one run
+(ops/launches: fold_phase, the fold kernel, where the checkout has it), and
+one further run under torch.profiler: the kernels launched,
 the copies and fills, the device busy time (the kernels' summed durations,
 one stream) and its share of the untraced median wall, and the wall per
 kernel launch.  Prints one JSON line per step, then the card's nvidia-smi
@@ -117,6 +119,7 @@ def main() -> int:
         return 1
     from recursive_stwo_tpu_torch.core.qm31 import QM31
     from recursive_stwo_tpu_torch.models import flagship
+    from recursive_stwo_tpu_torch.ops import launches as kernel_launches
     from recursive_stwo_tpu_torch.verifier import verify_sha256 as vs
     from recursive_stwo_tpu_torch.verifier.verify_sha256_host import composition_on
 
@@ -147,6 +150,11 @@ def main() -> int:
         line = dict(label=args.label or args.root, step=name, batch=batch, device=device, wall_ms_median=med,
                     wall_ms=walls, proofs_per_s=batch / med * 1e3)
         if device == "cuda":
+            torch.cuda.synchronize()
+            kernel_launches.reset()
+            fn()
+            torch.cuda.synchronize()
+            line["launches"] = kernel_launches.counts()
             prof = device_profile(torch, fn)
             line.update(prof, busy_share=prof["busy_ms"] / med, wall_us_per_kernel=med * 1e3 / prof["kernels"])
         print(json.dumps(line), flush=True)

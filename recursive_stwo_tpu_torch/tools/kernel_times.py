@@ -1,4 +1,4 @@
-"""Device times of the Poseidon2-16 kernels on CUDA, beside their bounds.
+"""Device times of the port's hand-written kernels on CUDA, beside their bounds.
 
     python recursive_stwo_tpu_torch/tools/kernel_times.py [--root DIR] [--label NAME]
 
@@ -20,7 +20,10 @@ times, at the shapes the port calls them with:
      (level 14, bitcoin); the domain kernel (composition_domain) on each
      table of chain levels 1 and 2 (the tables `prove` hands its composition
      stage), beside the plain version's time on the card.
-`--kernels poseidon` or `--kernels composition` times only those.
+  The fold kernel (fold_phase), where the checkout has it: each verifier's
+     batch, small_proof and recursive_proof_16_15 at B=1024, np_small at
+     B=512, level 14 and bitcoin at B=128, beside the plain version's time.
+`--kernels poseidon`, `--kernels composition` or `--kernels fold` times only those.
 Before timing, every kernel output is held to the plain version bit for bit.
 Two times per shape: CUDA events around `reps` back-to-back calls (what a
 caller's loop pays, the wrapper's host cost included once it exceeds the
@@ -49,6 +52,10 @@ SCAN_BATCH, SWEEP_BATCH, SWEEP_LOG_N = 1024, 1 << 14, range(12, 19)
 CHECK_SHAPES = (("small_proof", 1024), ("recursive_proof_16_15", 1024), ("np_small", 1024), ("np_small", 512),
                 ("level14", 1), ("bitcoin", 1))
 DOMAIN_LEVELS = (1, 2)
+# the fold kernel at each verifier's batch: verify_batch's, verify_batch_np's
+# and the SHA-256 device checks'
+FOLD_SHAPES = (("small_proof", 1024), ("recursive_proof_16_15", 1024), ("np_small", 512), ("level14", 128),
+               ("bitcoin", 128))
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -203,7 +210,7 @@ def composition_lines(torch, dev) -> list:
             work = acc.clone()
             lines.append(dict(kernel="composition_domain", shape=f"level {level} AIR {air} ({call.pre.shape[0]} + "
                               f"{call.tr.shape[0]} + {call.inter.shape[0]} rows x {n})", points=n,
-                              int_ops=n * composition_cuda.air_ops(air, composition_cuda.Q_MUL_M31, 0),
+                              int_ops=n * composition_cuda.domain_ops(air, call.first),
                               events_ms=cuda_ms(torch, lambda: cases.run_domain(call, work, lookup, rc), 10),
                               device_ms=profiled_ms(torch, lambda: cases.run_domain(call, work, lookup, rc), 10,
                                                     "composition_domain"),
@@ -216,11 +223,36 @@ def composition_lines(torch, dev) -> list:
     return lines
 
 
+def fold_lines(torch, dev) -> list:
+    """One dict a shape of FOLD_SHAPES, the kernel held bit for bit to its
+    plain version first (with tools/fold_cases.CORRUPTIONS): events and
+    device ms, the plain version's ms, the bound."""
+    from recursive_stwo_tpu_torch.ops import fold_cuda
+    from recursive_stwo_tpu_torch.tools import fold_cases as cases
+
+    lines = []
+    for name, batch in FOLD_SHAPES:
+        bad = cases.fold_case(name, batch, dev, corrupt=True)
+        if not all(torch.equal(a, b) for a, b in zip(cases.fold_values(bad), cases.fold_values(bad, plain=True))):
+            raise RuntimeError(f"fold_phase differs from the plain version on {name} at B={batch}")
+        case = cases.fold_case(name, batch, dev)
+        bound, by = fold_cuda.fold_bound_ms(case.spec, case.fs.raw_queries)
+        ops = fold_cuda.fold_ops(case.spec)
+        lines.append(dict(kernel="fold_phase", shape=f"{name} B={batch}", batch=batch,
+                          int_ops_per_proof=ops.per_proof, int_ops_per_slot=ops.per_slot,
+                          bytes=fold_cuda.fold_bytes(case.spec, *case.fs.raw_queries.shape),
+                          events_ms=cuda_ms(torch, lambda: cases.fold_values(case), 50),
+                          device_ms=profiled_ms(torch, lambda: cases.fold_values(case), 50, "fold_kernel"),
+                          plain_ms=cuda_ms(torch, lambda: cases.fold_values(case, plain=True), 3),
+                          bound_ms=bound, bound_by=by))
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
     ap.add_argument("--label", default=None, help="name printed with every line (default: the root)")
-    ap.add_argument("--kernels", choices=("all", "poseidon", "composition"), default="all")
+    ap.add_argument("--kernels", choices=("all", "poseidon", "composition", "fold"), default="all")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -241,12 +273,17 @@ def main() -> int:
     print(f"[{label}] library {os.path.basename(build.library_path())} from {lib._name}")
 
     dev = torch.device("cuda")
-    if args.kernels != "poseidon" and os.path.exists(os.path.join(os.path.dirname(build.__file__),
-                                                                   "composition_cuda.py")):
-        for line in composition_lines(torch, dev):
-            line.update(label=label, share_of_bound=line["bound_ms"] / line["device_ms"])
-            print(json.dumps(line), flush=True)
-    runs = [] if args.kernels == "composition" else poseidon_runs(torch, poseidon2, poseidon_cuda, dev)
+
+    def has(wrapper):
+        return os.path.exists(os.path.join(os.path.dirname(build.__file__), wrapper))
+
+    for kind, wrapper, lines in (("composition", "composition_cuda.py", composition_lines),
+                                 ("fold", "fold_cuda.py", fold_lines)):
+        if args.kernels in ("all", kind) and has(wrapper):
+            for line in lines(torch, dev):
+                line.update(label=label, share_of_bound=line["bound_ms"] / line["device_ms"])
+                print(json.dumps(line), flush=True)
+    runs = poseidon_runs(torch, poseidon2, poseidon_cuda, dev) if args.kernels in ("all", "poseidon") else []
     for kernel, sched, shape, n_states, reps, fn in runs:
         ms = cuda_ms(torch, fn, reps)
         dev_ms = profiled_ms(torch, fn, reps, kernel)

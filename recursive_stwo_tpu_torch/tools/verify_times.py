@@ -5,7 +5,8 @@
 Imports recursive_stwo_tpu_torch from DIR (default: the checkout holding this
 script), so that a parent and a change can be timed in turns in one call on
 one card.  For each fixture at B=1024, on a device-resident batch, warm:
-  - the hand-written kernels' launches over one verify_batch (ops/launches);
+  - the hand-written kernels' launches over one verify_batch (ops/launches;
+    fold_phase, the fold kernel, where the checkout has it);
   - proofs/s: B over the median of K synchronize()-bounded verify_batch runs;
   - the walls of the transcript, the composition check, the fold phase and
     the hash phase: the median over K further runs of each, bounded by
@@ -13,8 +14,9 @@ one card.  For each fixture at B=1024, on a device-resident batch, warm:
     host's run-ahead);
   - one verify_batch under torch.profiler: the device time of the hash
     kernels (every kernel whose name holds "wordmajor": K2's steps, or the
-    scans and K2's leaf step), and every CUDA kernel, copy and fill the call
-    issued with the kernels' summed device time (tools/flavour_times).
+    scans and K2's leaf step) and of the fold kernel, and every CUDA kernel,
+    copy and fill the call issued with the kernels' summed device time
+    (tools/flavour_times).
 Prints one JSON line per fixture, then the card's nvidia-smi line.
 """
 
@@ -105,8 +107,10 @@ def main() -> int:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             step(arrays)
             torch.cuda.synchronize()
-        hash_kernel_ms = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
-                             for e in prof.key_averages() if "wordmajor" in e.key) / 1e3
+
+        def device_ms(part):
+            return sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+                       for e in prof.key_averages() if part in e.key) / 1e3
 
         print(json.dumps(dict(
             label=args.label or args.root, fixture=name, batch=BATCH, launches=launches,
@@ -114,7 +118,7 @@ def main() -> int:
             verify_ms=[w * 1e3 for w in walls],
             **{f"{phase}_ms_median": statistics.median(w) * 1e3 for phase, w in phases.items()},
             **{f"{phase}_ms": [x * 1e3 for x in w] for phase, w in phases.items()},
-            hash_kernel_device_ms=hash_kernel_ms,
+            hash_kernel_device_ms=device_ms("wordmajor"), fold_kernel_device_ms=device_ms("fold_kernel"),
             cuda_kernels=issued["kernels"], copies_and_fills=issued["copies_and_fills"],
             kernels_busy_ms=issued["busy_ms"], busy_share=issued["busy_ms"] / statistics.median(walls) / 1e3,
         )), flush=True)

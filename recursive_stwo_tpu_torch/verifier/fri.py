@@ -3,8 +3,10 @@ hash jobs.
 
 Twin of recursive_stwo_tpu/verifier/fri.py: first-layer circle folds,
 inner-layer line folds (the reference's `lax.scan` over layers is a Python
-loop here), the last-layer polynomial check, and one pair-walk job per FRI
-layer for the hash phase.
+loop here) and the last-layer polynomial check (`verify_fri`, the plain
+version of that part of the fold kernel, csrc/fold.cu), and one pair-walk
+job per FRI layer for the hash phase (`walk_jobs`, which reads the plain
+version's or the kernel's answers and self values).
 """
 
 from __future__ import annotations
@@ -49,7 +51,9 @@ def verify_fri(
     answers: List[QM31],
     half_pts: Dict[int, tuple],
 ):
-    """Returns (checks dict name -> (B,) bool, pair-walk jobs for the hash phase)."""
+    """The fold arithmetic from each group's answers: returns the
+    (n_inner, B, Q, 4) self values (each inner layer's committed leaf
+    value) and the (B,) last-layer check."""
     M = spec.max_first_layer_log
     raw = fs.raw_queries
     Q = raw.shape[1]
@@ -107,21 +111,28 @@ def verify_fri(
     eq = torch.ones_like(folded.a, dtype=torch.bool)
     for fx, ex in zip(folded, expect):
         eq = eq & (fx == ex)
-    checks = {"fri_last_layer": eq.all(dim=1)}
+    stacked = torch.stack([_q_arr(v) for v in self_vals]) if self_vals else raw.new_empty((0,) + raw.shape + (4,))
+    return stacked, eq.all(dim=1)
 
-    # ---- assemble pair-walk hash jobs ----
+
+def walk_jobs(spec: VerifierSpec, raw: torch.Tensor, pa, answers: torch.Tensor, self_vals: torch.Tensor) -> list:
+    """One pair-walk hash job per FRI layer: the first layer's (every
+    group's (B, Q, 4) answers beside its siblings) and each inner layer's
+    (its self values); `answers` is (G, B, Q, 4), `self_vals`
+    (n_inner, B, Q, 4)."""
+    M = spec.max_first_layer_log
     walk_jobs = [
         dict(
             kind="first",
             depth=M,
             queries=transcript.queries_at_log_size(spec, raw, M),
             sibling_hashes=pa.first_layer_paths.sibling_hashes,
-            self_columns={L: _q_arr(answers[g]) for g, L in enumerate(spec.all_log_sizes)},
+            self_columns={L: answers[g] for g, L in enumerate(spec.all_log_sizes)},
             sibling_columns=dict(pa.first_layer_paths.sibling_columns),
             root=pa.first_layer_commitment,
         )
     ]
-    for i in range(n_inner):
+    for i in range(spec.n_inner_layers):
         L = M - 1 - i
         walk_jobs.append(
             dict(
@@ -129,9 +140,9 @@ def verify_fri(
                 depth=L,
                 queries=transcript.queries_at_log_size(spec, raw, L),
                 sibling_hashes=pa.inner_layer_paths[i].sibling_hashes,
-                self_columns={L: _q_arr(self_vals[i])},
+                self_columns={L: self_vals[i]},
                 sibling_columns={L: pa.inner_layer_paths[i].sibling_columns[L]},
                 root=pa.inner_commitments[:, i],
             )
         )
-    return checks, walk_jobs
+    return walk_jobs

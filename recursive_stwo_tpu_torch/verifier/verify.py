@@ -113,7 +113,24 @@ def fold_phase(spec, pa, fs, oods):
     """Quotient ('FRI answers') evaluation + the FRI fold arithmetic.
 
     Returns (checks, pair_jobs): the fold-consistency checks and the
-    assembled per-layer pair-walk jobs the hash phase consumes."""
+    assembled per-layer pair-walk jobs the hash phase consumes.  A CPU
+    batch takes the plain version (`fold_values_plain`), a CUDA one the fold
+    kernel (ops/fold_cuda.py: one launch for the whole batch)."""
+    if fs.raw_queries.device.type == "cpu":
+        answers, self_vals, last_ok = fold_values_plain(spec, pa, fs, oods)
+    else:
+        from ..ops import fold_cuda
+
+        answers, self_vals, last_ok = fold_cuda.fold(
+            spec, pa, fs.raw_queries.contiguous(), oods, fs.after_sampled_values_random_coeff, fs.fri_alphas
+        )
+    return {"fri_last_layer": last_ok}, fri_mod.walk_jobs(spec, fs.raw_queries, pa, answers, self_vals)
+
+
+def fold_values_plain(spec, pa, fs, oods):
+    """The plain version of the fold kernel: (G, B, Q, 4) answers,
+    (n_inner, B, Q, 4) self values and the (B,) last-layer check, in eager
+    torch (the half-index chain, each group's quotients, verify_fri)."""
     half_pts = points.half_index_points(spec, fs.raw_queries, spec.final_fold_log)
     answers = []
     for g, L in enumerate(spec.all_log_sizes):
@@ -129,7 +146,8 @@ def fold_phase(spec, pa, fs, oods):
                 pa.samples_flat, rows, dx, dyq,
             )
         )
-    return fri_mod.verify_fri(spec, fs, pa, answers, half_pts)
+    self_vals, last_ok = fri_mod.verify_fri(spec, fs, pa, answers, half_pts)
+    return torch.stack([torch.stack(list(a), dim=-1) for a in answers]), self_vals, last_ok
 
 
 def hash_phase(spec, pa, fs, pair_jobs):

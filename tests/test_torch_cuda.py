@@ -431,3 +431,47 @@ def test_composition_kernels_launch_once_per_call(cuda):
         torch.cuda.synchronize()
         got = launches.counts()
         assert (got["composition_check"], got["composition_domain"]) == (checks, tables), (label, got)
+
+
+@pytest.mark.parametrize("batch", [1, 7, 1024])
+@pytest.mark.parametrize("name", ["small_proof", "recursive_proof_16_15", "np_small", "level14", "bitcoin"])
+def test_fold_phase_bit_exact(cuda, name, batch):
+    """The fold kernel against its plain version on the card, in one
+    launch: answers, self values and the last-layer check, on the fixture
+    with its four corrupted slots (a sampled value, a first-layer sibling,
+    an inner-layer sibling, an OODS point whose quotient denominators are
+    zero) and on random canonical inputs of its shapes."""
+    from recursive_stwo_tpu_torch.ops import fold_cuda
+    from recursive_stwo_tpu_torch.tools import fold_cases as cases
+
+    case = cases.fold_case(name, batch, cuda, corrupt=True)
+    for c in (case, cases.random_fold_case(name, batch, batch, cuda)):
+        before = fold_cuda.LAUNCHES["fold_phase"]
+        got = cases.fold_values(c)
+        torch.cuda.synchronize()
+        assert fold_cuda.LAUNCHES["fold_phase"] == before + 1
+        want = cases.fold_values(c, plain=True)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    if batch > max(cases.CORRUPT_SLOTS):
+        ok = cases.fold_values(case)[2].tolist()
+        assert [b for b in range(batch) if not ok[b]] == list(cases.CORRUPT_SLOTS)
+
+
+def test_fold_phase_launches_once_per_verifier_call(cuda):
+    """On CUDA every verifier's fold phase is one launch of the fold kernel:
+    verify_batch, verify_batch_np and both SHA-256 device checks."""
+    from recursive_stwo_tpu_torch.ops import launches
+
+    step, arrays = flagship.verifier_step("small_proof", 8, device=cuda)
+    step_np, arrays_np = flagship.verifier_step_np("np_small", 8, device=cuda)
+    calls = {
+        "verify_batch": lambda: step(arrays),
+        "verify_batch_np": lambda: step_np(arrays_np),
+        "device_checks_p31": lambda: _corrupted_sha_checks("level14", cuda),
+        "device_checks_np": lambda: _corrupted_sha_checks("bitcoin", cuda),
+    }
+    for label, fn in calls.items():
+        launches.reset()
+        fn()
+        torch.cuda.synchronize()
+        assert launches.counts()["fold_phase"] == 1, (label, launches.counts())
