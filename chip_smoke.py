@@ -5,9 +5,9 @@
 
 Phases; any failure ends the run with a non-zero exit and no result line:
   1. card: the GPU's name and power limit, as nvidia-smi prints them;
-  2. build: nvcc builds the Poseidon2-16, SHA-256, composition and fold
-     kernels from csrc/ (one nvcc a source, all at once, then a link;
-     seconds);
+  2. build: nvcc builds the Poseidon2-16, SHA-256, composition, fold and
+     transcript kernels from csrc/ (one nvcc a source, all at once, then a
+     link; seconds);
   3. kernels vs plain: K1 and K2 against their plain PyTorch versions on
      the card and on the host CPU, bit for bit, at 2**20 states and at the
      main path's shapes, plus the Poseidon2-16 known-answer test; each of
@@ -41,19 +41,27 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      inner-layer sibling, an OODS point whose quotient denominators are
      zero) and on random canonical inputs of its shapes; its times (both
      fixtures at B=1024, np_small at B=512, level 14 at B=128) beside its
-     bound;
+     bound; the transcript kernel (csrc/transcript.cu) against its plain
+     version on the card, bit for bit (every FSOutput field, the OODS point,
+     the input sum, the PoW and total-sum checks): both fixtures at B = 1, 7 and 1024 with a
+     flipped nonce limb and a flipped commitment word in two slots and with
+     a wrong public input, np_small at B=512 with and without public inputs,
+     and random canonical inputs of each spec (an input term zero in slot
+     0); its times (both fixtures at B=1024, np_small at B=512, small_proof
+     at B=1 and 512) beside its bound and its chain floor
+     (T + 1 permutations at K1's quad time at (1024, 16));
   4. main path, small_proof at B=1024: the port's verify_batch on CUDA over
      a batch with a flipped sibling hash and a flipped nonce, and again with
      a wrong public input; every named check of every slot must equal the
      port's own CPU path (plain PyTorch, which tests/test_torch_verify.py
-     holds equal to the JAX package's verifier); K1 must have launched, the
-     scan exactly twice (the absorb and the walk pass), K2 exactly once
-     (the leaf step), the composition check kernel exactly once and the
-     fold kernel exactly once;
+     holds equal to the JAX package's verifier); the transcript kernel must
+     have launched exactly once and K1 never, the scan exactly twice (the
+     absorb and the walk pass), K2 exactly once (the leaf step), the
+     composition check kernel exactly once and the fold kernel exactly once;
   5. the same for the deep fixture recursive_proof_16_15;
   6. timing: warm proofs/s of verify_batch at B=1024 for both fixtures, and
-     the walls of the fold phase, the hash phase and the composition check
-     per batch (each bounded by synchronize()) beside it;
+     the walls of the transcript, the fold phase, the hash phase and the
+     composition check per batch (each bounded by synchronize()) beside it;
   7. prover, recursion-chain level 1: the demo circuit's proof on CUDA must
      equal the port's CPU proof byte for byte (a quick first check); then
      the level-1 circuit (recursive_proof_16_15 verified five times) is
@@ -74,8 +82,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      batch for np_flavor_proofs_per_sec): verify_batch_np on CUDA over a
      batch with a flipped sibling hash and a flipped nonce, and again with a
      wrong public input, every named check of every slot equal to the CPU
-     run; K1 must launch, the scan exactly twice, K2 once, the check
-     kernel once and the fold kernel once; then warm proofs/s (median of 5, synchronize()-bounded);
+     run; the transcript kernel must launch once and K1 never, the scan
+     exactly twice, K2 once, the check kernel once and the fold kernel once;
+     then warm proofs/s (median of 5, synchronize()-bounded);
  11. the SHA-256 flavours, chain level 14 and the bitcoin-facing last-layer
      proof, with the native SHA-256 library required: both host verifiers
      and both fast paths (composition on CUDA) accept, and the fast paths
@@ -105,8 +114,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      chip reduction and the fault attribution on CUDA verifiers); (c) phase 4's batch split over
      MESH_RANKS gloo ranks on the card with verify_sharded: every named
      check of every slot must equal phase 4's CPU run, and each rank's
-     verify_batch must launch K1 as often as the whole batch did, the scan
-     twice, K2 once, the check kernel once and the fold kernel once; (d) warm proofs/s of the
+     verify_batch must launch the transcript kernel once and K1 never, the
+     scan twice, K2 once, the check kernel once and the fold kernel once;
+     the dry runs' ranks the transcript kernel and never K1; (d) warm proofs/s of the
      clean B=1024 batch split over 1, 2 and MESH_RANKS ranks sharing the
      card (verify_local: the
      batch over the slowest rank's synchronize()-bounded wall, median of
@@ -140,8 +150,9 @@ levels 2 and 3 and phase 12's last layer; streamed_launches: phase 15's
 phase 10's launches and shapes, and the kernel's times there;
 mesh_launches: each rank's launches in phase 14 (c); launches is each
 kernel's count in its main path: phase 4's verify_batch, phase 7's level 1
-for the domain kernel, phase 15 (c) for the SHA-256 kernel), and {"ok":
-true, "device": {...}}.
+for K1 and the domain kernel, phase 15 (c) for the SHA-256 kernel; K1's
+times are at 2**20 rows, a block of a prover level, with step_* at (1024,
+16)), and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -209,6 +220,9 @@ DOMAIN_LEVEL = 1
 # the fold kernel is held to its plain version at these batch sizes of both
 # fixtures, and at the other flavours' batches
 FOLD_BATCHES = (1, 7, BATCH)
+# the transcript kernel is held to its plain version at these batch sizes of
+# both fixtures (the chain's batch 1, a warp's tail, the main path's batch)
+TRANSCRIPT_BATCHES = (1, 7, BATCH)
 
 
 class SmokeError(RuntimeError):
@@ -296,6 +310,15 @@ def check_kernels(torch, dev, leaf_state, np_leaf_state) -> dict:
                             bound_ms=bound, bound_by=bound_by, library_ms=None,
                             np_shape=list(np_main.shape), np_ms=np_ms, np_plain_ms=np_plain,
                             np_bound_ms=np_bound)
+        if name == "permute_rows":
+            # K1's main path is the prover's Merkle commits (the verifier's
+            # transcript has its own kernel): its line's times are at 2**20
+            # rows, a block of a prover level; (BATCH, 16) is kept as one
+            # permutation's latency (the transcript's chain floor)
+            result[name].update(shape=list(big.shape), ms=big_ms, plain_ms=big_plain, bound_ms=big_bound,
+                                bound_by=big_by, step_shape=list(main.shape), step_ms=ms,
+                                step_events_ms=result[name].pop("events_ms"), step_plain_ms=plain_ms,
+                                step_bound_ms=bound)
 
     # every K1 schedule bit for bit at tail sizes and at PROVER_LEAF_ROWS
     # rows, made on the card from a seed, and the KAT in row 0
@@ -614,6 +637,90 @@ def check_fold_kernel(torch, dev) -> dict:
     return out
 
 
+def check_transcript_kernel(torch, dev, step_ms: float) -> dict:
+    """Phase 3, the transcript kernel against its plain version on the card,
+    bit for bit (every FSOutput field, the OODS point, the input sum, the
+    PoW and total-sum checks): both fixtures at
+    TRANSCRIPT_BATCHES proofs with a flipped nonce limb and a flipped
+    commitment word in two slots and again with a wrong public input,
+    np_small at NP_BATCH with its public inputs and with none, and random
+    canonical inputs of each spec (an input term planted at zero in slot 0).
+    `step_ms` is K1's quad device time at (BATCH, 16), one permutation's
+    latency: the chain floor is a proof's T + 1 permutations of it.
+    Returns {max_abs_err, ms, events_ms, plain_ms, bound_ms, bound_by,
+    floor_ms} at the main path's shape (small_proof, B=1024;
+    deep_*: recursive_proof_16_15's, np_*: phase 10's, b1_* and b512_*:
+    small_proof at B=1 and 512)."""
+    from recursive_stwo_tpu_torch.ops import transcript_cuda
+    from recursive_stwo_tpu_torch.tools import transcript_cases as cases
+    from recursive_stwo_tpu_torch.tools.kernel_times import cuda_ms, profiled_ms
+
+    err = 0
+
+    def hold(label, case):
+        nonlocal err
+        want = cases.replay_fields(case, plain=True)
+        got = cases.replay_fields(case)
+        torch.cuda.synchronize()
+        require(list(got) == list(want), "transcript: outputs differ from the plain version's")
+        for k, w in want.items():
+            require(torch.equal(got[k], w), f"transcript differs from its plain version on {label}: {k}")
+            if w.numel():
+                err = max(err, int((got[k].long() - w.long()).abs().max()))
+        return want
+
+    nonce_slot, commit_slot = cases.CORRUPT_SLOTS
+    labels = []
+    for name in FIXTURES:
+        for batch in TRANSCRIPT_BATCHES:
+            want = hold(f"{name} at B={batch}, corrupted", cases.transcript_case(name, batch, dev, corrupt=True))
+            if batch > commit_slot:
+                pow_bad = [b for b in range(batch) if not want["pow"][b]]
+                sum_bad = [b for b in range(batch) if not want["total_sum"][b]]
+                require(pow_bad == [nonce_slot, commit_slot] and sum_bad == [commit_slot],
+                        f"{name} at B={batch}: pow fails {pow_bad}, total_sum {sum_bad}")
+            want = hold(f"{name} at B={batch}, a wrong public input",
+                        cases.transcript_case(name, batch, dev, inputs=((1, (2, 0, 0, 0)),)))
+            require(not want["total_sum"].any().item(), f"{name} at B={batch}: a wrong public input passes")
+            hold(f"random inputs of {name}'s spec at B={batch}", cases.random_transcript_case(name, batch, SEED + batch,
+                                                                                             dev))
+            labels.append(f"{name} B={batch}")
+    hold(f"np_small at B={NP_BATCH}", cases.transcript_case("np_small", NP_BATCH, dev))
+    hold(f"np_small at B={NP_BATCH}, no public inputs", cases.transcript_case("np_small", NP_BATCH, dev, inputs=()))
+    hold(f"random inputs of np_small's spec at B={NP_BATCH}", cases.random_transcript_case("np_small", NP_BATCH, SEED,
+                                                                                           dev))
+    print(f"transcript: bit-exact vs plain (every FSOutput field, the OODS point, the input sum, pow and total_sum) on {labels} with {', '.join(cases.CORRUPTIONS)} flipped in slots "
+          f"{cases.CORRUPT_SLOTS} and with a wrong public input, on np_small at B={NP_BATCH} with and without public "
+          f"inputs, and on random inputs of each spec (an input term zero in slot 0)")
+
+    def timed(label, name, batch, reps=50):
+        case = cases.transcript_case(name, batch, dev)
+
+        def run():
+            return transcript_cuda.transcript(case.spec, case.pa, case.inputs)
+
+        ms = profiled_ms(torch, run, reps, "transcript_kernel")
+        events_ms = cuda_ms(torch, run, reps)
+        plain_ms = cuda_ms(torch, lambda: cases.replay_fields(case, plain=True), 3)
+        bound, bound_by = transcript_cuda.transcript_bound_ms(case.spec, batch, len(case.inputs))
+        floor = transcript_cuda.chain_floor_ms(case.spec, step_ms)
+        perms = transcript_cuda.permutations(case.spec)
+        print(f"transcript {label} ({name}, B={batch}, {perms} permutations a proof): kernel {ms:.4f} ms device, "
+              f"{events_ms:.4f} ms per call back to back (bound {bound:.6f} ms by {bound_by}, {bound / ms:.1%}; chain "
+              f"floor {floor:.4f} ms = {len(transcript_cuda.row_table(case.spec).rows) + 1} x {step_ms:.5f}), plain "
+              f"{plain_ms:.4f} ms")
+        return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, floor_ms=floor)
+
+    out = timed("main path", FIXTURES[0], BATCH)
+    out.update(max_abs_err=err, library_ms=None)
+    for key, (label, name, batch) in (("deep_", ("phase 5", FIXTURES[1], BATCH)),
+                                      ("np_", ("phase 10", "np_small", NP_BATCH)),
+                                      ("b1_", ("the chain's batch", FIXTURES[0], 1)),
+                                      ("b512_", ("half batch", FIXTURES[0], NP_BATCH))):
+        out.update({f"{key}{k}": v for k, v in timed(label, name, batch).items() if k != "bound_by"})
+    return out
+
+
 def _failing(checks: dict, slot: int) -> list:
     return sorted(k for k, v in checks.items() if not bool(v[slot]))
 
@@ -638,7 +745,8 @@ def hold_batch(torch, dev, label: str, run, pa, inputs) -> tuple:
     checks = run(pa_d, inputs)
     torch.cuda.synchronize()
     launches = kernel_launches.counts()
-    require(launches["permute_rows"] > 0, f"{label}: K1 never launched: {launches}")
+    require(launches["transcript"] == 1 and launches["permute_rows"] == 0,
+            f"{label}: expected 1 launch of the transcript kernel and none of K1, got {launches}")
     require(launches["wordmajor_scan"] == 2 and launches["permute_wordmajor"] == 1,
             f"{label}: expected 2 scan launches and 1 K2 leaf step, got {launches}")
     require(launches["composition_check"] == 1 and launches["composition_domain"] == 0,
@@ -728,17 +836,18 @@ def proofs_per_s(torch, dev, name: str) -> float:
 
 
 def phase_ms(torch, dev, name: str, runs: int = 5) -> dict:
-    """Phase 6: the walls of the fold phase, the hash phase and the
-    composition check per verify_batch at B=1024 (warm, median of `runs`), each bounded by
-    synchronize() on both sides.  Separate runs from the proofs/s ones,
-    whose pipeline these syncs would cut."""
+    """Phase 6: the walls of the transcript, the fold phase, the hash phase
+    and the composition check per verify_batch at B=1024 (warm, median of
+    `runs`), each bounded by synchronize() on both sides.  Separate runs
+    from the proofs/s ones, whose pipeline these syncs would cut."""
     from recursive_stwo_tpu_torch.models import flagship
     from recursive_stwo_tpu_torch.tools.verify_times import phase_walls
-    from recursive_stwo_tpu_torch.verifier import composition, verify
+    from recursive_stwo_tpu_torch.verifier import composition, transcript, verify
 
     step, arrays = flagship.verifier_step(name, BATCH, device=dev)
     out = {}
-    for label, owner, attr in (("fold phase", verify, "fold_phase"), ("hash phase", verify, "hash_phase"),
+    for label, owner, attr in (("transcript", transcript, "replay"), ("fold phase", verify, "fold_phase"),
+                               ("hash phase", verify, "hash_phase"),
                                ("composition", composition, "composition_check")):
         times = phase_walls(torch, step, arrays, runs + 1, owner, attr)[1:]
         med = statistics.median(times)
@@ -1079,10 +1188,9 @@ def mesh_rank(device) -> dict:
     return dict(named={k: v.numpy() for k, v in named.items()}, launches=launches, timing=timing, seconds=seconds)
 
 
-def check_mesh(torch, smi: str, host_checks: dict, launches: dict) -> list:
-    """Phase 14.  `host_checks` and `launches` are phase 4's CPU checks and
-    its CUDA run's launches.  Returns each rank's launches in (c)."""
-    from recursive_stwo_tpu_torch.ops import poseidon_cuda
+def check_mesh(torch, smi: str, host_checks: dict) -> list:
+    """Phase 14.  `host_checks` are phase 4's CPU checks.  Returns each
+    rank's launches in (c)."""
     from recursive_stwo_tpu_torch.parallel import launch
     from recursive_stwo_tpu_torch.parallel.dryrun import dryrun_multichip
     from recursive_stwo_tpu_torch.tools.mesh_times import summary
@@ -1103,8 +1211,9 @@ def check_mesh(torch, smi: str, host_checks: dict, launches: dict) -> list:
         results, wall = future.result()
         for rank, r in enumerate(results):
             got = r["launches"]
-            require(all(got[k] > 0 for k in poseidon_cuda.LAUNCHES) and got["sha256_level"] == 0
-                    and got["composition_check"] > 0 and got["composition_domain"] == 0 and got["fold_phase"] > 0,
+            require(got["transcript"] > 0 and got["permute_rows"] == 0 and got["wordmajor_scan"] > 0
+                    and got["permute_wordmajor"] > 0 and got["sha256_level"] == 0 and got["composition_check"] > 0
+                    and got["composition_domain"] == 0 and got["fold_phase"] > 0,
                     f"dry run, {backend} rank {rank}: {got}")
         print(f"dry run on {n} {backend} rank(s) on cuda:0: every case passed in {wall:.1f} s "
               f"({', '.join(results[0]['verdicts'])}); fault per host "
@@ -1119,9 +1228,9 @@ def check_mesh(torch, smi: str, host_checks: dict, launches: dict) -> list:
         for k, v in host_checks.items():
             require(np.array_equal(named[k], v.numpy()), f"mesh rank {rank}: check {k} differs from phase 4's CPU run")
         got = r["launches"]
-        require(got["permute_rows"] == launches["permute_rows"] and got["wordmajor_scan"] == 2
+        require(got["transcript"] == 1 and got["permute_rows"] == 0 and got["wordmajor_scan"] == 2
                 and got["permute_wordmajor"] == 1 and got["composition_check"] == 1 and got["fold_phase"] == 1,
-                f"mesh rank {rank}: launches {got}, expected K1 {launches['permute_rows']}, 2 scans, 1 K2 step, "
+                f"mesh rank {rank}: launches {got}, expected 1 transcript launch and no K1, 2 scans, 1 K2 step, "
                 f"1 composition check, 1 fold")
     print(f"{FIXTURES[0]} B={BATCH} over {MESH_RANKS} gloo ranks on cuda:0 (verify_sharded): all "
           f"{len(host_checks)} checks equal phase 4's CPU run per slot; launches per rank "
@@ -1183,6 +1292,7 @@ def main() -> int:
     kernels["sha256_level"] = check_sha_kernel(torch, dev)
     kernels["composition_check"], kernels["composition_domain"] = check_composition_kernels(torch, dev)
     kernels["fold_phase"] = check_fold_kernel(torch, dev)
+    kernels["transcript"] = check_transcript_kernel(torch, dev, kernels["permute_rows"]["step_ms"])
     torch.cuda.synchronize()
     phase_done("3 (kernels vs plain)")
 
@@ -1195,8 +1305,8 @@ def main() -> int:
     for name in FIXTURES:
         rate = proofs_per_s(torch, dev, name)
         walls = phase_ms(torch, dev, name)
-        print(f"{name}: {rate:.1f} proofs/s ({BATCH / rate * 1e3:.1f} ms a batch), fold phase "
-              f"{walls['fold phase']:.2f} ms, hash phase {walls['hash phase']:.2f} ms, composition "
+        print(f"{name}: {rate:.1f} proofs/s ({BATCH / rate * 1e3:.1f} ms a batch), transcript "
+              f"{walls['transcript']:.2f} ms, fold phase {walls['fold phase']:.2f} ms, hash phase {walls['hash phase']:.2f} ms, composition "
               f"{walls['composition']:.2f} ms a batch, at B={BATCH} on {smi}")
     phase_done("6 (timing)")
 
@@ -1229,7 +1339,7 @@ def main() -> int:
     phase_done("12 (last layer)")
     check_demo_sha_proof(dev)
     phase_done("13 (demo prove_sha256p31)")
-    mesh_launches = check_mesh(torch, smi, host_checks[FIXTURES[0]], launches[FIXTURES[0]])
+    mesh_launches = check_mesh(torch, smi, host_checks[FIXTURES[0]])
     phase_done("14 (multi-device)")
     streamed = check_streamed(torch, dev, seen, levels)
     phase_done("15 (streamed provers)")
@@ -1250,17 +1360,21 @@ def main() -> int:
         "fold_phase": "recursive_stwo_tpu/verifier/verify.py:97 (fold_phase, with the lax.scans at "
                       "recursive_stwo_tpu/verifier/points.py:119,155, quotients.py:105, fri.py:139 and "
                       "core/m31.py:195)",
+        "transcript": "recursive_stwo_tpu/verifier/transcript.py:97 (digest_chain, the lax.scan at :121) and :159 "
+                      "(the batched draw)",
     }
     sources = {k: "recursive_stwo_tpu_torch/csrc/poseidon2.cu" for k in replaces}
     sources["sha256_level"] = "recursive_stwo_tpu_torch/csrc/sha256.cu"
     sources["composition_check"] = sources["composition_domain"] = "recursive_stwo_tpu_torch/csrc/composition.cu"
     sources["fold_phase"] = "recursive_stwo_tpu_torch/csrc/fold.cu"
-    # the main path of each: phase 4's verify_batch for the Poseidon2, check
-    # and fold kernels, phase 15 (c)'s streamed last layer for the SHA-256
-    # kernel, phase 7's level-1 proof for the domain kernel
+    sources["transcript"] = "recursive_stwo_tpu_torch/csrc/transcript.cu"
+    # the main path of each: phase 4's verify_batch for the transcript, K2,
+    # scan, check and fold kernels, phase 15 (c)'s streamed last layer for
+    # the SHA-256 kernel, phase 7's level-1 proof for K1 and the domain kernel
     main_launches = {k: launches[FIXTURES[0]][k] for k in replaces}
     main_launches["sha256_level"] = streamed[LAST_LAYER]["sha256_level"]
-    main_launches["composition_domain"] = levels[1]["prove_launches"]["composition_domain"]
+    for k in ("permute_rows", "composition_domain"):
+        main_launches[k] = levels[1]["prove_launches"][k]
     report = [
         dict(name=k, route="cuda", source=sources[k],
              replaces=replaces[k], launches=main_launches[k],

@@ -20,7 +20,9 @@ namespace poseidon2_m31 {
 // Round constants, the same tables as FIRST_FOUR_ROUND_RC, PARTIAL_ROUNDS_RC
 // and LAST_FOUR_ROUNDS_RC in recursive_stwo_tpu/core/poseidon2.py (a CPU test
 // parses these three initialisers and compares them with the reference).
-__constant__ uint32_t FIRST_FOUR_ROUND_RC[4][16] = {
+// `static`: each translation unit that includes this header (poseidon2.cu,
+// transcript.cu) holds its own copy, so the host-side symbols do not clash.
+static __constant__ uint32_t FIRST_FOUR_ROUND_RC[4][16] = {
     {0x768bab52, 0x70e0ab7d, 0x3d266c8a, 0x6da42045, 0x600fef22, 0x41dace6b,
      0x64f9bdd4, 0x5d42d4fe, 0x76b1516d, 0x6fc9a717, 0x70ac4fb6, 0x00194ef6,
      0x22b644e2, 0x1f7916d5, 0x47581be2, 0x2710a123},
@@ -35,13 +37,13 @@ __constant__ uint32_t FIRST_FOUR_ROUND_RC[4][16] = {
      0x4a9a9017, 0x4724cf76, 0x347af70f, 0x1e77e59a},
 };
 
-__constant__ uint32_t PARTIAL_ROUNDS_RC[14] = {
+static __constant__ uint32_t PARTIAL_ROUNDS_RC[14] = {
     0x7f7ec4bf, 0x0421926f, 0x5198e669, 0x34db3148, 0x4368bafd, 0x66685c7f,
     0x78d3249a, 0x60187881, 0x76dad67a, 0x0690b437, 0x1ea95311, 0x40e5369a,
     0x38f103fc, 0x1d226a21,
 };
 
-__constant__ uint32_t LAST_FOUR_ROUNDS_RC[4][16] = {
+static __constant__ uint32_t LAST_FOUR_ROUNDS_RC[4][16] = {
     {0x57090613, 0x1fa42108, 0x17bbef50, 0x1ff7e11c, 0x047b24ca, 0x4e140275,
      0x4fa086f5, 0x079b309c, 0x1159bd47, 0x6d37e4e5, 0x075d8dce, 0x12121ca0,
      0x7f6a7c40, 0x68e182ba, 0x5493201b, 0x0444a80e},

@@ -117,5 +117,7 @@ def load() -> ctypes.CDLL:
             lib.composition_domain.restype = ctypes.c_int
             lib.fold_phase.argtypes = [i64p, i64p, vp]
             lib.fold_phase.restype = ctypes.c_int
+            lib.transcript_replay.argtypes = [i64p, i64p, vp]
+            lib.transcript_replay.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -17,8 +17,11 @@ Steps, each warm:
     (host SHA transcript and path expansion included), on CUDA and on the
     CPU.
 For each: every one of K synchronize()-bounded walls and their median; for
-the CUDA steps, the hand-written kernels' launches over one run
-(ops/launches: fold_phase, the fold kernel, where the checkout has it), and
+np_small, the transcript's wall in K further runs (`transcript.replay`, or
+`run_transcript_np` in a checkout without it; each bounded by
+synchronize()); for the CUDA steps, the hand-written kernels' launches over
+one run (ops/launches: fold_phase, the fold kernel, and transcript, the
+transcript kernel, where the checkout has them), and
 one further run under torch.profiler: the kernels launched,
 the copies and fills, the device busy time (the kernels' summed durations,
 one stream) and its share of the untraced median wall, and the wall per
@@ -120,6 +123,8 @@ def main() -> int:
     from recursive_stwo_tpu_torch.core.qm31 import QM31
     from recursive_stwo_tpu_torch.models import flagship
     from recursive_stwo_tpu_torch.ops import launches as kernel_launches
+    from recursive_stwo_tpu_torch.tools.verify_times import phase_walls
+    from recursive_stwo_tpu_torch.verifier import transcript
     from recursive_stwo_tpu_torch.verifier import verify_sha256 as vs
     from recursive_stwo_tpu_torch.verifier.verify_sha256_host import composition_on
 
@@ -149,6 +154,10 @@ def main() -> int:
         med = statistics.median(walls)
         line = dict(label=args.label or args.root, step=name, batch=batch, device=device, wall_ms_median=med,
                     wall_ms=walls, proofs_per_s=batch / med * 1e3)
+        if name.startswith("np_small"):
+            replay = "replay" if hasattr(transcript, "replay") else "run_transcript_np"
+            t = phase_walls(torch, lambda _: fn(), None, args.runs, transcript, replay)
+            line.update(transcript_ms_median=statistics.median(t) * 1e3, transcript_ms=[x * 1e3 for x in t])
         if device == "cuda":
             torch.cuda.synchronize()
             kernel_launches.reset()

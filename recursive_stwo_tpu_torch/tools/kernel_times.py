@@ -23,7 +23,13 @@ times, at the shapes the port calls them with:
   The fold kernel (fold_phase), where the checkout has it: each verifier's
      batch, small_proof and recursive_proof_16_15 at B=1024, np_small at
      B=512, level 14 and bitcoin at B=128, beside the plain version's time.
-`--kernels poseidon`, `--kernels composition` or `--kernels fold` times only those.
+  The transcript kernel (transcript), where the checkout has it: at
+     verify_batch's B=1024 on both fixtures, verify_batch_np's
+     B=512, and small_proof at B=1 (the chain's) and 512, beside the plain
+     version's time, the bound and the chain floor (a proof's T + 1
+     permutations at K1's quad time at (1024, 16), timed here).
+`--kernels poseidon`, `--kernels composition`, `--kernels fold` or
+`--kernels transcript` times only those.
 Before timing, every kernel output is held to the plain version bit for bit.
 Two times per shape: CUDA events around `reps` back-to-back calls (what a
 caller's loop pays, the wrapper's host cost included once it exceeds the
@@ -56,6 +62,10 @@ DOMAIN_LEVELS = (1, 2)
 # and the SHA-256 device checks'
 FOLD_SHAPES = (("small_proof", 1024), ("recursive_proof_16_15", 1024), ("np_small", 512), ("level14", 128),
                ("bitcoin", 128))
+# the transcript kernel at verify_batch's and verify_batch_np's batches, the
+# chain's batch 1 and a half batch
+TRANSCRIPT_SHAPES = (("small_proof", 1024), ("recursive_proof_16_15", 1024), ("np_small", 512), ("small_proof", 1),
+                     ("small_proof", 512))
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -248,11 +258,46 @@ def fold_lines(torch, dev) -> list:
     return lines
 
 
+def transcript_lines(torch, dev) -> list:
+    """One dict a shape of TRANSCRIPT_SHAPES, the kernel held
+    bit for bit to its plain version first (with tools/transcript_cases'
+    corruptions): events and device ms, the plain version's ms, the bound
+    and the chain floor."""
+    from recursive_stwo_tpu_torch.ops import poseidon_cuda, transcript_cuda
+    from recursive_stwo_tpu_torch.tools import transcript_cases as cases
+
+    x = torch.randint(0, P, (1024, 16), generator=torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                      dtype=torch.int64)
+    step_ms = profiled_ms(torch, lambda: poseidon_cuda.permute_rows_schedule(x, "quad"), 200, "permute_rows")
+    lines = []
+    for name, batch in TRANSCRIPT_SHAPES:
+        bad = cases.transcript_case(name, batch, dev, corrupt=True)
+        want = cases.replay_fields(bad, plain=True)
+        case = cases.transcript_case(name, batch, dev)
+        got = cases.replay_fields(bad)
+        if not all(torch.equal(got[k], w) for k, w in want.items()):
+            raise RuntimeError(f"transcript differs from the plain version on {name} at B={batch}")
+        bound, by = transcript_cuda.transcript_bound_ms(case.spec, batch, len(case.inputs))
+
+        def run():
+            return transcript_cuda.transcript(case.spec, case.pa, case.inputs)
+
+        lines.append(dict(kernel="transcript", shape=f"{name} B={batch}", batch=batch,
+                          permutations=batch * transcript_cuda.permutations(case.spec),
+                          int_ops=batch * transcript_cuda.transcript_ops(case.spec, len(case.inputs)),
+                          bytes=transcript_cuda.transcript_bytes(case.spec, batch, len(case.inputs)),
+                          events_ms=cuda_ms(torch, run, 50), device_ms=profiled_ms(torch, run, 50, "transcript_kernel"),
+                          plain_ms=cuda_ms(torch, lambda: cases.replay_fields(case, plain=True), 3),
+                          bound_ms=bound, bound_by=by, k1_quad_1024_ms=step_ms,
+                          floor_ms=transcript_cuda.chain_floor_ms(case.spec, step_ms)))
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
     ap.add_argument("--label", default=None, help="name printed with every line (default: the root)")
-    ap.add_argument("--kernels", choices=("all", "poseidon", "composition", "fold"), default="all")
+    ap.add_argument("--kernels", choices=("all", "poseidon", "composition", "fold", "transcript"), default="all")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -278,7 +323,8 @@ def main() -> int:
         return os.path.exists(os.path.join(os.path.dirname(build.__file__), wrapper))
 
     for kind, wrapper, lines in (("composition", "composition_cuda.py", composition_lines),
-                                 ("fold", "fold_cuda.py", fold_lines)):
+                                 ("fold", "fold_cuda.py", fold_lines),
+                                 ("transcript", "transcript_cuda.py", transcript_lines)):
         if args.kernels in ("all", kind) and has(wrapper):
             for line in lines(torch, dev):
                 line.update(label=label, share_of_bound=line["bound_ms"] / line["device_ms"])

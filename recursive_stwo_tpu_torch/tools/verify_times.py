@@ -6,17 +6,19 @@ Imports recursive_stwo_tpu_torch from DIR (default: the checkout holding this
 script), so that a parent and a change can be timed in turns in one call on
 one card.  For each fixture at B=1024, on a device-resident batch, warm:
   - the hand-written kernels' launches over one verify_batch (ops/launches;
-    fold_phase, the fold kernel, where the checkout has it);
+    fold_phase, the fold kernel, and transcript, the transcript kernel,
+    where the checkout has them);
   - proofs/s: B over the median of K synchronize()-bounded verify_batch runs;
-  - the walls of the transcript, the composition check, the fold phase and
+  - the walls of the transcript (`transcript.replay`, or `run_transcript`
+    in a checkout without it), the composition check, the fold phase and
     the hash phase: the median over K further runs of each, bounded by
     synchronize() on both sides (separate runs, since those syncs cut the
     host's run-ahead);
   - one verify_batch under torch.profiler: the device time of the hash
     kernels (every kernel whose name holds "wordmajor": K2's steps, or the
-    scans and K2's leaf step) and of the fold kernel, and every CUDA kernel,
-    copy and fill the call issued with the kernels' summed device time
-    (tools/flavour_times).
+    scans and K2's leaf step), of the fold kernel and of the transcript
+    kernel, and every CUDA kernel, copy and fill the call issued with the
+    kernels' summed device time (tools/flavour_times).
 Prints one JSON line per fixture, then the card's nvidia-smi line.
 """
 
@@ -95,8 +97,9 @@ def main() -> int:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
 
+        replay = "replay" if hasattr(transcript, "replay") else "run_transcript"
         phases = {phase: phase_walls(torch, step, arrays, args.runs, owner, attr)
-                  for phase, owner, attr in (("transcript", transcript, "run_transcript"),
+                  for phase, owner, attr in (("transcript", transcript, replay),
                                             ("composition", composition, "composition_check"),
                                             ("fold_phase", verify, "fold_phase"),
                                             ("hash_phase", verify, "hash_phase"))}
@@ -119,6 +122,7 @@ def main() -> int:
             **{f"{phase}_ms_median": statistics.median(w) * 1e3 for phase, w in phases.items()},
             **{f"{phase}_ms": [x * 1e3 for x in w] for phase, w in phases.items()},
             hash_kernel_device_ms=device_ms("wordmajor"), fold_kernel_device_ms=device_ms("fold_kernel"),
+            transcript_kernel_device_ms=device_ms("transcript_"),
             cuda_kernels=issued["kernels"], copies_and_fills=issued["copies_and_fills"],
             kernels_busy_ms=issued["busy_ms"], busy_share=issued["busy_ms"] / statistics.median(walls) / 1e3,
         )), flush=True)

@@ -7,20 +7,31 @@ channel is proof data, so the digest chain is T sequential permutations over
 a (B, T, 8) operand tensor, one batched permutation launch per step, and all
 draws are then one batched permutation of the gathered digest states.  The
 draw schedules and FSOutput container are the reference's own.
+
+`replay(spec, pa, inputs)` is what the verifiers call: the transcript with
+the per-proof scalars beside it (the OODS point, the public inputs' logup
+sum, the PoW and total-sum checks).  A CPU batch takes the plain version
+(`replay_plain`: `run_transcript[_np]`, `points.oods_point_from_t`,
+`input_sum`), a CUDA one the transcript kernel (ops/transcript_cuda.py: one
+launch for the whole batch).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Sequence, Tuple
+
 import torch
 
-from ..core import poseidon2
+from ..core import m31, poseidon2
+from ..core import qm31 as q
 from ..core.qm31 import QM31
-from .spec import VerifierSpec
+from . import points
+from .spec import NoPoseidonVerifierSpec, VerifierSpec
 from .transcript_host import FSOutput, _draw_schedule, _draw_schedule_np, n_rows, n_rows_np
 
 __all__ = [
-    "FSOutput", "build_operands", "build_operands_np", "digest_chain", "pow_check",
-    "queries_at_log_size", "run_transcript", "run_transcript_np",
+    "FSOutput", "Replay", "build_operands", "build_operands_np", "digest_chain", "input_sum", "is_zero",
+    "pow_check", "queries_at_log_size", "replay", "replay_plain", "run_transcript", "run_transcript_np",
 ]
 
 
@@ -156,3 +167,77 @@ def queries_at_log_size(spec: VerifierSpec, raw_queries, log_size: int):
     """Query positions at a given domain log size (masked + shifted)."""
     masked = raw_queries & ((1 << spec.max_first_layer_log) - 1)
     return masked >> (spec.max_first_layer_log - log_size)
+
+
+def _q_cols(arr: torch.Tensor) -> QM31:
+    return QM31(*(arr[:, i] for i in range(4)))
+
+
+def is_zero(x: QM31) -> torch.Tensor:
+    return (x.a == 0) & (x.b == 0) & (x.c == 0) & (x.d == 0)
+
+
+def input_sum(fs, inputs) -> QM31:
+    """sum_i 1/((val_i + alpha*idx_i) - z), batched: one q_inv over the
+    stacked (n_inputs, B) terms instead of one per input (the bitcoin proof
+    has 264 public inputs), then the pairwise sum of the JAX package's
+    verify_sha256._input_sum.  The sum is exact over M31, so every
+    verifier gets the value of the per-input loop."""
+    like = fs.z.a
+    if not inputs:
+        return q.q_zero(like)
+    idxs = torch.tensor([i for i, _ in inputs], dtype=torch.int64, device=like.device)[:, None]
+    vals = torch.tensor([v for _, v in inputs], dtype=torch.int64, device=like.device)
+    term = QM31(
+        *(
+            m31.sub(m31.add(vals[:, k : k + 1], m31.mul(fs.alpha[k][None, :], idxs)), fs.z[k][None, :])
+            for k in range(4)
+        )
+    )
+    inv = q.q_inv(term)  # (n, B)
+    comps = []
+    for c in inv:
+        acc = c
+        while acc.shape[0] > 1:
+            half = acc.shape[0] // 2
+            lo = m31.add(acc[:half], acc[half : 2 * half])
+            if acc.shape[0] % 2:
+                lo = torch.cat([lo, acc[-1:]], dim=0)
+            acc = lo
+        comps.append(acc[0])
+    return QM31(*comps)
+
+
+class Replay(NamedTuple):
+    """A batch's transcript and the per-proof scalars the verifiers take
+    from it."""
+
+    fs: FSOutput
+    oods: Tuple[QM31, QM31]  # the OODS point (x, y)
+    input_sum: QM31  # sum_i 1/(val_i + alpha*idx_i - z)
+    pow: torch.Tensor  # (B,) bool: the PoW check
+    total_sum: torch.Tensor  # (B,) bool: input sum + the total sums == 0
+
+
+def replay_plain(spec, pa, inputs: Sequence[Tuple[int, Tuple[int, int, int, int]]]) -> Replay:
+    """The plain version of the transcript kernel, in eager torch on pa's
+    device: the flavour's transcript, the OODS point, the input sum and the
+    two checks (the without-Poseidon flavour has one total sum)."""
+    without_poseidon = isinstance(spec, NoPoseidonVerifierSpec)
+    fs = run_transcript_np(spec, pa) if without_poseidon else run_transcript(spec, pa)
+    inputs_term = input_sum(fs, inputs)
+    sums = (pa.plonk_total_sum,) if without_poseidon else (pa.plonk_total_sum, pa.poseidon_total_sum)
+    total = inputs_term
+    for s in sums:
+        total = q.q_add(total, _q_cols(s))
+    return Replay(fs, points.oods_point_from_t(fs.oods_t), inputs_term, pow_check(spec, fs), is_zero(total))
+
+
+def replay(spec, pa, inputs: Sequence[Tuple[int, Tuple[int, int, int, int]]]) -> Replay:
+    """The transcript of a batch and its per-proof scalars: a CPU batch
+    takes the plain version, a CUDA one the transcript kernel (one launch)."""
+    if pa.commitments.device.type == "cpu":
+        return replay_plain(spec, pa, inputs)
+    from ..ops import transcript_cuda
+
+    return transcript_cuda.replay(spec, pa, inputs)

@@ -5,8 +5,7 @@ inputs) runs transcript, PoW, total-sum, composition, quotients, FRI folding
 and every Merkle decommitment over int64 tensors on pa's device, and returns
 a dict of named (B,) bool checks plus their conjunction 'ok', with the
 reference's keys in the reference's order.  `structural_checks` (the fold
-and hash phases) and the total-sum helpers serve verify_np.py and
-verify_sha256.py too.
+and hash phases) serves verify_np.py and verify_sha256.py too.
 """
 
 from __future__ import annotations
@@ -15,22 +14,16 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ..core import m31
-from ..core import qm31 as q
-from ..core.qm31 import QM31
 from . import composition as composition_mod
 from . import fri as fri_mod
 from . import hashplan, points, quotients, transcript
 from .arrays import ProofArrays
 from .spec import VerifierSpec
+from .transcript import _q_cols
 
 # the public inputs of the two fixtures (recursive_stwo_tpu/verifier/verify.py:27-28)
 INPUTS_ONE = ((1, (1, 0, 0, 0)),)
 INPUTS_RECURSIVE = ((1, (1, 0, 0, 0)), (2, (0, 1, 0, 0)), (3, (0, 0, 1, 0)))
-
-
-def _q_cols(arr: torch.Tensor) -> QM31:
-    return QM31(*(arr[:, i] for i in range(4)))
 
 
 def verify_batch(
@@ -38,16 +31,14 @@ def verify_batch(
     pa: ProofArrays,
     inputs: Sequence[Tuple[int, Tuple[int, int, int, int]]] = INPUTS_ONE,
 ):
-    fs = transcript.run_transcript(spec, pa)
-    checks = {"pow": transcript.pow_check(spec, fs)}
-
-    # logup total-sum: sum_i 1/(val_i + idx_i * alpha - z) + sums == 0
-    plonk_sum = _q_cols(pa.plonk_total_sum)
-    poseidon_sum = _q_cols(pa.poseidon_total_sum)
-    checks["total_sum"] = is_zero(q.q_add(q.q_add(input_sum(fs, inputs), plonk_sum), poseidon_sum))
+    # the transcript, the OODS point and the PoW and logup total-sum checks
+    # (sum_i 1/(val_i + idx_i * alpha - z) + sums == 0)
+    fs, oods, _, pow_ok, total_sum_ok = transcript.replay(spec, pa, inputs)
+    checks = {"pow": pow_ok, "total_sum": total_sum_ok}
 
     # composition polynomial at the OODS point
-    oods = points.oods_point_from_t(fs.oods_t)
+    plonk_sum = _q_cols(pa.plonk_total_sum)
+    poseidon_sum = _q_cols(pa.poseidon_total_sum)
     checks["composition"] = composition_mod.composition_check(
         spec, pa.samples_flat, plonk_sum, poseidon_sum,
         (fs.z, fs.alpha), fs.random_coeff, oods,
@@ -55,41 +46,6 @@ def verify_batch(
 
     checks.update(structural_checks(spec, pa, fs, oods))
     return with_ok(checks)
-
-
-def input_sum(fs, inputs) -> QM31:
-    """sum_i 1/((val_i + alpha*idx_i) - z), batched: one q_inv over the
-    stacked (n_inputs, B) terms instead of one per input (the bitcoin proof
-    has 264 public inputs), then the pairwise sum of the JAX package's
-    verify_sha256._input_sum.  The sum is exact over M31, so every
-    verifier gets the value of the per-input loop."""
-    like = fs.z.a
-    if not inputs:
-        return q.q_zero(like)
-    idxs = torch.tensor([i for i, _ in inputs], dtype=torch.int64, device=like.device)[:, None]
-    vals = torch.tensor([v for _, v in inputs], dtype=torch.int64, device=like.device)
-    term = QM31(
-        *(
-            m31.sub(m31.add(vals[:, k : k + 1], m31.mul(fs.alpha[k][None, :], idxs)), fs.z[k][None, :])
-            for k in range(4)
-        )
-    )
-    inv = q.q_inv(term)  # (n, B)
-    comps = []
-    for c in inv:
-        acc = c
-        while acc.shape[0] > 1:
-            half = acc.shape[0] // 2
-            lo = m31.add(acc[:half], acc[half : 2 * half])
-            if acc.shape[0] % 2:
-                lo = torch.cat([lo, acc[-1:]], dim=0)
-            acc = lo
-        comps.append(acc[0])
-    return QM31(*comps)
-
-
-def is_zero(x: QM31) -> torch.Tensor:
-    return (x.a == 0) & (x.b == 0) & (x.c == 0) & (x.d == 0)
 
 
 def with_ok(checks: dict) -> dict:

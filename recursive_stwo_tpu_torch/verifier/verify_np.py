@@ -13,11 +13,11 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
-from ..core import qm31 as q
 from . import composition as composition_mod
-from . import points, transcript
+from . import transcript
 from .arrays import ProofArrays
-from .verify import _q_cols, input_sum, is_zero, structural_checks, with_ok
+from .transcript import _q_cols
+from .verify import structural_checks, with_ok
 
 
 def verify_batch_np(
@@ -25,13 +25,10 @@ def verify_batch_np(
     pa: ProofArrays,
     inputs: Sequence[Tuple[int, Tuple[int, int, int, int]]] = (),
 ):
-    fs = transcript.run_transcript_np(spec, pa)
-    checks = {"pow": transcript.pow_check(spec, fs)}
+    fs, oods, _, pow_ok, total_sum_ok = transcript.replay(spec, pa, inputs)
+    checks = {"pow": pow_ok, "total_sum": total_sum_ok}
 
     total_sum = _q_cols(pa.plonk_total_sum)
-    checks["total_sum"] = is_zero(q.q_add(input_sum(fs, inputs), total_sum))
-
-    oods = points.oods_point_from_t(fs.oods_t)
     checks["composition"] = composition_mod.composition_check_np(
         spec, pa.samples_flat, total_sum,
         (fs.z, fs.alpha), fs.random_coeff, oods,

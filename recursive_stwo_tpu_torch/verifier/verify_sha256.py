@@ -31,8 +31,9 @@ from . import hints as hints_mod
 from . import points, sha256_merkle, transcript
 from .arrays import from_proofs_np, require_device
 from .spec import NoPoseidonVerifierSpec, VerifierSpec
+from .transcript import _q_cols, input_sum, is_zero
 from .transcript_host import FSOutput
-from .verify import _q_cols, fold_phase, input_sum, is_zero, with_ok
+from .verify import fold_phase, with_ok
 from .verify_sha256_host import (
     _input_sum as _host_input_sum,
     composition_on,

@@ -14,7 +14,7 @@ from recursive_stwo_tpu.core import poseidon2 as r_p2
 from recursive_stwo_tpu.verifier import verify as r_verify
 from recursive_stwo_tpu_torch.core import poseidon2 as t_p2
 from recursive_stwo_tpu_torch.models import flagship
-from recursive_stwo_tpu_torch.ops import poseidon_cuda
+from recursive_stwo_tpu_torch.ops import launches, poseidon_cuda
 from recursive_stwo_tpu_torch.tools import scan_cases
 from recursive_stwo_tpu_torch.verifier import hashplan
 from recursive_stwo_tpu_torch.verifier import verify as t_verify
@@ -29,6 +29,15 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _verifier_launches(got: dict) -> None:
+    """One verifier call's launches: the transcript kernel once and K1
+    never, the hash phase's two scans and one K2 leaf step, the check and
+    fold kernels once each."""
+    assert (got["transcript"], got["permute_rows"]) == (1, 0), got
+    assert (got["wordmajor_scan"], got["permute_wordmajor"]) == (2, 1), got
+    assert (got["composition_check"], got["fold_phase"], got["composition_domain"], got["sha256_level"]) == (1, 1, 0, 0), got
 
 
 def _states(seed, n):
@@ -123,10 +132,10 @@ def test_verify_batch_on_cuda_matches_host_reference(cuda):
     pa = flagship.tiled_batch(pa1, 4)
     pa.tree_paths[1].sibling_hashes[2, 0, 0, 0] ^= np.uint32(1)
     ref = r_verify.verify_batch(spec, pa)
-    poseidon_cuda.reset_launches()
+    launches.reset()
     got = t_verify.verify_batch(spec, to_torch(pa, cuda))
     torch.cuda.synchronize()
-    assert all(v > 0 for v in poseidon_cuda.LAUNCHES.values())
+    _verifier_launches(launches.counts())
     assert list(ref) == list(got)
     for k in ref:
         assert np.array_equal(np.asarray(ref[k]), got[k].cpu().numpy()), k
@@ -158,8 +167,8 @@ def test_grind_device_on_cuda_matches_native_scan(cuda, pow_bits):
 
 def test_verify_batch_np_on_cuda_matches_host_reference(cuda):
     """np_small on CUDA with a flipped sibling and a flipped nonce: every
-    check equals the JAX package's numpy verifier, through K1, two scans and
-    one K2 leaf step."""
+    check equals the JAX package's numpy verifier, through one transcript
+    launch (no K1), two scans and one K2 leaf step."""
     from recursive_stwo_tpu.verifier.verify_np import verify_batch_np as r_verify_np
     from recursive_stwo_tpu_torch.verifier.verify_np import verify_batch_np as t_verify_np
 
@@ -169,12 +178,10 @@ def test_verify_batch_np_on_cuda_matches_host_reference(cuda):
     pa.tree_paths[1].sibling_hashes[2, 0, 0, 0] ^= np.uint32(1)
     pa.nonce_limbs[3] ^= np.uint32(1)
     ref = r_verify_np(spec, pa, inputs)
-    poseidon_cuda.reset_launches()
+    launches.reset()
     got = t_verify_np(spec, to_torch(pa, cuda), inputs)
     torch.cuda.synchronize()
-    assert poseidon_cuda.LAUNCHES["permute_rows"] > 0
-    assert poseidon_cuda.LAUNCHES["wordmajor_scan"] == 2
-    assert poseidon_cuda.LAUNCHES["permute_wordmajor"] == 1
+    _verifier_launches(launches.counts())
     assert list(ref) == list(got)
     for k in ref:
         assert np.array_equal(np.asarray(ref[k]), got[k].cpu().numpy()), k
@@ -237,7 +244,8 @@ def test_sha_tree_on_cuda_matches_committed_tree(cuda, monkeypatch):
 def test_gloo_ranks_sharing_the_card_match_the_cpu_run(cuda):
     """tests/test_torch_mesh.py's cases on 2 gloo ranks on cuda:0: every
     named check of every slot, gathered, equals the JAX package's host
-    verifier, and each rank launched every kernel."""
+    verifier, and each rank launched every kernel of the verifier (the
+    transcript kernel in place of K1)."""
     from test_torch_mesh import CASES, held, run_cases
 
     from recursive_stwo_tpu_torch.parallel import launch
@@ -245,7 +253,10 @@ def test_gloo_ranks_sharing_the_card_match_the_cpu_run(cuda):
     ranks = launch.spawn(run_cases, 2, "gloo", ("cuda:0",), timeout=300.0)
     for case in CASES:
         held(ranks, case)
-    assert all(v > 0 for r in ranks for v in r["launches"].values())
+    for r in ranks:
+        got = r["launches"]
+        assert got["transcript"] > 0 and got["permute_rows"] == 0, got
+        assert all(got[k] > 0 for k in ("wordmajor_scan", "permute_wordmajor", "composition_check", "fold_phase")), got
 
 
 @pytest.mark.parametrize("name", ["poseidon31", "sha256"])
@@ -475,3 +486,53 @@ def test_fold_phase_launches_once_per_verifier_call(cuda):
         fn()
         torch.cuda.synchronize()
         assert launches.counts()["fold_phase"] == 1, (label, launches.counts())
+
+
+TRANSCRIPT_SHAPES = [("small_proof", 1), ("small_proof", 7), ("small_proof", 1024), ("recursive_proof_16_15", 1),
+                     ("recursive_proof_16_15", 7), ("recursive_proof_16_15", 1024), ("np_small", 512)]
+
+
+@pytest.mark.parametrize("name,batch", TRANSCRIPT_SHAPES)
+def test_transcript_bit_exact(cuda, name, batch):
+    """The transcript kernel against its plain version on the card, in one
+    launch a call: every FSOutput field, the OODS point, the input sum and
+    both checks, on the fixture with a flipped nonce and a flipped
+    commitment word, with a wrong public input, with none, and on random
+    canonical inputs with an input term planted at zero."""
+    from recursive_stwo_tpu_torch.ops import transcript_cuda
+    from recursive_stwo_tpu_torch.tools import transcript_cases as cases
+
+    for c in (cases.transcript_case(name, batch, cuda, corrupt=True),
+              cases.transcript_case(name, batch, cuda, inputs=((1, (2, 0, 0, 0)),)),
+              cases.transcript_case(name, batch, cuda, inputs=()),
+              cases.random_transcript_case(name, batch, batch, cuda)):
+        before = transcript_cuda.LAUNCHES["transcript"]
+        got = cases.replay_fields(c)
+        torch.cuda.synchronize()
+        assert transcript_cuda.LAUNCHES["transcript"] == before + 1
+        want = cases.replay_fields(c, plain=True)
+        assert list(got) == list(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+
+
+def test_transcript_empty_batch_launches_nothing(cuda):
+    from recursive_stwo_tpu_torch.ops import transcript_cuda
+    from recursive_stwo_tpu_torch.tools import transcript_cases as cases
+
+    c = cases.transcript_case("small_proof", 0, cuda)
+    before = transcript_cuda.LAUNCHES["transcript"]
+    out, ok = transcript_cuda.transcript(c.spec, c.pa, c.inputs)
+    assert out.shape[0] == ok.shape[0] == 0 and transcript_cuda.LAUNCHES["transcript"] == before
+
+
+def test_transcript_launches_once_per_verifier_call(cuda):
+    """verify_batch and verify_batch_np on CUDA: the transcript, its draws,
+    the OODS point and the input sum in one launch, K1 never."""
+    step, arrays = flagship.verifier_step("small_proof", 8, device=cuda)
+    step_np, arrays_np = flagship.verifier_step_np("np_small", 8, device=cuda)
+    for label, fn in (("verify_batch", lambda: step(arrays)), ("verify_batch_np", lambda: step_np(arrays_np))):
+        launches.reset()
+        assert bool(fn()["ok"].all()), label
+        torch.cuda.synchronize()
+        _verifier_launches(launches.counts())

@@ -21,7 +21,7 @@ import torch.distributed as dist
 from torch.multiprocessing import ProcessRaisedException
 
 from recursive_stwo_tpu_torch.models import flagship
-from recursive_stwo_tpu_torch.ops import launches, poseidon_cuda
+from recursive_stwo_tpu_torch.ops import launches
 from recursive_stwo_tpu_torch.parallel import dryrun, launch
 from recursive_stwo_tpu_torch.parallel import mesh as pmesh
 from recursive_stwo_tpu_torch.verifier.verify import INPUTS_ONE
@@ -58,7 +58,7 @@ def global_batch(case):
 def run_cases(device):
     """Inside each rank: every case on a 1-D mesh of the world, or on a
     (2, world / 2) host x chip mesh, with the named checks gathered."""
-    poseidon_cuda.reset_launches()
+    launches.reset()
     mesh = pmesh.make_mesh(device)
     mesh2 = pmesh.make_mesh_2d(device, (2, dist.get_world_size() // 2))
     spec = flagship.prepared_arrays("small_proof")[0]
@@ -69,7 +69,7 @@ def run_cases(device):
         *values, named = res
         out[case] = [v.numpy() if torch.is_tensor(v) else v for v in values] + [
             {k: v.numpy() for k, v in named.items()}]
-    return {"cases": out, "launches": dict(poseidon_cuda.LAUNCHES)}
+    return {"cases": out, "launches": launches.counts()}
 
 
 def reference(case) -> dict:
