@@ -6,8 +6,10 @@
 Phases; any failure ends the run with a non-zero exit and no result line:
   1. card: the GPU's name and power limit, as nvidia-smi prints them;
   2. build: nvcc builds the Poseidon2-16, SHA-256, composition, fold and
-     transcript kernels from csrc/ (one nvcc a source, all at once, then a
-     link; seconds);
+     transcript kernels and the latency probe from csrc/ (one nvcc a source,
+     all at once, then a link; seconds); ptxas' report (registers, stack
+     frame, spills) of the transcript kernel and the check kernel on lines
+     of their own;
   3. kernels vs plain: K1 and K2 against their plain PyTorch versions on
      the card and on the host CPU, bit for bit, at 2**20 states and at the
      main path's shapes, plus the Poseidon2-16 known-answer test; each of
@@ -27,12 +29,13 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      2**20-node level and a 2**27-row leaf level; the composition check
      kernel against its plain version on the card, on the value and on the
      bool, bit for bit: every verifier's fixture (small_proof,
-     recursive_proof_16_15, np_small, level 14, bitcoin) at B = 1, 7 and
-     1024 with a sampled value corrupted in one slot, and random canonical
-     inputs of each spec; the domain kernel against its plain version table
+     recursive_proof_16_15, np_small, level 14, bitcoin) at B = 1, 3, 7, 33,
+     1023 and 1024 (four proofs a block) with a sampled value corrupted in
+     one slot, and random canonical inputs of each spec; the domain kernel against its plain version table
      by table on the demo circuits (both AIR pairs) and chain level 1; their
      times (the check at small_proof's B=1024, np_small's B=512 and level
-     14's B=1; the domain kernel on level 1's tables) beside their bounds;
+     14's B=1; the domain kernel on level 1's tables) beside their bounds
+     and the check's latency floor;
      the fold kernel (csrc/fold.cu) against its plain version on the card,
      bit for bit (every group's answers, every inner layer's self values,
      the last-layer check): small_proof and recursive_proof_16_15 at B = 1,
@@ -43,13 +46,15 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      fixtures at B=1024, np_small at B=512, level 14 at B=128) beside its
      bound; the transcript kernel (csrc/transcript.cu) against its plain
      version on the card, bit for bit (every FSOutput field, the OODS point,
-     the input sum, the PoW and total-sum checks): both fixtures at B = 1, 7 and 1024 with a
+     the input sum, the PoW and total-sum checks): both fixtures at B = 1, 3,
+     7, 33, 1023 and 1024 (sixteen proofs a block) with a
      flipped nonce limb and a flipped commitment word in two slots and with
      a wrong public input, np_small at B=512 with and without public inputs,
      and random canonical inputs of each spec (an input term zero in slot
      0); its times (both fixtures at B=1024, np_small at B=512, small_proof
-     at B=1 and 512) beside its bound and its chain floor
-     (T + 1 permutations at K1's quad time at (1024, 16));
+     at B=1 and 512) beside its bound and its latency floor (a proof's
+     chain in dependent steps, each at the latency the probe measures
+     on the card, ops/latency_cuda.py);
   4. main path, small_proof at B=1024: the port's verify_batch on CUDA over
      a batch with a flipped sibling hash and a flipped nonce, and again with
      a wrong public input; every named check of every slot must equal the
@@ -152,7 +157,8 @@ mesh_launches: each rank's launches in phase 14 (c); launches is each
 kernel's count in its main path: phase 4's verify_batch, phase 7's level 1
 for K1 and the domain kernel, phase 15 (c) for the SHA-256 kernel; K1's
 times are at 2**20 rows, a block of a prover level, with step_* at (1024,
-16)), and {"ok": true, "device": {...}}.
+16); floor_ms the latency floors of the transcript and check kernels),
+and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -213,16 +219,17 @@ SHA_CHUNK_ROWS = 1 << 20  # a streamed tree's leaf chunk (prover/stream.py CHUNK
 SHA_BIG_ROWS = 1 << 27  # the last layer's largest tree, the first FRI layer's (4 limb columns)
 STREAM_DEMO = dict(chunk_log=9, cutoff=5)  # phase 15 (a): several chunks of several tiles
 # the check kernel is held to its plain version at these batch sizes (one
-# proof, a warp's tail, the main path's batch); the domain kernel on the
+# proof, tails of its blocks of four, the main path's batch); the domain kernel on the
 # demo circuits' tables and chain level 1's
-COMP_BATCHES = (1, 7, BATCH)
+COMP_BATCHES = (1, 3, 7, 33, BATCH - 1, BATCH)
 DOMAIN_LEVEL = 1
 # the fold kernel is held to its plain version at these batch sizes of both
 # fixtures, and at the other flavours' batches
 FOLD_BATCHES = (1, 7, BATCH)
 # the transcript kernel is held to its plain version at these batch sizes of
-# both fixtures (the chain's batch 1, a warp's tail, the main path's batch)
-TRANSCRIPT_BATCHES = (1, 7, BATCH)
+# both fixtures (the chain's batch 1, tails of its blocks of sixteen, the
+# main path's batch)
+TRANSCRIPT_BATCHES = (1, 3, 7, 33, BATCH - 1, BATCH)
 
 
 class SmokeError(RuntimeError):
@@ -314,7 +321,7 @@ def check_kernels(torch, dev, leaf_state, np_leaf_state) -> dict:
             # K1's main path is the prover's Merkle commits (the verifier's
             # transcript has its own kernel): its line's times are at 2**20
             # rows, a block of a prover level; (BATCH, 16) is kept as one
-            # permutation's latency (the transcript's chain floor)
+            # permutation's latency on K1's quad schedule
             result[name].update(shape=list(big.shape), ms=big_ms, plain_ms=big_plain, bound_ms=big_bound,
                                 bound_by=big_by, step_shape=list(main.shape), step_ms=ms,
                                 step_events_ms=result[name].pop("events_ms"), step_plain_ms=plain_ms,
@@ -476,7 +483,7 @@ def check_sha_kernel(torch, dev) -> dict:
     return out
 
 
-def check_composition_kernels(torch, dev) -> tuple:
+def check_composition_kernels(torch, dev, lat: dict) -> tuple:
     """Phase 3, the composition kernels against their plain versions on the
     card, bit for bit.  The check kernel on the value and the bool: every
     verifier's fixture (tools/composition_cases.CHECK_FIXTURES) at
@@ -486,8 +493,9 @@ def check_composition_kernels(torch, dev) -> tuple:
     chain level DOMAIN_LEVEL, table by table into one accumulator.  Returns
     ({max_abs_err, ms, events_ms, plain_ms, bound_ms, bound_by} of each) at
     the main path's shapes: the check at small_proof's B=1024 (np_*: phase
-    10's B=512, sha_*: level 14's fast path at B=1), the domain kernel on
-    level 1's poseidon table (plonk_*: its plonk table)."""
+    10's B=512, sha_*: level 14's fast path at B=1) with its latency floor
+    at `lat` (ops/latency_cuda.step_latencies), the domain kernel on level
+    1's poseidon table (plonk_*: its plonk table)."""
     from recursive_stwo_tpu_torch.models import flagship
     from recursive_stwo_tpu_torch.ops import composition_cuda
     from recursive_stwo_tpu_torch.tools import composition_cases as cases
@@ -525,9 +533,11 @@ def check_composition_kernels(torch, dev) -> tuple:
         events_ms = cuda_ms(torch, lambda: cases.check_value(case), reps)
         plain_ms = cuda_ms(torch, lambda: cases.check_value(case, plain=True), 3)
         bound, bound_by = composition_cuda.check_bound_ms(case.spec, batch)
+        floor = composition_cuda.latency_floor_ms(case.spec, lat)
         print(f"composition_check {label} ({name}, B={batch}): kernel {ms:.4f} ms device, {events_ms:.4f} ms per call "
-              f"back to back (bound {bound:.6f} ms by {bound_by}, {bound / ms:.1%}), plain {plain_ms:.4f} ms")
-        return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+              f"back to back (bound {bound:.6f} ms by {bound_by}, {bound / ms:.1%}; latency floor {floor:.6f} ms), "
+              f"plain {plain_ms:.4f} ms")
+        return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, floor_ms=floor)
 
     check = timed("main path", FIXTURES[0], BATCH)
     check.update(max_abs_err=err, library_ms=None)
@@ -637,7 +647,7 @@ def check_fold_kernel(torch, dev) -> dict:
     return out
 
 
-def check_transcript_kernel(torch, dev, step_ms: float) -> dict:
+def check_transcript_kernel(torch, dev, lat: dict) -> dict:
     """Phase 3, the transcript kernel against its plain version on the card,
     bit for bit (every FSOutput field, the OODS point, the input sum, the
     PoW and total-sum checks): both fixtures at
@@ -645,8 +655,9 @@ def check_transcript_kernel(torch, dev, step_ms: float) -> dict:
     commitment word in two slots and again with a wrong public input,
     np_small at NP_BATCH with its public inputs and with none, and random
     canonical inputs of each spec (an input term planted at zero in slot 0).
-    `step_ms` is K1's quad device time at (BATCH, 16), one permutation's
-    latency: the chain floor is a proof's T + 1 permutations of it.
+    `lat` is the latency probe's cycles a dependent step
+    (ops/latency_cuda.step_latencies): the latency floor is a proof's chain
+    of permutations in such steps (ops/transcript_cuda.latency_floor_ms).
     Returns {max_abs_err, ms, events_ms, plain_ms, bound_ms, bound_by,
     floor_ms} at the main path's shape (small_proof, B=1024;
     deep_*: recursive_proof_16_15's, np_*: phase 10's, b1_* and b512_*:
@@ -703,12 +714,13 @@ def check_transcript_kernel(torch, dev, step_ms: float) -> dict:
         events_ms = cuda_ms(torch, run, reps)
         plain_ms = cuda_ms(torch, lambda: cases.replay_fields(case, plain=True), 3)
         bound, bound_by = transcript_cuda.transcript_bound_ms(case.spec, batch, len(case.inputs))
-        floor = transcript_cuda.chain_floor_ms(case.spec, step_ms)
+        floor = transcript_cuda.latency_floor_ms(case.spec, lat)
         perms = transcript_cuda.permutations(case.spec)
-        print(f"transcript {label} ({name}, B={batch}, {perms} permutations a proof): kernel {ms:.4f} ms device, "
-              f"{events_ms:.4f} ms per call back to back (bound {bound:.6f} ms by {bound_by}, {bound / ms:.1%}; chain "
-              f"floor {floor:.4f} ms = {len(transcript_cuda.row_table(case.spec).rows) + 1} x {step_ms:.5f}), plain "
-              f"{plain_ms:.4f} ms")
+        steps = transcript_cuda.chain_steps(case.spec)
+        print(f"transcript {label} ({name}, B={batch}, {perms} permutations a proof, {steps} on its chain): kernel "
+              f"{ms:.4f} ms device, {events_ms:.4f} ms per call back to back (bound {bound:.6f} ms by {bound_by}, "
+              f"{bound / ms:.1%}; latency floor {floor:.4f} ms = {steps} x "
+              f"{transcript_cuda.permutation_cycles(lat):.0f} cycles), plain {plain_ms:.4f} ms")
         return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, floor_ms=floor)
 
     out = timed("main path", FIXTURES[0], BATCH)
@@ -1264,7 +1276,7 @@ def main() -> int:
         clock = now
 
     from recursive_stwo_tpu_torch.models import flagship
-    from recursive_stwo_tpu_torch.ops import build
+    from recursive_stwo_tpu_torch.ops import build, latency_cuda
 
     t = time.perf_counter()
     lib_path = build.library_path()
@@ -1272,6 +1284,10 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t:.2f} s -> {lib_path}")
     with open(lib_path + ".log") as f:
         print(f.read().strip())
+    for name in ("transcript_kernel", "composition_check_kernel"):
+        for r in build.ptxas_report(name):
+            print(f"ptxas {name} ({r['kernel']}): {r['registers']} registers, {r['stack_bytes']} bytes stack frame, "
+                  f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads")
     phase_done("1-2 (card, build)")
 
     from recursive_stwo_tpu_torch.tools.scan_cases import fixture_programs
@@ -1290,9 +1306,12 @@ def main() -> int:
     )
     del programs, leaf_state, np_leaf_state
     kernels["sha256_level"] = check_sha_kernel(torch, dev)
-    kernels["composition_check"], kernels["composition_domain"] = check_composition_kernels(torch, dev)
+    lat = latency_cuda.step_latencies(dev)
+    print(f"latency probe, cycles a dependent step: {', '.join(f'{k} {lat[k]:.2f}' for k in latency_cuda.KINDS)}; "
+          f"SM clock {lat['ghz']:.3f} GHz")
+    kernels["composition_check"], kernels["composition_domain"] = check_composition_kernels(torch, dev, lat)
     kernels["fold_phase"] = check_fold_kernel(torch, dev)
-    kernels["transcript"] = check_transcript_kernel(torch, dev, kernels["permute_rows"]["step_ms"])
+    kernels["transcript"] = check_transcript_kernel(torch, dev, lat)
     torch.cuda.synchronize()
     phase_done("3 (kernels vs plain)")
 

@@ -11,22 +11,39 @@
 // `_stage_composition_jit` :417-474).  The AIRs themselves are in
 // composition_air.cuh, shared by both kernels.
 //
-// The check kernel: one thread per proof.  It reads its proof's row of
-// samples_flat (B, S, 4) through an index table (entry k names the sample of
-// the k-th mask the evaluators read, in the order the eager `_Eval._gather`
-// visits them, then the 8 composition samples), and (B, n_params, 4) QM31
-// parameters: the components' total sums, z, alpha, random_coeff and the
-// OODS point's x.  It runs one x -> 2x^2 - 1 chain to bound - 2 doublings,
-// keeping each component's vanishing value on the way, inverts those, folds
-// every constraint into the Horner value and compares it with the committed
-// left + right * x^(2^(bound-2)) in every limb.  Writes the (B,) bool and
-// the (B, 4) Horner value.
+// The check kernel: a warp a proof, its constraints spread over the lanes.
+// The warp stages its proof's samples in shared memory in the order of an
+// index table (entry k names the sample of the k-th mask the evaluators
+// read, in the order the eager `_Eval._gather` visits them, then the 8
+// composition samples), and reads (B, n_params, 4) QM31 parameters: the
+// components' total sums, z, alpha, random_coeff and the OODS point's x.
+// The serial parts run on every lane: one x -> 2x^2 - 1 chain to bound - 2 doublings, keeping
+// each component's vanishing value on the way, and their inverses.  The
+// Horner fold becomes a weighted sum, acc = sum of c_i rc^(n-1-i) (exact
+// over M31, so the order of the sum is free): the lanes build the per-proof
+// table of rc's powers in shared memory together, each lane weights the
+// constraints it computes, keeps one partial sum a component, multiplies
+// each by the component's 1/vanishing once, and a shuffle reduction gives
+// the value.  The poseidon AIR's 16-word blocks put word i on lane i (and
+// lane 16 + i): its first round, full rounds, the 14 partial rounds' S-boxes
+// (each on its own lane) and their output block; the partial rounds' linear
+// chain (the committed inter[r], not the S-box, goes into word 0) runs a
+// word a lane, summing over the half-warp by shuffles.  The plonk AIR, the
+// without-Poseidon AIR and the poseidon AIR's logup run on every lane
+// through the straight-line evaluators (a Capture sink) and go to lanes by a
+// select.  Which lane computes which constraint at which stage, and with
+// which power of rc, is the lane table that follows the index table
+// (ops/composition_cuda.py `lane_table`).  Writes the (B,) bool and the
+// (B, 4) value; every lane but lane 0 of the warp stores nothing.
 //
-// What bounds it on an H100: integer ALU work, about 0.12M int32 operations a
+// What bounds it on an H100: integer ALU work, about 88k int32 operations a
 // proof of the with-Poseidon pair (ops/composition_cuda.py counts them), and
-// the latency of one thread's chain when B is small: B = 1024 fills 32 SMs
-// with one warp each.
+// the latency of a warp's dependent instructions: B = 1 takes about as long
+// as B = 1024.  ops/composition_cuda.py `latency_floor_ms` gives the floor
+// of a proof's longest chain (the doublings and the inverse, or the partial
+// rounds' 14 shuffle sums).
 //
+
 // The domain kernel: one thread per point of the domain.  It reads one AIR
 // table's LDE rows (pre, trace, interaction limb rows; M31 values, so a
 // QM31 mask is (v, 0, 0, 0) and an interaction mask the four limb rows as
@@ -47,7 +64,15 @@ namespace {
 
 using namespace composition;
 
-constexpr int kCheckThreads = 32;
+constexpr int kCheckWarps = 4;  // proofs a block
+constexpr int kCheckThreads = 32 * kCheckWarps;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+// a warp's power table and staged samples: the with-Poseidon pair's
+// constraints, and its index table (its masks' reads and the 8 composition
+// samples)
+constexpr int kMaxConstraints = n_constraints(kPlonkConstraints) + n_constraints(kPoseidonConstraints);
+constexpr int kMaxReads = kPlonkPre + kPlonkTrace + interaction_reads(kPlonkFracs, kPlonkBatch) + kPoseidonPre +
+                          kPoseidonTrace + interaction_reads(kPoseidonFracs, kPoseidonBatch) + 8;
 constexpr int kDomainThreads = 128;
 
 enum Flavour { kWithPoseidon = 0, kWithoutPoseidon = 1 };
@@ -57,22 +82,16 @@ __device__ __forceinline__ Q load_q(const int64_t* p) {
   return Q{(uint32_t)p[0], (uint32_t)p[1], (uint32_t)p[2], (uint32_t)p[3]};
 }
 
-// The sample the k-th entry of the index table names, in one proof's row.
-__device__ __forceinline__ Q sample(const int64_t* row, const int32_t* tab, int k) {
-  return load_q(row + 4 * (int64_t)__ldg(tab + k));
-}
-
-// One proof's samples through the index table: a component's masks start
-// at table positions pre0, tr0 and ext0; a non-last interaction mask m is
-// four entries (one a column), the last one eight (previous then current
-// row, column by column), as the eager _Eval reads them.
+// One proof's samples in index-table order (the warp stages them in shared
+// memory): a component's masks start at table positions pre0, tr0 and ext0;
+// a non-last interaction mask m is four entries (one a column), the last one
+// eight (previous then current row, column by column), as the eager _Eval
+// reads them.
 struct CheckSrc {
-  const int64_t* row;
-  const int32_t* tab;
+  const Q* smp;
   int pre0, tr0, ext0;
-  Q dinv;
 
-  __device__ __forceinline__ Q at(int k) const { return sample(row, tab, k); }
+  __device__ __forceinline__ Q at(int k) const { return smp[k]; }
   __device__ __forceinline__ Q pre(int i) const { return at(pre0 + i); }
   __device__ __forceinline__ Q tr(int i) const { return at(tr0 + i); }
   __device__ __forceinline__ Q ext(int m) const {
@@ -84,11 +103,11 @@ struct CheckSrc {
     prev = q_combine4(at(k), at(k + 2), at(k + 4), at(k + 6));
     cur = q_combine4(at(k + 1), at(k + 3), at(k + 5), at(k + 7));
   }
-  __device__ __forceinline__ Q scale(Q v) const { return q_mul(v, dinv); }
 };
 
 // One point j of the domain: row i of a (rows, n) block at i * n + j.
 struct DomainSrc {
+  using V = Q;
   const int64_t* pre_rows;
   const int64_t* tr_rows;
   const int64_t* inter_rows;
@@ -116,13 +135,191 @@ struct CheckArgs {
   uint32_t inv2n[2];  // 1 / 2^log_size of each component
 };
 
-// One proof's check: the thread body of composition_check_kernel.
+// ---------------------------------------------------------------------------
+// the check kernel's warp
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ Q shfl_q(Q v, int src, int width = 32) {
+  return Q{__shfl_sync(kFull, v.a, src, width), __shfl_sync(kFull, v.b, src, width),
+           __shfl_sync(kFull, v.c, src, width), __shfl_sync(kFull, v.d, src, width)};
+}
+
+__device__ __forceinline__ Q shfl_xor_q(Q v, int m) {
+  return Q{__shfl_xor_sync(kFull, v.a, m), __shfl_xor_sync(kFull, v.b, m), __shfl_xor_sync(kFull, v.c, m),
+           __shfl_xor_sync(kFull, v.d, m)};
+}
+
+__device__ __forceinline__ Q q_select(bool c, Q x, Q y) {
+  return Q{c ? x.a : y.a, c ? x.b : y.b, c ? x.c : y.c, c ? x.d : y.d};
+}
+
+// v[lane] for lane < K, from values every lane holds (a select chain, no
+// indexed register array).
+template <int K>
+__device__ __forceinline__ Q pick(const Q (&v)[K], int lane) {
+  Q r = v[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k) r = q_select(lane == k, v[k], r);
+  return r;
+}
+
+// mds16 over each half-warp, word w = lane & 15 on lane w: the M4 of the
+// lane's block of four (its words by shuffle), then the sum of its position
+// over the four blocks (xor 4 and 8).
+__device__ __forceinline__ Q mds16_lanes(Q v, int lane) {
+  const int base = lane & ~3, pos = lane & 3;
+  const Q x0 = shfl_q(v, base), x1 = shfl_q(v, base + 1), x2 = shfl_q(v, base + 2), x3 = shfl_q(v, base + 3);
+  const Q t0 = q_add(x0, x1), t1 = q_add(x2, x3);
+  const Q t2 = q_add(q_add(x1, x1), t1), t3 = q_add(q_add(x3, x3), t0);
+  const Q t1d = q_add(t1, t1), t0d = q_add(t0, t0);
+  const Q t4 = q_add(q_add(t1d, t1d), t3), t5 = q_add(q_add(t0d, t0d), t2);
+  const Q t = q_select(pos == 0, q_add(t3, t5), q_select(pos == 1, t5, q_select(pos == 2, q_add(t2, t4), t4)));
+  Q sum = q_add(t, shfl_xor_q(t, 4));
+  sum = q_add(sum, shfl_xor_q(sum, 8));
+  return q_add(t, sum);
+}
+
+// The 14 partial rounds' linear chain over each half-warp from the input
+// state st (word w = lane & 15 on lane w): in round r word 0 is first kept
+// (xr, on lane r: the S-box input less its constant), then replaced by the
+// committed inter[r] (inter_w: word w of inter), then the internal matrix.
+// Returns the state after round 14.
+__device__ __forceinline__ Q partial_chain(Q st, Q inter_w, int w, Q& xr) {
+  using poseidon2_m31::mul_pow2;
+  xr = Q{};
+  const int k = w == 0 ? 1 : w + 1;  // word 0's 3 s is 2 s + s
+#pragma unroll
+  for (int r = 0; r < 14; ++r) {
+    xr = q_select(w == r, shfl_q(st, 0, 16), xr);
+    st = q_select(w == 0, shfl_q(inter_w, r, 16), st);
+    Q total = st;
+#pragma unroll
+    for (int m = 1; m < 16; m <<= 1) total = q_add(total, shfl_xor_q(total, m));
+    const Q d{mul_pow2(st.a, k), mul_pow2(st.b, k), mul_pow2(st.c, k), mul_pow2(st.d, k)};
+    st = q_add(total, q_select(w == 0, q_add(d, st), d));
+  }
+  return st;
+}
+
+// The weighted sum of one proof's constraints: per component, the lane's
+// constraints each times its power of rc (pw, the proof's table), summed.
+template <int C>
+struct Weighted {
+  const Q* pw;
+  const int32_t* lanes;  // the lane table: (component << 16 | exponent), or -1, a stage x 32 lanes
+  int lane;
+  Q acc[C];
+
+  __device__ __forceinline__ void add(int stage, Q c) {
+    const int32_t e = __ldg(lanes + 32 * stage + lane);
+    const Q t = q_mul(c, e >= 0 ? pw[e & 0xFFFF] : Q{});
+#pragma unroll
+    for (int k = 0; k < C; ++k) acc[k] = q_select((e >> 16) == k, q_add(acc[k], t), acc[k]);
+  }
+};
+
+// The poseidon AIR's round blocks (kPoseidonLanes: lanes 0-15 the first
+// round, then the first full round, lanes 16-31 the full round's output,
+// lanes 0-13 the partial rounds' S-boxes and lanes 16-31 the partial rounds'
+// output), and `misc` (the plonk AIR's and the logup constraints, on every
+// lane) on lanes 0-7 beside the full round's output.
+constexpr LaneBlock kFirstLanes = lane_block(kPoseidonLanes, 1, kFirstRound);
+constexpr LaneBlock kFullLanes = lane_block(kPoseidonLanes, 1, kFullRound);
+constexpr LaneBlock kFullOutLanes = lane_block(kPoseidonLanes, 1, kFullRoundOut);
+constexpr LaneBlock kPartialLanes = lane_block(kPoseidonLanes, 1, kPartialRound);
+constexpr LaneBlock kPartialOutLanes = lane_block(kPoseidonLanes, 1, kPartialOut);
+// a round block's word w is on lane w, or on lane 16 + w beside another block
+static_assert(kFirstLanes.lane0 == 0 && kFullLanes.lane0 == 0 && kPartialLanes.lane0 == 0 &&
+                  kFullOutLanes.lane0 == 16 && kPartialOutLanes.lane0 == 16,
+              "poseidon_lanes computes a round block on lanes 0-15 or 16-31");
+static_assert(kPartialLanes.stage == kPartialOutLanes.stage, "the partial rounds and their output share a stage");
+// misc[k] on lane k: the plonk AIR's constraints, then the poseidon logup
+static_assert(lane_block(kPoseidonLanes, 0, kEnforceCm31).lane0 == 0 &&
+                  lane_block(kPoseidonLanes, 0, kGate).lane0 == 3 && lane_block(kPoseidonLanes, 0, kLogup).lane0 == 4 &&
+                  lane_block(kPoseidonLanes, 1, kLogup).lane0 == 6,
+              "misc is the plonk AIR's constraints, then the poseidon logup, from lane 0");
+static_assert(lane_block(kPoseidonLanes, 0, kEnforceCm31).stage == kFullOutLanes.stage &&
+                  lane_block(kPoseidonLanes, 0, kGate).stage == kFullOutLanes.stage &&
+                  lane_block(kPoseidonLanes, 0, kLogup).stage == kFullOutLanes.stage &&
+                  lane_block(kPoseidonLanes, 1, kLogup).stage == kFullOutLanes.stage,
+              "misc shares the full round output's stage");
+static_assert(kFirstLanes.stage != kFullLanes.stage && kFirstLanes.stage != kFullOutLanes.stage &&
+                  kFirstLanes.stage != kPartialLanes.stage && kFullLanes.stage != kFullOutLanes.stage &&
+                  kFullLanes.stage != kPartialLanes.stage && kFullOutLanes.stage != kPartialLanes.stage,
+              "each sum.add below has a stage of its own");
+// the stages as scalars, for device code
+constexpr int kFirstStage = kFirstLanes.stage, kFullStage = kFullLanes.stage, kFullOutStage = kFullOutLanes.stage,
+              kPartialStage = kPartialLanes.stage, kNpStage = lane_block(kNpLanes, 0, kA4).stage;
+// the without-Poseidon AIR's constraints on lanes 0-6 of one stage, in order
+static_assert(lane_block(kNpLanes, 0, kA4).lane0 == 0 && lane_block(kNpLanes, 0, kGate).lane0 == 4 &&
+                  lane_block(kNpLanes, 0, kLogup).lane0 == 5 && lane_block(kNpLanes, 0, kGate).stage == kNpStage &&
+                  lane_block(kNpLanes, 0, kLogup).stage == kNpStage,
+              "check_warp puts the without-Poseidon AIR's k-th constraint on lane k of one stage");
+
+template <int C, int K>
+__device__ __forceinline__ void poseidon_lanes(const CheckSrc& s, int lane, const Q (&misc)[K], Weighted<C>& sum) {
+  const int w = lane & 15;
+  const bool hi = lane >= 16;
+  const Q one = Q{1u, 0u, 0u, 0u};
+  const Q is_first = s.pre(0), is_full = s.pre(2);
+  const Q is_partial = q_sub(q_sub(one, is_first), is_full);
+  const Q swap = s.tr(kInter);
+  const Q in_w = s.tr(kIn + w), inter_w = s.tr(kInter + w), out_w = s.tr(kOut + w);
+  const Q rc0_w = s.pre(kRc0 + w), rc1_w = s.pre(kRc1 + w);
+
+  // the first round's mds16 of the swapped input (lanes 0-15), and
+  // mds16(inter) for the full round (lanes 16-31)
+  const Q swapped = q_add(q_mul(in_w, q_sub(one, swap)), q_mul(s.tr(kIn + ((w + 8) & 15)), swap));
+  const Q m = mds16_lanes(q_select(hi, inter_w, swapped), lane);
+  sum.add(kFirstStage, q_mul(is_first, q_sub(m, out_w)));
+
+  // the S-boxes, in + rc0 (lanes 0-15: inter - pow5) and
+  // mds16(inter) + rc1 (lanes 16-31)
+  const Q y = q_pow5(q_add(q_select(hi, m, in_w), q_select(hi, rc1_w, rc0_w)));
+  sum.add(kFullStage, q_mul(is_full, q_sub(inter_w, y)));
+
+  // out - mds16(pow5(...)) (lanes 16-31); misc on lanes 0-7
+  const Q full = q_mul(is_full, q_sub(out_w, mds16_lanes(y, lane)));
+  sum.add(kFullOutStage, q_select(hi, full, pick(misc, lane)));
+
+  // the partial rounds' S-boxes (lanes 0-13) and output (16-31)
+  Q xr;
+  const Q st = partial_chain(in_w, inter_w, w, xr);
+  const Q part = q_select(hi, q_sub(out_w, st), q_sub(inter_w, q_pow5(q_add(xr, rc0_w))));
+  sum.add(kPartialStage, q_mul(is_partial, part));
+}
+
+// One proof's check on a warp: the body of composition_check_kernel.  pw and
+// smp are the warp's power table and staged samples in shared memory.
 template <int FLAVOUR>
-__device__ __forceinline__ void check_proof(const int64_t* row, const int32_t* tab, const int64_t* par,
-                                            const CheckArgs& a, bool* ok, int64_t* out) {
+__device__ __forceinline__ void check_warp(const int64_t* row, const int32_t* tab, const int64_t* par,
+                                           const CheckArgs& a, int lane, Q* pw, Q* smp, bool* ok, int64_t* out) {
   constexpr int kComponents = FLAVOUR == kWithPoseidon ? 2 : 1;
+  constexpr int kN = FLAVOUR == kWithPoseidon ? n_constraints(kPlonkConstraints) + n_constraints(kPoseidonConstraints)
+                                              : n_constraints(kNpConstraints);
+  constexpr int kPlonkReads = kPlonkPre + kPlonkTrace + interaction_reads(kPlonkFracs, kPlonkBatch);
+  constexpr int kPoseidonReads = kPoseidonPre + kPoseidonTrace + interaction_reads(kPoseidonFracs, kPoseidonBatch);
+  constexpr int kNpReads = kNpPre + kNpTrace + interaction_reads(kNpFracs, kNpBatch);
+  constexpr int kCompositionPos = FLAVOUR == kWithPoseidon ? kPlonkReads + kPoseidonReads : kNpReads;
   const Q z = load_q(par + 4 * kComponents), alpha = load_q(par + 4 * (kComponents + 1));
   const Q rc = load_q(par + 4 * (kComponents + 2)), x = load_q(par + 4 * (kComponents + 3));
+  // the proof's samples in table order, one load a lane at a time
+  for (int k = lane; k < kCompositionPos + 8; k += 32) smp[k] = load_q(row + 4 * (int64_t)__ldg(tab + k));
+
+  // the powers rc^e, e < kN: lane l computes rc^l, then each 32 more
+  {
+    Q p = Q{1u, 0u, 0u, 0u}, sq = rc;
+#pragma unroll
+    for (int bit = 0; bit < 5; ++bit) {
+      p = q_select((lane >> bit) & 1, q_mul(p, sq), p);
+      sq = q_mul(sq, sq);
+    }
+#pragma unroll
+    for (int base = 0; base < kN; base += 32) {
+      if (base + lane < kN) pw[base + lane] = p;
+      if (base + 32 < kN) p = q_mul(p, sq);
+    }
+  }
 
   // one doubling chain: each component's vanishing value on the way to
   // x^(2^(bound-2))
@@ -136,32 +333,46 @@ __device__ __forceinline__ void check_proof(const int64_t* row, const int32_t* t
     if (k == a.x_steps) break;
     v = q_double_x(v);
   }
+  __syncwarp();  // the samples and the power table
 
-  // the components' masks, then the 8 composition samples, in table order
-  Horner h{q_zero(), rc};
-  int pos = 0;
+  Weighted<kComponents> sum{pw, tab + kCompositionPos + 8, lane, {}};
+#pragma unroll
+  for (int c = 0; c < kComponents; ++c) sum.acc[c] = Q{};
   if constexpr (FLAVOUR == kWithPoseidon) {
-    const CheckSrc plonk{row, tab, pos, pos + kPlonkPre, pos + kPlonkPre + kPlonkTrace, q_inv(van[0])};
-    evaluate_plonk(plonk, h, z, alpha, q_mul_m31(load_q(par), a.inv2n[0]));
-    pos += kPlonkPre + kPlonkTrace + interaction_reads(kPlonkFracs, kPlonkBatch);
-    const CheckSrc poseidon{row, tab, pos, pos + kPoseidonPre, pos + kPoseidonPre + kPoseidonTrace,
-                            q_inv(van[1])};
-    evaluate_poseidon(poseidon, h, z, alpha, q_mul_m31(load_q(par + 4), a.inv2n[1]));
-    pos += kPoseidonPre + kPoseidonTrace + interaction_reads(kPoseidonFracs, kPoseidonBatch);
+    const CheckSrc plonk{smp, 0, kPlonkPre, kPlonkPre + kPlonkTrace};
+    Capture<n_constraints(kPlonkConstraints)> pc;
+    evaluate_plonk(plonk, pc, z, alpha, q_mul_m31(load_q(par), a.inv2n[0]));
+    const CheckSrc poseidon{smp, kPlonkReads, kPlonkReads + kPoseidonPre,
+                            kPlonkReads + kPoseidonPre + kPoseidonTrace};
+    Capture<2> lc;
+    {
+      Component<CheckSrc, Capture<2>, kPoseidonFracs, kPoseidonBatch> ev(poseidon, lc, z, alpha,
+                                                                        q_mul_m31(load_q(par + 4), a.inv2n[1]));
+      poseidon_logup(poseidon, ev);
+    }
+    const Q misc[8] = {pc.v[0], pc.v[1], pc.v[2], pc.v[3], pc.v[4], pc.v[5], lc.v[0], lc.v[1]};
+    poseidon_lanes(poseidon, lane, misc, sum);
   } else {
-    const CheckSrc np{row, tab, pos, pos + kNpPre, pos + kNpPre + kNpTrace, q_inv(van[0])};
-    evaluate_plonk_np(np, h, z, alpha, q_mul_m31(load_q(par), a.inv2n[0]));
-    pos += kNpPre + kNpTrace + interaction_reads(kNpFracs, kNpBatch);
+    const CheckSrc np{smp, 0, kNpPre, kNpPre + kNpTrace};
+    Capture<kN> nc;
+    evaluate_plonk_np(np, nc, z, alpha, q_mul_m31(load_q(par), a.inv2n[0]));
+    sum.add(kNpStage, pick(nc.v, lane));
   }
 
+  // each component's sum over 1 / vanishing, summed over the warp
+  Q got = Q{};
+#pragma unroll
+  for (int c = 0; c < kComponents; ++c) got = q_add(got, q_mul(sum.acc[c], q_inv(van[c])));
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) got = q_add(got, shfl_xor_q(got, m));
+  if (lane != 0) return;
+
   // the committed split values: left + right * x^(2^(bound-2))
-  const Q left = q_combine4(sample(row, tab, pos), sample(row, tab, pos + 1), sample(row, tab, pos + 2),
-                            sample(row, tab, pos + 3));
-  const Q right = q_combine4(sample(row, tab, pos + 4), sample(row, tab, pos + 5), sample(row, tab, pos + 6),
-                             sample(row, tab, pos + 7));
+  const int pos = kCompositionPos;
+  const Q left = q_combine4(smp[pos], smp[pos + 1], smp[pos + 2], smp[pos + 3]);
+  const Q right = q_combine4(smp[pos + 4], smp[pos + 5], smp[pos + 6], smp[pos + 7]);
   const Q expected = q_add(left, q_mul(right, v));
-  const Q got = h.acc;
-  *ok = got.a == expected.a && got.b == expected.b && got.c == expected.c && got.d == expected.d;
+  *ok = q_eq(got, expected);
   out[0] = got.a;
   out[1] = got.b;
   out[2] = got.c;
@@ -203,10 +414,13 @@ __global__ void __launch_bounds__(kCheckThreads)
 composition_check_kernel(const int64_t* __restrict__ samples, const int32_t* __restrict__ tab,
                          const int64_t* __restrict__ params, int64_t batch, CheckArgs a,
                          bool* __restrict__ ok, int64_t* __restrict__ value) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  check_proof<FLAVOUR>(samples + b * a.n_samples * 4, tab, params + b * a.n_params * 4, a, ok + b,
-                       value + 4 * b);
+  __shared__ Q pw[kCheckWarps][kMaxConstraints];
+  __shared__ Q smp[kCheckWarps][kMaxReads];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t b = (int64_t)blockIdx.x * kCheckWarps + warp;
+  if (b >= batch) return;  // the whole warp
+  check_warp<FLAVOUR>(samples + b * a.n_samples * 4, tab, params + b * a.n_params * 4, a, lane, pw[warp], smp[warp],
+                      ok + b, value + 4 * b);
 }
 
 template <int AIR>
@@ -236,7 +450,7 @@ extern "C" int composition_check(int flavour, const void* samples, int64_t n_sam
   if (batch == 0) return 0;
   CheckArgs a{(int)n_samples, (int)n_params, {(int)steps[0], (int)steps[1]}, (int)steps[2],
               {(uint32_t)inv2n[0], (uint32_t)inv2n[1]}};
-  const unsigned blocks = (unsigned)((batch + kCheckThreads - 1) / kCheckThreads);
+  const unsigned blocks = (unsigned)((batch + kCheckWarps - 1) / kCheckWarps);
   cudaStream_t s = (cudaStream_t)stream;
   const int64_t* smp = (const int64_t*)samples;
   const int32_t* tab = (const int32_t*)table;

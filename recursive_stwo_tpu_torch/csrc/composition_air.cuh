@@ -20,8 +20,17 @@
 //
 // A source supplies a component's masks (ops below): the verifier's reads one
 // proof's samples at the OODS point through an index table, the prover's one
-// point of the evaluation domain from LDE rows.  It also scales a
-// constraint by the component's 1/vanishing.
+// point of the evaluation domain from LDE rows.  A sink takes each
+// constraint: `Horner` (the domain kernel) folds it, scaled by the source's
+// 1/vanishing, into acc * rc + c; `Capture` (the check kernel) keeps it, for
+// the check weights every constraint by its power of rc (acc = sum of c_i
+// rc^(n-1-i) over M31, the same residue whatever the order of the sum).
+//
+// kPlonkConstraints, kPoseidonConstraints and kNpConstraints below list each
+// AIR's constraints in emission order as (kind, count) blocks: the order the
+// straight-line evaluators emit and the check kernel's lane table
+// (ops/composition_cuda.py `AIR_CONSTRAINTS`, `lane_table`, which a CPU test
+// holds to this table and to the reference's emission) weights.
 #pragma once
 
 #include <cstdint>
@@ -78,8 +87,70 @@ __device__ __forceinline__ void internal16(State& s) {
   for (int k = 0; k < 4; ++k) poseidon2_m31::internal16(s.l[k]);
 }
 
+// Constraint kinds (ops/composition_cuda.py KINDS, in this order).
+enum Kind { kEnforceCm31 = 0, kGate, kLogup, kFirstRound, kFullRound, kFullRoundOut, kPartialRound, kPartialOut, kA4 };
+struct Block {
+  Kind kind;
+  int count;
+};
+constexpr Block kPlonkConstraints[] = {{kEnforceCm31, 3}, {kGate, 1}, {kLogup, 2}};
+constexpr Block kPoseidonConstraints[] = {{kFirstRound, 16}, {kFullRound, 16}, {kFullRoundOut, 16},
+                                          {kPartialRound, 14}, {kPartialOut, 16}, {kLogup, 2}};
+constexpr Block kNpConstraints[] = {{kA4, 4}, {kGate, 1}, {kLogup, 2}};
+
+template <int K>
+__host__ __device__ constexpr int n_constraints(const Block (&blocks)[K]) {
+  int n = 0;
+  for (int i = 0; i < K; ++i) n += blocks[i].count;
+  return n;
+}
+
+// The check kernel's lanes (composition.cu `check_warp`, `poseidon_lanes`):
+// each block of one component's constraints of one kind, in emission order,
+// on lanes lane0 .. lane0 + count - 1 of one stage.  The kernel takes its
+// stages and lanes from here (static_asserts tie its code to the lanes), and
+// ops/composition_cuda.py `LANE_BLOCKS`, which gives each (stage, lane) its
+// power of rc, is this table (a CPU test parses it).
+struct LaneBlock {
+  int stage, lane0, component;
+  Kind kind;
+  int count;
+};
+constexpr LaneBlock kPoseidonLanes[] = {
+    {0, 0, 1, kFirstRound, 16},   {1, 0, 1, kFullRound, 16},    {2, 0, 0, kEnforceCm31, 3}, {2, 3, 0, kGate, 1},
+    {2, 4, 0, kLogup, 2},         {2, 6, 1, kLogup, 2},         {2, 16, 1, kFullRoundOut, 16},
+    {3, 0, 1, kPartialRound, 14}, {3, 16, 1, kPartialOut, 16}};
+constexpr LaneBlock kNpLanes[] = {{0, 0, 0, kA4, 4}, {0, 4, 0, kGate, 1}, {0, 5, 0, kLogup, 2}};
+
+// The block of (component, kind) in a lane table; stage -1 if none.
+template <int K>
+__host__ __device__ constexpr LaneBlock lane_block(const LaneBlock (&t)[K], int component, Kind kind) {
+  for (int i = 0; i < K; ++i) {
+    if (t[i].component == component && t[i].kind == kind) return t[i];
+  }
+  return LaneBlock{-1, -1, component, kind, 0};
+}
+
+// acc = acc * rc + c / vanishing, from acc = 0 (the domain kernel).
 struct Horner {
   Q acc, rc;
+
+  template <class Src>
+  __device__ __forceinline__ void emit(const Src& s, Q v) {
+    acc = q_add(q_mul(acc, rc), s.scale(v));
+  }
+};
+
+// The first K constraints emitted, unscaled (the check kernel).
+template <int K>
+struct Capture {
+  Q v[K];
+  int n = 0;
+
+  template <class Src>
+  __device__ __forceinline__ void emit(const Src&, Q c) {
+    v[n++] = c;
+  }
 };
 
 // Interaction masks a component of n fractions in batches of bs reads: one
@@ -89,19 +160,20 @@ __host__ __device__ constexpr int interaction_reads(int n, int bs) { return 4 * 
 // One component (one AIR over one table): `Src` has pre(i), tr(i) (the
 // component's i-th preprocessed / trace mask), ext(m) (the m-th interaction
 // mask, four columns combined), ext_pair(m, prev, cur) (its previous and
-// current row) and scale(v) (v / vanishing).  N fractions, batched by BS.
-template <class Src, int N, int BS>
+// current row) and, for a Horner sink, scale(v) (v / vanishing).  N
+// fractions, batched by BS.
+template <class Src, class Sink, int N, int BS>
 struct Component {
   const Src& src;
-  Horner& h;
+  Sink& h;
   Q z, alpha, alpha2, shift;  // lookup elements, alpha^2 and the cumsum_shift
   Q num[N], den[N];
   int n;
 
-  __device__ __forceinline__ Component(const Src& s, Horner& hh, Q z_, Q alpha_, Q shift_)
+  __device__ __forceinline__ Component(const Src& s, Sink& hh, Q z_, Q alpha_, Q shift_)
       : src(s), h(hh), z(z_), alpha(alpha_), alpha2(q_mul(alpha_, alpha_)), shift(shift_), n(0) {}
 
-  __device__ __forceinline__ void emit(Q v) { h.acc = q_add(q_mul(h.acc, h.rc), src.scale(v)); }
+  __device__ __forceinline__ void emit(Q v) { h.emit(src, v); }
 
   // add_to_relation: values[0] + alpha values[1] (+ alpha^2 values[2]) - z
   __device__ __forceinline__ void relation(Q mult, Q v0, Q v1) {
@@ -150,9 +222,9 @@ struct Component {
 // ---------------------------------------------------------------------------
 constexpr int kPlonkPre = 10, kPlonkTrace = 12, kPlonkFracs = 4, kPlonkBatch = 2;
 
-template <class Src>
-__device__ __forceinline__ void evaluate_plonk(const Src& s, Horner& h, Q z, Q alpha, Q shift) {
-  Component<Src, kPlonkFracs, kPlonkBatch> ev(s, h, z, alpha, shift);
+template <class Src, class Sink>
+__device__ __forceinline__ void evaluate_plonk(const Src& s, Sink& h, Q z, Q alpha, Q shift) {
+  Component<Src, Sink, kPlonkFracs, kPlonkBatch> ev(s, h, z, alpha, shift);
   const Q a_wire = s.pre(0), b_wire = s.pre(1), c_wire = s.pre(2), op = s.pre(3);
   const Q mult_a = s.pre(4), mult_b = s.pre(5), mult_c = s.pre(6);
   const Q poseidon_wire = s.pre(7), mult_poseidon = s.pre(8), enforce_c_m31 = s.pre(9);
@@ -181,9 +253,9 @@ __device__ __forceinline__ void evaluate_plonk(const Src& s, Horner& h, Q z, Q a
 // ---------------------------------------------------------------------------
 constexpr int kNpPre = 8, kNpTrace = 12, kNpFracs = 3, kNpBatch = 2;
 
-template <class Src>
-__device__ __forceinline__ void evaluate_plonk_np(const Src& s, Horner& h, Q z, Q alpha, Q shift) {
-  Component<Src, kNpFracs, kNpBatch> ev(s, h, z, alpha, shift);
+template <class Src, class Sink>
+__device__ __forceinline__ void evaluate_plonk_np(const Src& s, Sink& h, Q z, Q alpha, Q shift) {
+  Component<Src, Sink, kNpFracs, kNpBatch> ev(s, h, z, alpha, shift);
   const Q a_wire = s.pre(0), b_wire = s.pre(1), c_wire = s.pre(2);
   const Q op1 = s.pre(3), op2 = s.pre(4), op3 = s.pre(5), op4 = s.pre(6), mult_c = s.pre(7);
   Q a4[4], b4[4], c4[4];
@@ -252,13 +324,12 @@ __device__ __forceinline__ Q quarter(const Src& s, int base, int i) {
                     s.tr(base + 4 * i + 3));
 }
 
-template <class Src>
-__device__ __forceinline__ void evaluate_poseidon(const Src& s, Horner& h, Q z, Q alpha, Q shift) {
-  Component<Src, kPoseidonFracs, kPoseidonBatch> ev(s, h, z, alpha, shift);
+// The poseidon AIR's 78 round constraints (every block but the logup).
+template <class Src, class Ev>
+__device__ __forceinline__ void poseidon_rounds(const Src& s, Ev& ev) {
   const Q one = q_one();
-  const Q is_first = s.pre(0), is_last = s.pre(1), is_full = s.pre(2);
-  const Q is_not_first = q_sub(one, is_first), is_not_last = q_sub(one, is_last);
-  const Q is_partial = q_sub(is_not_first, is_full);
+  const Q is_first = s.pre(0), is_full = s.pre(2);
+  const Q is_partial = q_sub(q_sub(one, is_first), is_full);
   const Q swap_bit_value = s.tr(kInter);
 
   // first round: swap halves (in_state rolled by 8 where the bit is set),
@@ -310,8 +381,15 @@ __device__ __forceinline__ void evaluate_poseidon(const Src& s, Horner& h, Q z, 
 #pragma unroll
     for (int i = 0; i < 16; ++i) ev.emit(q_mul(is_partial, q_sub(s.tr(kOut + i), get(st, i))));
   }
+}
 
-  // lookup relations
+// The poseidon AIR's lookup relations and their 2 logup constraints.
+template <class Src, class Ev>
+__device__ __forceinline__ void poseidon_logup(const Src& s, Ev& ev) {
+  const Q one = q_one();
+  const Q is_first = s.pre(0), is_last = s.pre(1);
+  const Q is_not_first = q_sub(one, is_first), is_not_last = q_sub(one, is_last);
+  const Q swap_bit_value = s.tr(kInter);
   const Q round_id = s.pre(3);
   const Q ext1 = s.pre(kExt), ext2 = s.pre(kExt + 1), ext1_nz = s.pre(kExt + 2), ext2_nz = s.pre(kExt + 3);
   const Q in_left_id = q_add(round_id, round_id);
@@ -333,6 +411,13 @@ __device__ __forceinline__ void evaluate_poseidon(const Src& s, Horner& h, Q z, 
               quarter(s, kOut, 2), quarter(s, kOut, 3));
   ev.relation(q_mul(is_first, is_not_last), swap_bit_value, s.pre(kRc0));
   ev.finalize();
+}
+
+template <class Src, class Sink>
+__device__ __forceinline__ void evaluate_poseidon(const Src& s, Sink& h, Q z, Q alpha, Q shift) {
+  Component<Src, Sink, kPoseidonFracs, kPoseidonBatch> ev(s, h, z, alpha, shift);
+  poseidon_rounds(s, ev);
+  poseidon_logup(s, ev);
 }
 
 }  // namespace composition

@@ -4,8 +4,10 @@
 // fold.cu.
 //
 // The header holds no __constant__ data, so more than one translation unit
-// may include it.  A product is one widening IMAD; two folds with
-// 2^31 == 1 (mod p) and one conditional subtract give the canonical residue.
+// may include it.  Every operation takes and gives canonical residues, and
+// is written for a short dependent chain: a reduction is an unsigned minimum,
+// not a compare and a select, and a product is one widening IMAD and one fold
+// with 2^31 == 1 (mod p).
 #pragma once
 
 #include <cstdint>
@@ -14,24 +16,28 @@ namespace poseidon2_m31 {
 
 constexpr uint32_t P = 0x7FFFFFFFu;
 
-// a, b in [0, p): a + b < 2^32, one conditional subtract.
+// a, b in [0, p): a + b < 2p <= 2^32 - 2, and of s and s - p (wrapping) the
+// unsigned minimum is the residue.  Both sums issue together, so an add is
+// two dependent steps deep.
 __device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) {
-  uint32_t s = a + b;
-  return s >= P ? s - P : s;
+  const uint32_t s = a + b;
+  return min(s, s - P);
 }
 
+// a - b: of a - b and a - b + p (both wrapping) the unsigned minimum.
 __device__ __forceinline__ uint32_t sub(uint32_t a, uint32_t b) {
-  return a >= b ? a - b : a + P - b;
+  const uint32_t d = a - b;
+  return min(d, d + P);
 }
 
 __device__ __forceinline__ uint32_t neg(uint32_t a) { return a ? P - a : 0u; }
 
-// a, b in [0, p): x = a*b < 2^62.  First fold < 2^32, second fold <= 2^31.
+// a, b in [0, p): x = a b <= (p - 1)^2, so (x & p) + (x >> 31) <= p + (p - 2)
+// < 2p, and one fold leaves a value add's minimum reduces.
 __device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
-  uint64_t x = (uint64_t)a * b;
-  x = (x & P) + (x >> 31);
-  uint32_t r = (uint32_t)((x & P) + (x >> 31));
-  return r >= P ? r - P : r;
+  const uint64_t x = (uint64_t)a * b;
+  const uint32_t r = ((uint32_t)x & P) + (uint32_t)(x >> 31);
+  return min(r, r - P);
 }
 
 // a^(p-2) by the addition chain of core/m31.py::inv; inv(0) = 0.

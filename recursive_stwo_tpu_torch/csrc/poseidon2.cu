@@ -28,13 +28,13 @@ constexpr int kThreads = 128;
 // lane-major in (16, R, 128) tiles; here a state is a row of 16 words,
 // (N, 16) row-major, the layout the transcript and the Merkle commits hand
 // over, so there is no transpose.  Two schedules of the same arithmetic;
-// ops/poseidon_cuda.py picks one by N: the quad schedule below 2^16 rows,
+// ops/poseidon_cuda.py picks one by N: the quad schedule below 2^15 rows,
 // the tile schedule from there up.  Measured on an H100 SXM at 700 W
-// (tools/kernel_times.py, profiler device time): quad 7.2 us against tile
-// 23.4 us at 1024 rows, where a lane's chain of 22 rounds is the time; the
-// two cross between 2^15 and 2^16 rows (21.5 / 26.7 us, 37.9 / 36.6 us);
-// from 2^17 up the tile schedule wins by 14-22% (0.435 / 0.532 ms at 2^20,
-// 3.26 / 4.19 ms at 2^23), since the quad lanes repeat word 0's S-box of
+// (tools/kernel_times.py, profiler device time): quad 4.3 us against tile
+// 10.0 us at 1024 rows, where a lane's chain of 22 rounds is the time; the
+// two cross between 2^14 and 2^15 rows (8.3 / 11.2 us, 13.1 / 12.6 us);
+// from 2^16 up the tile schedule wins by 11-25% (0.276 / 0.344 ms at 2^20,
+// 2.04 / 2.72 ms at 2^23), since the quad lanes repeat word 0's S-box of
 // every partial round and add 8 shuffles to each mds16.
 //
 // Quad schedule: four lanes to a state.  Lane q of a quad holds words

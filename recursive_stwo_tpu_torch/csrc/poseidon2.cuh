@@ -7,8 +7,8 @@
 //
 // The TPU kernel splits every product into 16-bit limbs because the TPU
 // vector unit has no 32x32->64 multiply.  Here a product is one widening
-// IMAD; two folds with 2^31 == 1 (mod p) and one conditional subtract give
-// the canonical residue (m31.cuh, which also holds the linear layers).
+// IMAD and one fold with 2^31 == 1 (mod p) (m31.cuh, which also holds the
+// linear layers).
 #pragma once
 
 #include <cstdint>
@@ -74,6 +74,12 @@ __device__ __forceinline__ void partial_round(uint32_t s[16], uint32_t rc) {
 // 4k..4k+3, so the quad index q is lane & 3).  Lane q holds words 4q..4q+3,
 // which is exactly block q of mds16's circ(2*M4, M4, M4, M4).  A sum over the
 // four blocks is two xor-shuffles; every lane of the warp must take part.
+// It is written for a short critical path, since K1's quad schedule and the
+// transcript kernel's chain both wait on one state's rounds.  The partial
+// rounds keep word 0 replicated on all four lanes: each lane computes the
+// real S-box while the quad sums the other fifteen words, and since word 0
+// after a round is total + 3 y = S15 + 4 y, the next S-box's input is
+// (S15 + rc) + 4 y, one rotation and one add after the S-box.
 // ---------------------------------------------------------------------------
 
 // Sum of v over the four lanes of this lane's quad, the same on all four.
@@ -85,16 +91,14 @@ __device__ __forceinline__ uint32_t quad_sum(uint32_t v) {
 // mds16 on the quad: the M4 of this lane's block locally (mds16's first
 // loop for g = q), then t[g][pos] + sum over g' of t[g'][pos].
 __device__ __forceinline__ void quad_mds16(uint32_t s[4]) {
-  uint32_t x0 = s[0], x1 = s[1], x2 = s[2], x3 = s[3];
-  uint32_t t0 = add(x0, x1);
-  uint32_t t1 = add(x2, x3);
-  uint32_t t2 = add(add(x1, x1), t1);
-  uint32_t t3 = add(add(x3, x3), t0);
-  uint32_t t1d = add(t1, t1);
-  uint32_t t0d = add(t0, t0);
-  uint32_t t4 = add(add(t1d, t1d), t3);
-  uint32_t t5 = add(add(t0d, t0d), t2);
-  uint32_t t[4] = {add(t3, t5), t5, add(t2, t4), t4};
+  const uint32_t x0 = s[0], x1 = s[1], x2 = s[2], x3 = s[3];
+  const uint32_t t0 = add(x0, x1);
+  const uint32_t t1 = add(x2, x3);
+  const uint32_t t2 = add(add(x1, x1), t1);
+  const uint32_t t3 = add(add(x3, x3), t0);
+  const uint32_t t4 = add(mul_pow2(t1, 2), t3);  // 4 t1 + t3
+  const uint32_t t5 = add(mul_pow2(t0, 2), t2);
+  const uint32_t t[4] = {add(t3, t5), t5, add(t2, t4), t4};
 #pragma unroll
   for (int pos = 0; pos < 4; ++pos) s[pos] = add(t[pos], quad_sum(t[pos]));
 }
@@ -108,18 +112,26 @@ __device__ __forceinline__ void quad_full_round(uint32_t s[4], uint4 rc) {
   quad_mds16(s);
 }
 
-// partial_round on the quad.  Word 0's S-box is computed on every lane and
-// kept on q = 0 only (a select, not a branch); word w = 4q + i then takes
-// total + w's diagonal term: 3 s for w = 0, the rotation by w + 1 otherwise.
-__device__ __forceinline__ void quad_partial_round(uint32_t s[4], int q, uint32_t rc) {
-  uint32_t s0 = pow5(add(s[0], rc));
-  s[0] = q == 0 ? s0 : s[0];
-  uint32_t total = quad_sum(add(add(s[0], s[1]), add(s[2], s[3])));
-  uint32_t d0 = q == 0 ? add(add(s[0], s[0]), s[0]) : mul_pow2(s[0], 4 * q + 1);
-  s[0] = add(total, d0);
-  s[1] = add(total, mul_pow2(s[1], 4 * q + 2));
-  s[2] = add(total, mul_pow2(s[2], 4 * q + 3));
-  s[3] = add(total, mul_pow2(s[3], 4 * q + 4));
+// The 14 partial rounds.  w0, word 0, on every lane of the quad; lane q's
+// own word 4q + k takes total + its rotation by 4q + k + 1 (lane 0's k = 0
+// slot is word 0's and is set from w0 at the end).
+__device__ __forceinline__ void quad_partial_rounds(uint32_t s[4], int q) {
+  uint32_t w0 = __shfl_sync(0xFFFFFFFFu, s[0], 0, 4);
+  uint32_t x = add(w0, PARTIAL_ROUNDS_RC[0]);
+#pragma unroll
+  for (int r = 0; r < 14; ++r) {
+    const uint32_t y = pow5(x);
+    // the other fifteen words, summed while the S-box runs
+    const uint32_t own0 = q == 0 ? 0u : s[0];
+    const uint32_t s15 = quad_sum(add(add(s[1], s[2]), add(s[3], own0)));
+    const uint32_t total = add(s15, y);
+    const uint32_t y4 = mul_pow2(y, 2);
+    w0 = add(s15, y4);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) s[k] = add(total, mul_pow2(s[k], 4 * q + k + 1));
+    if (r < 13) x = add(add(s15, PARTIAL_ROUNDS_RC[r + 1]), y4);
+  }
+  if (q == 0) s[0] = w0;
 }
 
 }  // namespace poseidon2_m31
@@ -127,14 +139,12 @@ __device__ __forceinline__ void quad_partial_round(uint32_t s[4], int q, uint32_
 // The whole permutation on one state held by a quad of lanes: lane q gives
 // and gets words 4q..4q+3.  rc_full[r][q] are lane q's constants of full
 // round r (the four first rounds, then the four last).
-__device__ __forceinline__ void poseidon2_m31_permute_quad(uint32_t s[4], int q,
-                                                           const uint4 (*rc_full)[4]) {
+__device__ __forceinline__ void poseidon2_m31_permute_quad(uint32_t s[4], int q, const uint4 (*rc_full)[4]) {
   using namespace poseidon2_m31;
   quad_mds16(s);
 #pragma unroll
   for (int r = 0; r < 4; ++r) quad_full_round(s, rc_full[r][q]);
-#pragma unroll
-  for (int r = 0; r < 14; ++r) quad_partial_round(s, q, PARTIAL_ROUNDS_RC[r]);
+  quad_partial_rounds(s, q);
 #pragma unroll
   for (int r = 4; r < 8; ++r) quad_full_round(s, rc_full[r][q]);
 }

@@ -16,6 +16,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,6 +45,18 @@ def library_path() -> str:
         with open(path, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libposeidon2_m31_{h.hexdigest()[:16]}.so")
+
+
+def ptxas_report(name: str) -> list:
+    """ptxas' report of every compiled kernel whose mangled name holds
+    `name` (one a template instance), read from the library's log:
+    [{"kernel", "registers", "stack_bytes", "spill_stores", "spill_loads"}]."""
+    with open(library_path() + ".log") as f:
+        log = f.read()
+    entries = re.findall(r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                         r"(\d+) bytes spill loads\n.*?Used (\d+) registers", log)
+    return [dict(kernel=k, registers=int(r), stack_bytes=int(st), spill_stores=int(ss), spill_loads=int(sl))
+            for k, st, ss, sl, r in entries if name in k]
 
 
 def _nvcc() -> str:
@@ -119,5 +132,7 @@ def load() -> ctypes.CDLL:
             lib.fold_phase.restype = ctypes.c_int
             lib.transcript_replay.argtypes = [i64p, i64p, vp]
             lib.transcript_replay.restype = ctypes.c_int
+            lib.latency_probe.argtypes = [i32, i64, vp, vp, vp]
+            lib.latency_probe.restype = ctypes.c_int
             _lib = lib
         return _lib

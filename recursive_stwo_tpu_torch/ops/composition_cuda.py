@@ -2,7 +2,7 @@
 
   check(spec, samples_flat, sums, lookup, random_coeff, oods_x)
       -> ((B,) bool, (B, 4) int64): the composition check at the OODS point
-      of a batch, one thread a proof; the twin of what XLA compiled from
+      of a batch, a warp a proof; the twin of what XLA compiled from
       recursive_stwo_tpu/verifier/composition.py `composition_check`
       (:533-582) and `composition_check_np` (:280-317).  The with-Poseidon
       pair (plonk then poseidon) or the without-Poseidon AIR, told apart by
@@ -25,7 +25,10 @@ host from `spec.sample_offsets` and cached per spec: entry k is the sample
 index of the k-th mask the eager evaluators read (`_Eval._gather`'s order:
 each component's preprocessed masks, trace masks, interaction masks, the
 last interaction mask's previous and current row column by column), then
-the 8 composition samples.
+the 8 composition samples.  The lane table follows it in the same device
+tensor (`lane_table`, `lane_words`): for each of the kernel's stages and
+lanes, the constraint the lane computes there, which fixes its power of
+random_coeff in the weighted sum that replaces the Horner fold.
 """
 
 from __future__ import annotations
@@ -59,6 +62,28 @@ FLAVOUR_AIRS = {
     WITHOUT_POSEIDON: ((PLONK_NP, (0, 0, 0)),),
 }
 N_COMPOSITION_SAMPLES = 8
+# csrc/composition_air.cuh's constraint kinds (its enum Kind, in order), and
+# each AIR's constraints in emission (Horner) order as (kind, count) blocks,
+# the twins of its kPlonkConstraints, kPoseidonConstraints, kNpConstraints
+KINDS = ("enforce_c_m31", "gate", "logup", "first round", "full round", "full round out", "partial round",
+         "partial out", "a^4 - b")
+AIR_CONSTRAINTS = {
+    PLONK: (("enforce_c_m31", 3), ("gate", 1), ("logup", 2)),
+    POSEIDON: (("first round", 16), ("full round", 16), ("full round out", 16), ("partial round", 14),
+               ("partial out", 16), ("logup", 2)),
+    PLONK_NP: (("a^4 - b", 4), ("gate", 1), ("logup", 2)),
+}
+LANES = 32  # the check kernel's warp, one proof
+# the check kernel's lanes, the twin of csrc/composition_air.cuh's
+# kPoseidonLanes and kNpLanes: (stage, first lane, component, kind, count),
+# each block a component's constraints of one kind in emission order on
+# consecutive lanes of one stage
+LANE_BLOCKS = {
+    WITH_POSEIDON: ((0, 0, 1, "first round", 16), (1, 0, 1, "full round", 16), (2, 0, 0, "enforce_c_m31", 3),
+                    (2, 3, 0, "gate", 1), (2, 4, 0, "logup", 2), (2, 6, 1, "logup", 2),
+                    (2, 16, 1, "full round out", 16), (3, 0, 1, "partial round", 14), (3, 16, 1, "partial out", 16)),
+    WITHOUT_POSEIDON: ((0, 0, 0, "a^4 - b", 4), (0, 4, 0, "gate", 1), (0, 5, 0, "logup", 2)),
+}
 
 
 def reset_launches() -> None:
@@ -103,9 +128,54 @@ def index_table(spec) -> tuple:
     return tuple(table)
 
 
+def constraint_order(flavour: int) -> list:
+    """Every constraint of a flavour in Horner order: (component, kind, k),
+    the k-th constraint of its kind in the component's AIR."""
+    order = []
+    for comp, (air, _) in enumerate(FLAVOUR_AIRS[flavour]):
+        order += [(comp, kind, k) for kind, count in AIR_CONSTRAINTS[air] for k in range(count)]
+    return order
+
+
+def _lane_stages(flavour: int) -> list:
+    """The check kernel's stages (LANE_BLOCKS): for each, what each of the
+    32 lanes computes, (component, kind, k) or None."""
+    blocks = LANE_BLOCKS[flavour]
+    stages = [[None] * LANES for _ in range(1 + max(b[0] for b in blocks))]
+    for stage, lane0, comp, kind, count in blocks:
+        for k in range(count):
+            if stages[stage][lane0 + k] is not None:
+                raise ValueError(f"two constraints on lane {lane0 + k} of stage {stage}")
+            stages[stage][lane0 + k] = (comp, kind, k)
+    return stages
+
+
+@lru_cache(maxsize=None)
+def lane_table(spec) -> tuple:
+    """The check kernel's lane table of `spec`: a stage, a tuple of 32 lanes,
+    each (component, i) of the constraint the lane computes there (i its
+    place in the Horner order, weighted by rc^(n-1-i)), or None.  Every
+    constraint is on exactly one (stage, lane)."""
+    flavour = flavour_of(spec)
+    place = {c: i for i, c in enumerate(constraint_order(flavour))}
+    table = tuple(tuple(None if e is None else (e[0], place[e]) for e in stage) for stage in _lane_stages(flavour))
+    placed = sorted(i for stage in table for e in stage if e is not None for i in e[1:])
+    if placed != list(range(len(place))):
+        raise ValueError("the lane table does not place every constraint exactly once")
+    return table
+
+
+def lane_words(spec) -> tuple:
+    """The lane table as the kernel reads it: component << 16 | (n - 1 - i),
+    or -1."""
+    n = len(constraint_order(flavour_of(spec)))
+    return tuple(-1 if e is None else e[0] << 16 | (n - 1 - e[1]) for stage in lane_table(spec) for e in stage)
+
+
 @lru_cache(maxsize=None)
 def _device_table(spec, device) -> torch.Tensor:
-    return torch.tensor(index_table(spec), dtype=torch.int32, device=device)
+    """The index table, then the lane table."""
+    return torch.tensor(index_table(spec) + lane_words(spec), dtype=torch.int32, device=device)
 
 
 def _inv_pow2(log_size: int) -> int:
@@ -208,14 +278,15 @@ def domain(evaluate_fn, pre, tr, inter, perm, denom_inv, acc, first: bool, total
 # bounds: the int32 operations of csrc/composition_air.cuh and the kernels'
 # bodies as the compiler is left with them, at the rate of ops/poseidon_cuda
 # (132 SMs x 128 lanes x 1.98 GHz): a modular add, sub or neg 3, a widening
-# multiply with its two 2**31 folds 10, a rotation 4.  `_Ops` runs the same
-# field operations on limb flags (True: the limb may be nonzero) instead of
-# residues: an operation with a limb known to be zero (an M31 mask's b, c and
-# d limbs, q_zero) folds away at compile time and is not counted, so the
-# domain kernel's M31 masks cost what an M31 specialisation would.
+# multiply with its 2**31 fold 6 (as ops/poseidon_cuda counts them), a
+# rotation 4.  `_Ops` runs the same field operations on limb flags (True:
+# the limb may be nonzero) instead of residues: an operation with a limb
+# known to be zero (an M31 mask's b, c and d limbs, q_zero) folds away at
+# compile time and is not counted, so the domain kernel's M31 masks cost
+# what an M31 specialisation would.
 # ---------------------------------------------------------------------------
 
-ADD, MUL, ROT = 3, 10, 4
+ADD, MUL, ROT = 3, 6, 4
 # limb flags of an M31 value (or the constant one), a QM31 value, and zero
 _M, _Q, _Z = (True, False, False, False), (True,) * 4, (False,) * 4
 
@@ -504,3 +575,41 @@ def domain_bound_ms(evaluate_fn, n: int, first: bool) -> tuple:
     words = n_pre + n_tr + 4 * _batches(air) + 2 + (0 if first else 4) + 4
     mem = n * words * 8 / H100_BYTES_PER_S
     return (ops * 1e3, "operations") if ops >= mem else (mem * 1e3, "bytes")
+
+
+# ---------------------------------------------------------------------------
+# latency floor of the check kernel: a proof's longest dependent chain, read
+# off csrc/composition.cu `check_warp` in steps of each kind (`lat`:
+# ops/latency_cuda.step_latencies, cycles a step of m31.cuh's add and mul, a
+# shuffle, a rotation, and "ghz").  A q_mul is a product and 4 adds deep, a
+# q_double_x a q_mul and 2 adds, a q_inv 41 products and 6 adds (the 37 of
+# inv among them).  Two chains meet at the end: the serial part (the
+# doublings to each vanishing value and its inverse), and the poseidon
+# lanes' (the partial rounds' linear chain, 14 rounds of a 4-level shuffle
+# sum and an add, then an S-box or the output's difference, the selector
+# and the weight); then the product by 1/vanishing, the 5-level shuffle
+# reduction and lane 0's compare against left + right x^(2^(bound-2)).
+# ---------------------------------------------------------------------------
+
+
+def check_cycles(spec, lat: dict) -> float:
+    """Cycles of one proof's longest chain in the check kernel."""
+    a, m, s = lat["add"], lat["mul"], lat["shfl"]
+    q_mul, q_double = m + 4 * a, m + 6 * a
+    bound = spec.composition_log_degree_bound
+    logs = _log_sizes(spec)
+    serial = max((L - 1) * q_double + 41 * m + 6 * a for L in logs)
+    if flavour_of(spec) == WITH_POSEIDON:
+        round_ = 4 * (s + a) + a
+        sbox = 13 * round_ + a + 3 * q_mul + a + 2 * q_mul + a
+        out = 14 * round_ + a + 2 * q_mul + a
+        lanes = max(sbox, out)
+    else:
+        lanes = 0  # the without-Poseidon AIR runs on every lane, off the serial chain's length
+    reduced = max(serial, lanes) + q_mul + a + 5 * (s + a)
+    return max(reduced, (bound - 2) * q_double + q_mul + a) + 4 * a
+
+
+def latency_floor_ms(spec, lat: dict) -> float:
+    """The check kernel's latency floor: check_cycles at lat["ghz"]."""
+    return check_cycles(spec, lat) / (lat["ghz"] * 1e6)

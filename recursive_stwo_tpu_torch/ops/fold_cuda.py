@@ -200,7 +200,7 @@ def fold(spec, pa, raw_queries: torch.Tensor, oods, random_coeff, fri_alphas) ->
 
 # ---------------------------------------------------------------------------
 # bound: the int32 operations the fold phase needs, counted as
-# ops/composition_cuda counts them (a modular add 3, a multiply 10, at 132
+# ops/composition_cuda counts them (a modular add 3, a multiply 6, at 132
 # SMs x 128 lanes x 1.98 GHz), with the per-proof quotient coefficients
 # counted once a proof (the kernel repeats them in each of a proof's Q
 # threads) and each conditional point addition of the half-index chain

@@ -53,15 +53,18 @@ A_IN, WRITE_B, START, SWAP, ACTIVE = 1, 8, 16, 32, 64
 B_SEL_SHIFT = 1
 B_CARRY_B, B_IN_A, B_IN_B, B_CARRY_S = 0, 1, 2, 3
 # the crossover, measured with tools/kernel_times.py on an H100 SXM (700 W):
-# quad 21.5 / tile 26.7 us at 2**15 rows, quad 37.9 / tile 36.6 us at 2**16
-ROWS_TILE_MIN = 1 << 16
+# quad 8.3 / tile 11.2-11.6 us at 2**14 rows, quad 13.1-13.9 / tile 12.6 us
+# at 2**15
+ROWS_TILE_MIN = 1 << 15
 
 # The least time an H100 SXM could take for n permutations, either kernel:
-# the int32 operations of one permutation (csrc/poseidon2.cuh: 1,360 modular
-# adds at 3 operations, 426 widening multiplies with their two 2**31 folds
-# at 10, 210 rotations at 4) at 132 SMs x 128 lanes x 1.98 GHz, against
-# 16 int64 words read and 16 written at 3.35 TB/s.
-INT_OPS_PER_PERMUTATION = 1360 * 3 + 426 * 10 + 210 * 4
+# the int32 operations of one permutation (csrc/poseidon2.cuh on m31.cuh:
+# 1,360 modular adds at 3 operations (the sum, the sum less p, their
+# minimum), 426 widening multiplies with their 2**31 fold at 6 (the product,
+# the mask, the shift, the fold's sum, less p, the minimum), 210 rotations
+# at 4) at 132 SMs x 128 lanes x 1.98 GHz, against 16 int64 words read and
+# 16 written at 3.35 TB/s.
+INT_OPS_PER_PERMUTATION = 1360 * 3 + 426 * 6 + 210 * 4
 H100_INT_OPS_PER_S = 132 * 128 * 1.98e9
 H100_BYTES_PER_S = 3.35e12
 BYTES_PER_PERMUTATION = 2 * 16 * 8

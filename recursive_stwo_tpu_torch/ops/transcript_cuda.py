@@ -22,6 +22,10 @@ row (words 0-3, 4-7) a source (SOURCES, or CONST whose offset is word 0),
 the element offset within a proof and the words read (the rest read 0); and
 a row for every draw of `_draw_schedule` (or `_draw_schedule_np`): the row
 it follows, n_sent, its first output column and the words it stores.  The
+kernel runs each draw beside the permutation of the row after its own
+(`draw_steps`), the draws after the last row two at a time, so a proof's
+chain is `chain_steps` permutations, T + 1 on every spec here; `row_table`
+refuses a schedule where two draws follow one row before the last.  The
 kernel writes one (B, width) int64 row a proof (`Layout`), whose columns the
 FSOutput's fields, the OODS point and the input sum are views of, and a
 (B, 2) bool of the PoW and total-sum checks.
@@ -71,6 +75,9 @@ N_PTRS = P_OK + 1
 # after-sampled-values coefficient, then the FRI alphas
 Z_COL, ALPHA_COL, RC_COL, OODS_T_COL, AFTER_COL, FRI_COL = 0, 4, 8, 12, 16, 20
 MAX_OFFSET = 2**31 - 1  # a row table entry is an int32
+# the row and draw table the kernel stages in shared memory: 48 KB a block,
+# less its round constants (csrc/transcript.cu kMaxTableBytes)
+MAX_TABLE_BYTES = 48 * 1024 - 8 * 4 * 16
 
 
 def reset_launches() -> None:
@@ -143,9 +150,36 @@ def row_table(spec) -> RowTable:
             k = d - n_fixed
             col, words = out.queries + 8 * k, min(8, spec.n_queries - 8 * k)
         draws.append((row, n_sent, col, words))
-    if [r for r, *_ in draws] != sorted(r for r, *_ in draws):
-        raise ValueError("the draw schedule does not follow the rows in order")
+    last = len(rows) - 1
+    inner = [r for r, *_ in draws if r != last]
+    if [r for r, *_ in draws] != inner + [last] * (len(draws) - len(inner)) or inner != sorted(set(inner)) or \
+            (inner and inner[0] < 0):
+        raise ValueError("the draw schedule does not pair each draw with the row after its own: every draw but "
+                         "those after the last row must follow a row of its own, in order")
     return RowTable(tuple(rows), tuple(draws), out, with_poseidon)
+
+
+def draw_steps(spec) -> tuple:
+    """The kernel's schedule of the draws: for each draw, the step whose
+    permutation it runs beside (the row after its own: row r's draw runs on
+    the draws' quad while the chain's quad permutes row r + 1), the draws
+    after the last row two at a time at steps T, T + 1, ... (one a quad)."""
+    t = row_table(spec)
+    n_rows = len(t.rows)
+    steps, after_last = [], 0
+    for row, *_ in t.draws:
+        if row < n_rows - 1:
+            steps.append(row + 1)
+        else:
+            steps.append(n_rows + after_last // 2)
+            after_last += 1
+    return tuple(steps)
+
+
+def chain_steps(spec) -> int:
+    """Permutations in a row on one proof's chain: the T rows, then the
+    draws after the last row two at a time."""
+    return max(len(row_table(spec).rows), max(draw_steps(spec)) + 1)
 
 
 @lru_cache(maxsize=None)
@@ -172,7 +206,7 @@ def _check_shape(spec) -> None:
     t = row_table(spec)
     per_proof = max(4 * spec.total_samples, 8 * spec.n_inner_layers, 4 << spec.log_last_layer_degree_bound)
     if not (0 <= spec.pow_bits <= 32 and spec.n_queries >= 1 and per_proof <= MAX_OFFSET
-            and 6 * len(t.rows) + 4 * len(t.draws) <= MAX_OFFSET and t.layout.width <= MAX_OFFSET):
+            and 4 * (6 * len(t.rows) + 4 * len(t.draws)) <= MAX_TABLE_BYTES and t.layout.width <= MAX_OFFSET):
         raise ValueError(f"the transcript kernel takes no spec of pow {spec.pow_bits}, {spec.n_queries} queries, "
                          f"{spec.total_samples} samples and {len(t.rows)} rows")
 
@@ -250,10 +284,11 @@ def replay(spec, pa, inputs):
 # ---------------------------------------------------------------------------
 # bound: the int32 operations of T + D permutations a proof
 # (poseidon_cuda.INT_OPS_PER_PERMUTATION) and of the scalar tail, counted
-# with ops/composition_cuda's counter (a modular add 3, a multiply 10), at
+# with ops/composition_cuda's counter (a modular add 3, a multiply 6), at
 # 132 SMs x 128 lanes x 1.98 GHz; against the bytes of every operand word
 # read once and every output written once.  The kernel is bound by the
-# latency of a proof's T + D permutations in a row well above either.
+# latency of a proof's chain_steps(spec) permutations in a row (the latency
+# floor below) well above either.
 # ---------------------------------------------------------------------------
 
 
@@ -299,9 +334,43 @@ def transcript_bound_ms(spec, batch: int, n_inputs: int) -> tuple:
     return (ops * 1e3, "operations") if ops >= mem else (mem * 1e3, "bytes")
 
 
-def chain_floor_ms(spec, permutation_ms: float) -> float:
-    """The latency floor of one launch: a proof's T + 1 chained permutations
-    (the T rows, then the draws that follow the last), each taking
-    `permutation_ms` (K1's quad schedule at (1024, 16), measured)."""
-    return (len(row_table(spec).rows) + 1) * permutation_ms
+# ---------------------------------------------------------------------------
+# latency floor: one proof's chain of chain_steps(spec) permutations, each
+# the critical path of csrc/poseidon2.cuh's quad form, read off the code
+# in dependent steps of each kind (`lat`: ops/latency_cuda.step_latencies,
+# cycles a step of m31.cuh's add and mul, a rotation and a shuffle on the
+# card, and "ghz"):
+#   quad_mds16: t0 -> t3 -> t5 -> t[0] (4 adds), quad_sum (2 shuffles and
+#     2 adds), the last add;
+#   a full round: the constant's add, pow5's 3 products, the mds;
+#   the partial rounds: word 0's broadcast and add, then per round the next
+#     S-box input x(r+1) = (S15(r) + rc) + rot(y(r)), ready when both y(r)'s
+#     rotation and S15(r) are: S15(r) waits on y(r-1) through total, the
+#     words, the lane-local sum and quad_sum (7 adds and 2 shuffles with
+#     the constant's add); then the last round's total and words.
+# ---------------------------------------------------------------------------
 
+
+def permutation_cycles(lat: dict) -> float:
+    """Cycles of one permutation's critical path."""
+    a, m, s, rot = lat["add"], lat["mul"], lat["shfl"], lat["rot"]
+    mds = 7 * a + 2 * s
+    full = a + 3 * m + mds
+    sum_path = 7 * a + 2 * s
+    t = s + a  # x(0): word 0's broadcast and the constant
+    ready = 4 * a + 2 * s + a  # S15(0) + rc, from the round's input words
+    y_prev = None
+    for r in range(14):
+        y = t + 3 * m
+        if r == 13:
+            t = max(y, y_prev + sum_path - a) + 2 * a
+            break
+        nxt = ready if y_prev is None else y_prev + sum_path
+        t, y_prev = max(nxt, y + rot) + a, y
+    return mds + 8 * full + t
+
+
+def latency_floor_ms(spec, lat: dict) -> float:
+    """The latency floor of one launch: a proof's chain of chain_steps(spec)
+    permutations, each permutation_cycles(lat), at lat["ghz"]."""
+    return chain_steps(spec) * permutation_cycles(lat) / (lat["ghz"] * 1e6)

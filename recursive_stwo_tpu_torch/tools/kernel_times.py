@@ -17,20 +17,23 @@ times, at the shapes the port calls them with:
   The composition kernels, where the checkout has them: the check kernel
      (composition_check) at B=1024 on small_proof, recursive_proof_16_15
      and np_small, at np_small's B=512 and at the SHA fast paths' batch 1
-     (level 14, bitcoin); the domain kernel (composition_domain) on each
-     table of chain levels 1 and 2 (the tables `prove` hands its composition
-     stage), beside the plain version's time on the card.
+     (level 14, bitcoin), beside its latency floor where the checkout has
+     one; the domain kernel (composition_domain) on each table of chain
+     levels 1 and 2 (the tables `prove` hands its composition stage),
+     beside the plain version's time on the card.
   The fold kernel (fold_phase), where the checkout has it: each verifier's
      batch, small_proof and recursive_proof_16_15 at B=1024, np_small at
      B=512, level 14 and bitcoin at B=128, beside the plain version's time.
   The transcript kernel (transcript), where the checkout has it: at
      verify_batch's B=1024 on both fixtures, verify_batch_np's
      B=512, and small_proof at B=1 (the chain's) and 512, beside the plain
-     version's time, the bound and the chain floor (a proof's T + 1
-     permutations at K1's quad time at (1024, 16), timed here).
+     version's time, the bound and, where the checkout has one, the
+     latency floor (a proof's chain in dependent steps at the latency
+     probe's cycles, ops/latency_cuda.py, measured here).
 `--kernels poseidon`, `--kernels composition`, `--kernels fold` or
 `--kernels transcript` times only those.
 Before timing, every kernel output is held to the plain version bit for bit.
+Prints ptxas' report of the transcript and check kernels first.
 Two times per shape: CUDA events around `reps` back-to-back calls (what a
 caller's loop pays, the wrapper's host cost included once it exceeds the
 kernel) and the kernels' mean device duration under torch.profiler.  Prints
@@ -191,6 +194,7 @@ def composition_lines(torch, dev) -> list:
     from recursive_stwo_tpu_torch.ops import composition_cuda
     from recursive_stwo_tpu_torch.tools import composition_cases as cases
 
+    lat = _latencies(dev)
     lines = []
     for name, batch in CHECK_SHAPES:
         case = cases.check_case(name, batch, dev, corrupt_slot=batch // 2 if batch > 1 else None)
@@ -204,6 +208,8 @@ def composition_lines(torch, dev) -> list:
                           device_ms=profiled_ms(torch, lambda: cases.check_value(case), 50, "composition_check"),
                           plain_ms=cuda_ms(torch, lambda: cases.check_value(case, plain=True), 3),
                           bound_ms=bound, bound_by=by))
+        if lat:
+            lines[-1].update(floor_ms=composition_cuda.latency_floor_ms(case.spec, lat))
     for level in DOMAIN_LEVELS:
         trace, config, _ = flagship.chain_level_trace(level)
         spec, tables, lookup, rc = cases.prover_tables(trace, config, dev)
@@ -262,13 +268,11 @@ def transcript_lines(torch, dev) -> list:
     """One dict a shape of TRANSCRIPT_SHAPES, the kernel held
     bit for bit to its plain version first (with tools/transcript_cases'
     corruptions): events and device ms, the plain version's ms, the bound
-    and the chain floor."""
-    from recursive_stwo_tpu_torch.ops import poseidon_cuda, transcript_cuda
+    and, where the checkout has the latency probe, the latency floor."""
+    from recursive_stwo_tpu_torch.ops import transcript_cuda
     from recursive_stwo_tpu_torch.tools import transcript_cases as cases
 
-    x = torch.randint(0, P, (1024, 16), generator=torch.Generator(device=dev).manual_seed(SEED), device=dev,
-                      dtype=torch.int64)
-    step_ms = profiled_ms(torch, lambda: poseidon_cuda.permute_rows_schedule(x, "quad"), 200, "permute_rows")
+    lat = _latencies(dev)
     lines = []
     for name, batch in TRANSCRIPT_SHAPES:
         bad = cases.transcript_case(name, batch, dev, corrupt=True)
@@ -288,9 +292,23 @@ def transcript_lines(torch, dev) -> list:
                           bytes=transcript_cuda.transcript_bytes(case.spec, batch, len(case.inputs)),
                           events_ms=cuda_ms(torch, run, 50), device_ms=profiled_ms(torch, run, 50, "transcript_kernel"),
                           plain_ms=cuda_ms(torch, lambda: cases.replay_fields(case, plain=True), 3),
-                          bound_ms=bound, bound_by=by, k1_quad_1024_ms=step_ms,
-                          floor_ms=transcript_cuda.chain_floor_ms(case.spec, step_ms)))
+                          bound_ms=bound, bound_by=by))
+        if lat:
+            lines[-1].update(chain_permutations=transcript_cuda.chain_steps(case.spec),
+                             floor_ms=transcript_cuda.latency_floor_ms(case.spec, lat))
     return lines
+
+
+def _latencies(dev):
+    """The latency probe's cycles a dependent step (and the clock), where
+    the checkout has the probe; else None."""
+    try:
+        from recursive_stwo_tpu_torch.ops import latency_cuda
+    except ImportError:
+        return None
+    lat = latency_cuda.step_latencies(dev)
+    print(json.dumps(dict(kernel="latency_probe", cycles_a_step=lat)), flush=True)
+    return lat
 
 
 def main() -> int:
@@ -316,6 +334,10 @@ def main() -> int:
         with open(log) as f:
             print(f"[{label}] ptxas:\n{f.read().strip()}")
     print(f"[{label}] library {os.path.basename(build.library_path())} from {lib._name}")
+    if hasattr(build, "ptxas_report"):
+        for name in ("transcript_kernel", "composition_check_kernel"):
+            for r in build.ptxas_report(name):
+                print(json.dumps(dict(label=label, ptxas=name, **r)), flush=True)
 
     dev = torch.device("cuda")
 

@@ -357,7 +357,9 @@ def test_prove_streamed_on_cuda_matches_cpu(cuda):
     assert flagship.proof_bytes(got) == flagship.proof_bytes(ref)
 
 
-@pytest.mark.parametrize("batch", [1, 7, 1024])
+# the check kernel runs four proofs a block: batches of one, a block's tail,
+# and around the main path's 1024
+@pytest.mark.parametrize("batch", [1, 3, 7, 33, 1023, 1024])
 @pytest.mark.parametrize("name", ["small_proof", "recursive_proof_16_15", "np_small", "level14", "bitcoin"])
 def test_composition_check_bit_exact(cuda, name, batch):
     """The composition check kernel against its plain version on the card,
@@ -488,8 +490,10 @@ def test_fold_phase_launches_once_per_verifier_call(cuda):
         assert launches.counts()["fold_phase"] == 1, (label, launches.counts())
 
 
-TRANSCRIPT_SHAPES = [("small_proof", 1), ("small_proof", 7), ("small_proof", 1024), ("recursive_proof_16_15", 1),
-                     ("recursive_proof_16_15", 7), ("recursive_proof_16_15", 1024), ("np_small", 512)]
+# the transcript kernel runs sixteen proofs a block: batches of one, a
+# block's tails, the main paths' 512 and 1024 and 1023
+TRANSCRIPT_SHAPES = [(name, batch) for name in ("small_proof", "recursive_proof_16_15") for batch in (1, 3, 7, 33, 1023, 1024)]
+TRANSCRIPT_SHAPES += [("np_small", batch) for batch in (1, 3, 33, 512)]
 
 
 @pytest.mark.parametrize("name,batch", TRANSCRIPT_SHAPES)
@@ -536,3 +540,14 @@ def test_transcript_launches_once_per_verifier_call(cuda):
         assert bool(fn()["ok"].all()), label
         torch.cuda.synchronize()
         _verifier_launches(launches.counts())
+
+
+def test_latency_probe_times_each_step_kind(cuda):
+    """The latency probe (csrc/latency.cu) on one warp: a positive cycle
+    count a step of every kind, and the SM clock between 0.5 and 3 GHz."""
+    from recursive_stwo_tpu_torch.ops import latency_cuda
+
+    lat = latency_cuda.step_latencies(cuda)
+    assert set(lat) == set(latency_cuda.KINDS) | {"ghz"}
+    assert all(lat[k] > 0 for k in latency_cuda.KINDS), lat
+    assert 0.5 < lat["ghz"] < 3.0, lat

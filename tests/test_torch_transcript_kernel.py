@@ -8,8 +8,13 @@ at tolerance 0 (bit-exact over M31):
   on jax.numpy inputs, clean, corrupted, with a wrong public input and with
   none;
 - the kernel's row table, read as the kernel reads it (a numpy emulation),
-  against the JAX package's build_operands[_np], and its draw table and
-  output layout against run_transcript[_np];
+  against the JAX package's build_operands[_np], and its draw table, draw
+  schedule (each draw beside the row after its own, the draws after the
+  last row two at a time) and output layout against run_transcript[_np];
+- a numpy model of the kernel's permutation (csrc/poseidon2.cuh's quad
+  form: word 0 replicated over the quad's partial rounds, the other words'
+  sum taken before the S-box joins it, m31.cuh's adds and one-fold products
+  with their bounds asserted) against the JAX package's poseidon2.permute;
 - the wrapper's refusals.
 The kernel itself is held to the plain version on the card
 (tests/test_torch_cuda.py, chip_smoke.py phase 3)."""
@@ -178,22 +183,140 @@ def test_row_table_specs_cover_odd_and_even_shapes():
     assert {s.log_last_layer_degree_bound for s in specs} >= {0, 8}
 
 
+# ---------------------------------------------------------------------------
+# numpy model of csrc/poseidon2.cuh's quad form: (B, 4 lanes, 4 words)
+# uint32, lane q holding words 4q..4q+3
+# ---------------------------------------------------------------------------
+
+U32P = np.uint32(P)
+
+
+def _add(a, b):
+    """m31.cuh add: canonical a, b; s = a + b < 2p fits 32 bits, and of s and s - p
+    (wrapping) the unsigned minimum is the residue."""
+    assert (a < P).all() and (b < P).all()
+    s = a.astype(np.uint64) + b.astype(np.uint64)
+    assert (s < 2 * P).all()
+    s = s.astype(np.uint32)
+    return np.minimum(s, s - U32P)
+
+
+def _mul(a, b):
+    """m31.cuh mul: canonical a, b; one fold leaves r = (x & p) + (x >> 31) < 2p."""
+    assert (a < P).all() and (b < P).all()
+    x = a.astype(np.uint64) * b.astype(np.uint64)
+    r = (x & np.uint64(P)) + (x >> np.uint64(31))
+    assert (r < 2 * P).all()
+    r = r.astype(np.uint32)
+    return np.minimum(r, r - U32P)
+
+
+def _pow5(a):
+    b = _mul(a, a)
+    return _mul(_mul(b, b), a)
+
+
+def _rot(a, k):
+    """mul_pow2: a 31-bit rotation, canonical in, canonical out."""
+    assert (a < P).all()
+    a = a.astype(np.uint64)
+    r = (((a << np.uint64(k)) & np.uint64(P)) + (a >> np.uint64(31 - k))).astype(np.uint32)
+    assert (r < P).all()
+    return r
+
+
+def _quad_sum(v):
+    """quad_sum over the lane axis (xor-shuffles by 1, then 2)."""
+    v = _add(v, v[:, [1, 0, 3, 2]])
+    return _add(v, v[:, [2, 3, 0, 1]])
+
+
+def _quad_mds16(s):
+    x0, x1, x2, x3 = (s[..., k] for k in range(4))
+    t0, t1 = _add(x0, x1), _add(x2, x3)
+    t2, t3 = _add(_add(x1, x1), t1), _add(_add(x3, x3), t0)
+    t4, t5 = _add(_rot(t1, 2), t3), _add(_rot(t0, 2), t2)
+    t = np.stack([_add(t3, t5), t5, _add(t2, t4), t4], axis=-1)
+    return np.stack([_add(t[..., pos], _quad_sum(t[..., pos])) for pos in range(4)], axis=-1)
+
+
+def _quad_partial_rounds(s):
+    """Word 0 replicated on the four lanes: each round's S-box y, the sum
+    S15 of the other words (lane 0 leaves out its word 0), word 0 becomes
+    S15 + 4 y and the next S-box input (S15 + rc) + 4 y."""
+    s = s.copy()
+    q = np.arange(4)
+    rc = r_p2.PARTIAL_ROUNDS_RC.astype(np.uint32)
+    w0 = s[:, 0, 0]
+    x = _add(w0, np.full_like(w0, rc[0]))
+    for r in range(14):
+        y = _pow5(x)
+        own0 = np.where(q == 0, np.uint32(0), s[..., 0])
+        s15 = _quad_sum(_add(_add(s[..., 1], s[..., 2]), _add(s[..., 3], own0)))
+        assert (s15 == s15[:, :1]).all()  # the same on every lane
+        total = _add(s15, y[:, None])
+        y4 = _rot(y, 2)
+        w0 = _add(s15[:, 0], y4)
+        for k in range(4):
+            s[..., k] = np.stack([_add(total[:, l], _rot(s[:, l, k], 4 * l + k + 1)) for l in range(4)], axis=-1)
+        if r < 13:
+            x = _add(_add(s15[:, 0], np.full_like(w0, rc[r + 1])), y4)
+    s[:, 0, 0] = w0
+    return s
+
+
+def _permute_quad(states):
+    """The quad-form permutation of (B, 16) canonical states."""
+    s = states.astype(np.uint32).reshape(-1, 4, 4)
+    s = _quad_mds16(s)
+    for rc in (*r_p2.FIRST_FOUR_ROUND_RC, None, *r_p2.LAST_FOUR_ROUNDS_RC):
+        if rc is None:
+            s = _quad_partial_rounds(s)
+            continue
+        s = _quad_mds16(_pow5(_add(s, rc.astype(np.uint32).reshape(4, 4)[None])))
+    return s.reshape(-1, 16)
+
+
+def test_latency_form_permutation_model_matches_reference():
+    """The model of the transcript kernel's permutation equals the JAX
+    package's Poseidon2-16 on random states, states of p - 1 and of 0, and
+    mixed rows."""
+    rng = np.random.default_rng(2026)
+    x = rng.integers(0, P, (256, 16)).astype(np.uint32)
+    x[0], x[1], x[2] = P - 1, 0, np.arange(16)
+    x[3, ::2] = P - 1
+    x[4, rng.integers(0, 16, 8)] = P - 1
+    assert np.array_equal(_permute_quad(x), np.asarray(r_p2.permute(x)))
+
+
 @pytest.mark.parametrize("name", cases.TRANSCRIPT_FIXTURES)
 def test_draw_table_and_layout_rebuild_the_transcript(name):
-    """A numpy emulation of the kernel's draws (each the permutation of
-    (n_sent, 0, ..., 0 ‖ digest after its row), its rate words stored from its
-    first column) and of the post-nonce digest's word, read back through
-    `views`, equals the plain transcript field for field."""
+    """A numpy emulation of the kernel's draw schedule: at step t the
+    chain's quad permutes row t and the draws' quad the draw after row
+    t - 1, with the digest the chain holds then; the draws after the last
+    row go two at a time, one a quad.  Each draw is the permutation (the
+    quad-form model) of (n_sent, 0, ..., 0 ‖ digest), its rate words
+    stored from its first column; with the post-nonce digest's word, read
+    back through `views`, it equals the plain transcript field for field."""
     c = cases.random_transcript_case(name, 2, 3, "cpu")
     spec, host = c.spec, _host(c.pa)
     t = transcript_cuda.row_table(spec)
+    n_rows = len(t.rows)
     digests = r_tr.digest_chain(_emulated_operands(spec, host))  # (T, B, 8)
     lay = t.layout
     out = np.zeros((2, lay.width), np.int64)
-    for row, n_sent, col, words in t.draws:
-        state = np.concatenate([np.zeros_like(digests[row]), digests[row]], axis=-1)
-        state[:, 0] = n_sent
-        out[:, col:col + words] = r_p2.permute(state)[:, :words]
+    steps = transcript_cuda.draw_steps(spec)
+    assert transcript_cuda.chain_steps(spec) == n_rows + 1
+    for step in range(transcript_cuda.chain_steps(spec)):
+        jobs = [d for d, at in enumerate(steps) if at == step]
+        assert len(jobs) <= (1 if step < n_rows else 2)  # the draws' quad beside a row; both quads after
+        held = min(step, n_rows) - 1  # the row whose digest the chain holds at this step
+        for d in jobs:
+            row, n_sent, col, words = t.draws[d]
+            assert row == held
+            state = np.concatenate([np.zeros_like(digests[row]), digests[row]], axis=-1)
+            state[:, 0] = n_sent
+            out[:, col:col + words] = _permute_quad(state)[:, :words]
     out[:, lay.pow] = digests[-1][:, 0]
     want = t_tr.replay_plain(spec, c.pa, c.inputs)
     for k, v in enumerate((*want.oods, want.input_sum)):
@@ -208,9 +331,20 @@ def test_transcript_shapes_and_bound(name):
     spec = cases.transcript_case(name, 1, "cpu").spec
     t = transcript_cuda.row_table(spec)
     assert (len(t.rows), len(t.draws)) == SHAPES[name]
+    assert transcript_cuda.chain_steps(spec) == SHAPES[name][0] + 1  # the draws off the chain
     ms, by = transcript_cuda.transcript_bound_ms(spec, 1024, 3)
     assert by == "operations"
     assert ms == pytest.approx(1024 * transcript_cuda.transcript_ops(spec, 3) / transcript_cuda.H100_INT_OPS_PER_S * 1e3)
+
+
+def test_row_table_refuses_draws_sharing_an_inner_row(monkeypatch):
+    """Each draw before the last row must follow a row of its own (the
+    kernel runs it beside the next row's permutation)."""
+    spec = cases.transcript_case("small_proof", 1, "cpu").spec
+    sched = transcript_cuda._draw_schedule(spec)
+    monkeypatch.setattr(transcript_cuda, "_draw_schedule", lambda s: [sched[0], sched[0]] + sched[2:])
+    with pytest.raises(ValueError, match="row after its own"):
+        transcript_cuda.row_table.__wrapped__(spec)
 
 
 def test_wrapper_refuses_cpu_tensors():
