@@ -8,8 +8,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
   2. build: nvcc builds the Poseidon2-16, SHA-256, composition, fold and
      transcript kernels and the latency probe from csrc/ (one nvcc a source,
      all at once, then a link; seconds); ptxas' report (registers, stack
-     frame, spills) of the transcript kernel and the check kernel on lines
-     of their own;
+     frame, spills) of the transcript, check, domain and fold kernels on
+     lines of their own;
   3. kernels vs plain: K1 and K2 against their plain PyTorch versions on
      the card and on the host CPU, bit for bit, at 2**20 states and at the
      main path's shapes, plus the Poseidon2-16 known-answer test; each of
@@ -32,14 +32,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      recursive_proof_16_15, np_small, level 14, bitcoin) at B = 1, 3, 7, 33,
      1023 and 1024 (four proofs a block) with a sampled value corrupted in
      one slot, and random canonical inputs of each spec; the domain kernel against its plain version table
-     by table on the demo circuits (both AIR pairs) and chain level 1; their
+     by table on the demo circuits (both AIR pairs) and chain level 1, each
+     table also accumulating into a random accumulator; their
      times (the check at small_proof's B=1024, np_small's B=512 and level
      14's B=1; the domain kernel on level 1's tables) beside their bounds
      and the check's latency floor;
      the fold kernel (csrc/fold.cu) against its plain version on the card,
      bit for bit (every group's answers, every inner layer's self values,
      the last-layer check): small_proof and recursive_proof_16_15 at B = 1,
-     7 and 1024, np_small at B=512, level 14 and bitcoin at B=128, each with
+     3, 7, 33, 1023 and 1024 (a block a proof), np_small at B=512, level 14
+     and bitcoin at B=128, each with
      four corrupted slots (a sampled value, a first-layer sibling, an
      inner-layer sibling, an OODS point whose quotient denominators are
      zero) and on random canonical inputs of its shapes; its times (both
@@ -225,7 +227,7 @@ COMP_BATCHES = (1, 3, 7, 33, BATCH - 1, BATCH)
 DOMAIN_LEVEL = 1
 # the fold kernel is held to its plain version at these batch sizes of both
 # fixtures, and at the other flavours' batches
-FOLD_BATCHES = (1, 7, BATCH)
+FOLD_BATCHES = (1, 3, 7, 33, BATCH - 1, BATCH)
 # the transcript kernel is held to its plain version at these batch sizes of
 # both fixtures (the chain's batch 1, tails of its blocks of sixteen, the
 # main path's batch)
@@ -547,6 +549,7 @@ def check_composition_kernels(torch, dev, lat: dict) -> tuple:
 
     err = 0
     domain = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
     for label, trace, config, without_poseidon in (
         ("demo circuit", flagship.demo_trace(), flagship.DEMO_CONFIG, False),
         ("without-Poseidon demo circuit", _np_demo_trace(), flagship.DEMO_CONFIG, True),
@@ -566,6 +569,13 @@ def check_composition_kernels(torch, dev, lat: dict) -> tuple:
             require(torch.equal(got, plain), f"composition_domain differs from its plain version on the {label}, "
                                              f"AIR {air}")
             err = max(err, int((got - plain).abs().max()))
+            prev = torch.randint(0, P, tuple(acc.shape), generator=gen, device=dev, dtype=torch.int64)
+            onto = call._replace(first=False)
+            want = cases.run_domain(onto, prev, lookup, rc, plain=True)
+            got = cases.run_domain(onto, prev.clone(), lookup, rc)
+            require(torch.equal(got, want), f"composition_domain differs from its plain version on the {label}, "
+                                            f"AIR {air}, accumulating into a random accumulator")
+            err = max(err, int((got - want).abs().max()))
             if label.startswith("chain level"):
                 work = acc.clone()
                 ms = profiled_ms(torch, lambda: cases.run_domain(call, work, lookup, rc), 10, "composition_domain")
@@ -581,9 +591,9 @@ def check_composition_kernels(torch, dev, lat: dict) -> tuple:
                                f"{key}bound_ms": bound, f"{key}bound_by": bound_by})
                 del work
             acc = plain
-        print(f"composition_domain: bit-exact vs plain on the {label}'s {len(calls)} tables of {n} points "
-              f"({time.perf_counter() - t:.1f} s with its stages before the composition)")
-        del calls, acc, plain, got
+        print(f"composition_domain: bit-exact vs plain on the {label}'s {len(calls)} tables of {n} points, first "
+              f"and accumulating ({time.perf_counter() - t:.1f} s with its stages before the composition)")
+        del calls, acc, plain, got, want, prev
     torch.cuda.empty_cache()
     domain.update(max_abs_err=err, library_ms=None)
     return check, domain
@@ -1284,7 +1294,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t:.2f} s -> {lib_path}")
     with open(lib_path + ".log") as f:
         print(f.read().strip())
-    for name in ("transcript_kernel", "composition_check_kernel"):
+    for name in ("transcript_kernel", "composition_check_kernel", "composition_domain_kernel", "fold_kernel"):
         for r in build.ptxas_report(name):
             print(f"ptxas {name} ({r['kernel']}): {r['registers']} registers, {r['stack_bytes']} bytes stack frame, "
                   f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads")

@@ -48,11 +48,21 @@
 // table's LDE rows (pre, trace, interaction limb rows; M31 values, so a
 // QM31 mask is (v, 0, 0, 0) and an interaction mask the four limb rows as
 // they stand), the previous-row point `perm[j]` for the last interaction
-// mask, and the M31 1/vanishing of its point, and folds the AIR's
+// mask, and the M31 1/vanishing of its point, and folds the AIR's n
 // constraints into the (4, N) accumulator, which it reads (unless `first`)
 // and writes, so the with-Poseidon pair is two launches, plonk then
-// poseidon.  Neighbouring threads read neighbouring entries of every row
-// (coalesced); the previous-row gather is not.
+// poseidon.  Horner's acc rc^n + sum of c_i rc^(n-1-i) / vanishing is a
+// weighted sum (composition_air.cuh `PowerSum`): the launch's table of rc^0
+// .. rc^n, built on the host, is a __grid_constant__ argument, read as a
+// broadcast; the 78 M31-valued constraints of the poseidon AIR cost four
+// lazy 64-bit products each, the two logup constraints a QM31 product; the
+// 1/vanishing and acc rc^n multiply once a point.  Neighbouring threads read
+// neighbouring entries of every row (coalesced); the previous-row gather is
+// not.
+//
+// What bounds the domain kernel: integer ALU work on the poseidon table
+// (ops/composition_cuda.py `domain_ops`), the bytes of its rows on the plonk
+// and without-Poseidon tables.
 
 #include <cstdint>
 
@@ -125,7 +135,6 @@ struct DomainSrc {
     prev = limbs(m, prev_j);
     cur = limbs(m, j);
   }
-  __device__ __forceinline__ Q scale(Q v) const { return q_mul_m31(v, dinv); }
 };
 
 struct CheckArgs {
@@ -379,30 +388,47 @@ __device__ __forceinline__ void check_warp(const int64_t* row, const int32_t* ta
   out[3] = got.d;
 }
 
+// The largest AIR's constraints: a domain launch's power table has one more
+// entry.
+constexpr int kMaxDomainConstraints = n_constraints(kPoseidonConstraints);
+
+template <int AIR>
+__host__ __device__ constexpr int domain_constraints() {
+  return AIR == kPlonk ? n_constraints(kPlonkConstraints)
+                       : AIR == kPoseidon ? n_constraints(kPoseidonConstraints) : n_constraints(kNpConstraints);
+}
+
 struct DomainArgs {
-  Q total, z, alpha, rc;
+  Q total, z, alpha;
   uint32_t inv2n;
+  Q pw[kMaxDomainConstraints + 1];  // rc^0 .. rc^n, n the AIR's constraints
+
+  __device__ __forceinline__ Q power(int k) const { return pw[k]; }
 };
 
 // One point's evaluation: the thread body of composition_domain_kernel.
 template <int AIR>
 __device__ __forceinline__ void domain_point(const DomainSrc& src, const DomainArgs& a, int64_t* acc, int first) {
+  constexpr int kN = domain_constraints<AIR>();
   const int64_t n = src.n, j = src.j;
-  Horner h{first ? q_zero() : Q{(uint32_t)acc[j], (uint32_t)acc[n + j], (uint32_t)acc[2 * n + j],
-                                (uint32_t)acc[3 * n + j]},
-           a.rc};
+  PowerSum<DomainArgs, kN> sum(a);
   const Q shift = q_mul_m31(a.total, a.inv2n);
   if constexpr (AIR == kPlonk) {
-    evaluate_plonk(src, h, a.z, a.alpha, shift);
+    evaluate_plonk(src, sum, a.z, a.alpha, shift);
   } else if constexpr (AIR == kPoseidon) {
-    evaluate_poseidon(src, h, a.z, a.alpha, shift);
+    evaluate_poseidon(src, sum, a.z, a.alpha, shift);
   } else {
-    evaluate_plonk_np(src, h, a.z, a.alpha, shift);
+    evaluate_plonk_np(src, sum, a.z, a.alpha, shift);
   }
-  acc[j] = h.acc.a;
-  acc[n + j] = h.acc.b;
-  acc[2 * n + j] = h.acc.c;
-  acc[3 * n + j] = h.acc.d;
+  Q v = q_mul_m31(sum.value(), src.dinv);
+  if (!first) {
+    const Q in{(uint32_t)acc[j], (uint32_t)acc[n + j], (uint32_t)acc[2 * n + j], (uint32_t)acc[3 * n + j]};
+    v = q_add(q_mul(in, a.pw[kN]), v);
+  }
+  acc[j] = v.a;
+  acc[n + j] = v.b;
+  acc[2 * n + j] = v.c;
+  acc[3 * n + j] = v.d;
 }
 
 // ---------------------------------------------------------------------------
@@ -428,13 +454,24 @@ __global__ void __launch_bounds__(kDomainThreads)
 composition_domain_kernel(const int64_t* __restrict__ pre, const int64_t* __restrict__ tr,
                           const int64_t* __restrict__ inter, const int64_t* __restrict__ perm,
                           const int64_t* __restrict__ dinv, int64_t* __restrict__ acc, int first,
-                          int64_t n, DomainArgs a) {
+                          int64_t n, const __grid_constant__ DomainArgs a) {
   const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
   domain_point<AIR>(DomainSrc{pre, tr, inter, n, j, perm[j], (uint32_t)dinv[j]}, a, acc, first);
 }
 
 Q q_of(const int64_t* v) { return Q{(uint32_t)v[0], (uint32_t)v[1], (uint32_t)v[2], (uint32_t)v[3]}; }
+
+// One domain launch of AIR: consts holds its n + 1 powers from position 13.
+template <int AIR>
+int launch_domain(const int64_t* pre, const int64_t* tr, const int64_t* inter, const int64_t* perm,
+                  const int64_t* dinv, int64_t* acc, int first, int64_t n, const int64_t* consts, cudaStream_t s) {
+  DomainArgs a{q_of(consts), q_of(consts + 4), q_of(consts + 8), (uint32_t)consts[12], {}};
+  for (int k = 0; k <= domain_constraints<AIR>(); ++k) a.pw[k] = q_of(consts + 13 + 4 * k);
+  const unsigned blocks = (unsigned)((n + kDomainThreads - 1) / kDomainThreads);
+  composition_domain_kernel<AIR><<<blocks, kDomainThreads, 0, s>>>(pre, tr, inter, perm, dinv, acc, first, n, a);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -469,27 +506,20 @@ extern "C" int composition_check(int flavour, const void* samples, int64_t n_sam
 
 // air 0: plonk, 1: poseidon, 2: without-Poseidon.  pre, tr, inter: (rows, n)
 // int64 LDE blocks; perm, dinv: (n,) int64; acc: (4, n) int64, read unless
-// `first`, then written; consts (host): total sum, z, alpha, random_coeff
-// (four limbs each), then 1 / 2^log_size.  Launches on `stream` and returns
+// `first`, then written; consts (host): total sum, z, alpha (four limbs
+// each), 1 / 2^log_size, then random_coeff's powers rc^0 .. rc^k (four limbs
+// each), k the AIR's constraints.  Launches on `stream` and returns
 // cudaGetLastError().
 extern "C" int composition_domain(int air, const void* pre, const void* tr, const void* inter,
                                   const void* perm, const void* dinv, void* acc, int first, int64_t n,
                                   const int64_t* consts, void* stream) {
   if (n == 0) return 0;
-  DomainArgs a{q_of(consts), q_of(consts + 4), q_of(consts + 8), q_of(consts + 12), (uint32_t)consts[16]};
-  const unsigned blocks = (unsigned)((n + kDomainThreads - 1) / kDomainThreads);
   cudaStream_t s = (cudaStream_t)stream;
   const int64_t *p = (const int64_t*)pre, *t = (const int64_t*)tr, *x = (const int64_t*)inter;
   const int64_t *pm = (const int64_t*)perm, *d = (const int64_t*)dinv;
   int64_t* out = (int64_t*)acc;
-  if (air == kPlonk) {
-    composition_domain_kernel<kPlonk><<<blocks, kDomainThreads, 0, s>>>(p, t, x, pm, d, out, first, n, a);
-  } else if (air == kPoseidon) {
-    composition_domain_kernel<kPoseidon><<<blocks, kDomainThreads, 0, s>>>(p, t, x, pm, d, out, first, n, a);
-  } else if (air == kPlonkNp) {
-    composition_domain_kernel<kPlonkNp><<<blocks, kDomainThreads, 0, s>>>(p, t, x, pm, d, out, first, n, a);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (air == kPlonk) return launch_domain<kPlonk>(p, t, x, pm, d, out, first, n, consts, s);
+  if (air == kPoseidon) return launch_domain<kPoseidon>(p, t, x, pm, d, out, first, n, consts, s);
+  if (air == kPlonkNp) return launch_domain<kPlonkNp>(p, t, x, pm, d, out, first, n, consts, s);
+  return (int)cudaErrorInvalidValue;
 }

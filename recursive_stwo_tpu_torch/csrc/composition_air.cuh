@@ -1,5 +1,5 @@
 // The three composition AIRs, emitting their constraints straight into a
-// Horner accumulator, over the QM31 arithmetic of qm31.cuh.
+// sink, over the QM31 arithmetic of qm31.cuh.
 //
 // Twin of recursive_stwo_tpu/verifier/composition.py (`_Eval`,
 // `evaluate_plonk` :176-210, `evaluate_plonk_np` :230-277,
@@ -15,16 +15,17 @@
 //   np        4 a^4 - b, the gate, 2 logup
 // Blocks go out lane by lane, and the partial rounds' constraints are
 // emitted as each round computes them (nothing else is emitted between
-// them, so the order is the reference's block order).  acc = acc * rc + c
-// from acc = 0 gives c first, as HornerSink's first step does.
+// them, so the order is the reference's block order).  The Horner value of
+// n constraints from acc, acc rc^n + sum of c_i rc^(n-1-i), is the same
+// residue as the fold acc = acc rc + c_i (exact over M31), so a sink may
+// weight each constraint by its power of rc instead of folding.
 //
 // A source supplies a component's masks (ops below): the verifier's reads one
 // proof's samples at the OODS point through an index table, the prover's one
 // point of the evaluation domain from LDE rows.  A sink takes each
-// constraint: `Horner` (the domain kernel) folds it, scaled by the source's
-// 1/vanishing, into acc * rc + c; `Capture` (the check kernel) keeps it, for
-// the check weights every constraint by its power of rc (acc = sum of c_i
-// rc^(n-1-i) over M31, the same residue whatever the order of the sum).
+// constraint: `PowerSum` (the domain kernel) weights it by the launch's
+// power table and sums; `Capture` (the check kernel) keeps it, for the check
+// weights every constraint by its power of rc on the lane that computes it.
 //
 // kPlonkConstraints, kPoseidonConstraints and kNpConstraints below list each
 // AIR's constraints in emission order as (kind, count) blocks: the order the
@@ -131,14 +132,56 @@ __host__ __device__ constexpr LaneBlock lane_block(const LaneBlock (&t)[K], int 
   return LaneBlock{-1, -1, component, kind, 0};
 }
 
-// acc = acc * rc + c / vanishing, from acc = 0 (the domain kernel).
-struct Horner {
-  Q acc, rc;
+// The domain kernel's sink: S = sum of c_i rc^(N-1-i) over an AIR's N
+// constraints, i the emission index, from the launch's power table (Pw's
+// power(k) = rc^k, the same at every point).  On the prover's M31 rows every
+// constraint but the logup's is M31-valued (limbs b, c and d zero, which the
+// compiler sees): such a constraint costs four 32 x 32 -> 64-bit products
+// into four lazy limb sums; any other a QM31 product, its canonical limbs
+// added.  Every third constraint folds the sums below 2^62 + 4 (2^62 = 1
+// mod p), so the next three products, each below 2^62 - 2^33 + 5, cannot
+// overflow 64 bits.
+template <class Pw, int N>
+struct PowerSum {
+  const Pw& pw;
+  uint64_t s0 = 0, s1 = 0, s2 = 0, s3 = 0;
+  int i = 0;
+
+  __device__ __forceinline__ explicit PowerSum(const Pw& p) : pw(p) {}
 
   template <class Src>
-  __device__ __forceinline__ void emit(const Src& s, Q v) {
-    acc = q_add(q_mul(acc, rc), s.scale(v));
+  __device__ __forceinline__ void emit(const Src&, Q c) {
+    const Q p = pw.power(N - 1 - i);
+    if ((c.b | c.c | c.d) == 0) {
+      s0 += (uint64_t)c.a * p.a;
+      s1 += (uint64_t)c.a * p.b;
+      s2 += (uint64_t)c.a * p.c;
+      s3 += (uint64_t)c.a * p.d;
+    } else {
+      const Q t = q_mul(c, p);
+      s0 += t.a;
+      s1 += t.b;
+      s2 += t.c;
+      s3 += t.d;
+    }
+    if (++i % 3 == 0) {
+      s0 = fold62(s0);
+      s1 = fold62(s1);
+      s2 = fold62(s2);
+      s3 = fold62(s3);
+    }
   }
+
+  __device__ __forceinline__ static uint64_t fold62(uint64_t x) { return (x & ((1ull << 62) - 1)) + (x >> 62); }
+
+  // x mod p: x = lo + mid 2^31 + hi 2^62 = lo + mid + hi (mod p), below 2^32 + 2
+  __device__ __forceinline__ static uint32_t reduce(uint64_t x) {
+    const uint64_t t = (x & poseidon2_m31::P) + ((x >> 31) & poseidon2_m31::P) + (x >> 62);
+    const uint32_t r = (uint32_t)(t & poseidon2_m31::P) + (uint32_t)(t >> 31);
+    return min(r, r - poseidon2_m31::P);
+  }
+
+  __device__ __forceinline__ Q value() const { return Q{reduce(s0), reduce(s1), reduce(s2), reduce(s3)}; }
 };
 
 // The first K constraints emitted, unscaled (the check kernel).
@@ -159,60 +202,58 @@ __host__ __device__ constexpr int interaction_reads(int n, int bs) { return 4 * 
 
 // One component (one AIR over one table): `Src` has pre(i), tr(i) (the
 // component's i-th preprocessed / trace mask), ext(m) (the m-th interaction
-// mask, four columns combined), ext_pair(m, prev, cur) (its previous and
-// current row) and, for a Horner sink, scale(v) (v / vanishing).  N
-// fractions, batched by BS.
+// mask, four columns combined) and ext_pair(m, prev, cur) (its previous and
+// current row).  N fractions, batched by BS: each relation folds into its
+// batch's running fraction p / q as it is produced (finalize_logup's p = p
+// den + num q, q = q den), and the relation that ends a batch emits the
+// batch's constraint, each batch but the last against one interaction row
+// (the running column sums), the last against its previous and current row.
+// The AIRs emit no constraint between relations, so the order is finalize's.
 template <class Src, class Sink, int N, int BS>
 struct Component {
+  static constexpr int kBatches = (N + BS - 1) / BS;
   const Src& src;
   Sink& h;
   Q z, alpha, alpha2, shift;  // lookup elements, alpha^2 and the cumsum_shift
-  Q num[N], den[N];
-  int n;
+  Q p, q, prev_cum;           // the open batch's fraction, the last batch's row
+  int n;                      // relations so far
 
   __device__ __forceinline__ Component(const Src& s, Sink& hh, Q z_, Q alpha_, Q shift_)
-      : src(s), h(hh), z(z_), alpha(alpha_), alpha2(q_mul(alpha_, alpha_)), shift(shift_), n(0) {}
+      : src(s), h(hh), z(z_), alpha(alpha_), alpha2(q_mul(alpha_, alpha_)), shift(shift_), prev_cum(q_zero()),
+        n(0) {}
 
   __device__ __forceinline__ void emit(Q v) { h.emit(src, v); }
 
   // add_to_relation: values[0] + alpha values[1] (+ alpha^2 values[2]) - z
   __device__ __forceinline__ void relation(Q mult, Q v0, Q v1) {
-    num[n] = mult;
-    den[n] = q_sub(q_add(v0, q_mul(alpha, v1)), z);
-    ++n;
+    fraction(mult, q_sub(q_add(v0, q_mul(alpha, v1)), z));
   }
 
   __device__ __forceinline__ void relation(Q mult, Q v0, Q v1, Q v2) {
-    num[n] = mult;
-    den[n] = q_sub(q_add(q_add(v0, q_mul(alpha, v1)), q_mul(alpha2, v2)), z);
-    ++n;
+    fraction(mult, q_sub(q_add(q_add(v0, q_mul(alpha, v1)), q_mul(alpha2, v2)), z));
   }
 
-  // finalize_logup: fractions p/q folded p = p den + num q, q = q den per
-  // batch; each batch but the last against one interaction row (the running
-  // column sums), the last against its previous and current row.
-  __device__ __forceinline__ void finalize() {
-    constexpr int NB = (N + BS - 1) / BS;
-    Q prev_cum = q_zero();
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      Q p = num[b * BS], q = den[b * BS];
-#pragma unroll
-      for (int i = b * BS + 1; i < (b + 1) * BS && i < N; ++i) {
-        p = q_add(q_mul(p, den[i]), q_mul(num[i], q));
-        q = q_mul(q, den[i]);
-      }
-      if (b < NB - 1) {
-        const Q cur = src.ext(b);
-        const Q diff = q_sub(cur, prev_cum);
-        prev_cum = cur;
-        emit(q_sub(q_mul(diff, q), p));
-      } else {
-        Q prev_row, cur;
-        src.ext_pair(b, prev_row, cur);
-        const Q fixed = q_add(q_sub(q_sub(cur, prev_row), prev_cum), shift);
-        emit(q_sub(q_mul(fixed, q), p));
-      }
+  __device__ __forceinline__ void fraction(Q num, Q den) {
+    if (n % BS == 0) {
+      p = num;
+      q = den;
+    } else {
+      p = q_add(q_mul(p, den), q_mul(num, q));
+      q = q_mul(q, den);
+    }
+    ++n;
+    if (n % BS != 0 && n != N) return;
+    const int b = (n - 1) / BS;
+    if (b < kBatches - 1) {
+      const Q cur = src.ext(b);
+      const Q diff = q_sub(cur, prev_cum);
+      prev_cum = cur;
+      emit(q_sub(q_mul(diff, q), p));
+    } else {
+      Q prev_row, cur;
+      src.ext_pair(b, prev_row, cur);
+      const Q fixed = q_add(q_sub(q_sub(cur, prev_row), prev_cum), shift);
+      emit(q_sub(q_mul(fixed, q), p));
     }
   }
 };
@@ -244,7 +285,6 @@ __device__ __forceinline__ void evaluate_plonk(const Src& s, Sink& h, Q z, Q alp
   ev.relation(mult_b, b_val, b_wire);
   ev.relation(mult_c, c_val, c_wire);
   ev.relation(q_neg(mult_poseidon), poseidon_wire, a_val, b_val);
-  ev.finalize();
 }
 
 // ---------------------------------------------------------------------------
@@ -306,7 +346,6 @@ __device__ __forceinline__ void evaluate_plonk_np(const Src& s, Sink& h, Q z, Q 
   ev.relation(one, a_val, a_wire);
   ev.relation(one, b_val, b_wire);
   ev.relation(mult_c, c_val, c_wire);
-  ev.finalize();
 }
 
 // ---------------------------------------------------------------------------
@@ -410,7 +449,6 @@ __device__ __forceinline__ void poseidon_logup(const Src& s, Ev& ev) {
               q_add(q_mul(is_last, ext2), q_mul(is_not_last, out_right_id)),
               quarter(s, kOut, 2), quarter(s, kOut, 3));
   ev.relation(q_mul(is_first, is_not_last), swap_bit_value, s.pre(kRc0));
-  ev.finalize();
 }
 
 template <class Src, class Sink>

@@ -12,7 +12,10 @@
       one AIR table's constraints folded into the (4, N) accumulator over
       the 2**bound domain, one thread a point; the twin of
       recursive_stwo_tpu/prover/device_prove.py `_ProverEval` (:202-274)
-      in `_stage_composition_jit` (:417-474).
+      in `_stage_composition_jit` (:417-474).  Horner's fold of the
+      table's n constraints is the weighted sum acc rc^n + sum of c_i
+      rc^(n-1-i) / vanishing, from a table of rc's powers built here once a
+      launch (`domain_powers`).
 
 They take CUDA int64 tensors of canonical residues and raise on anything
 else; the plain versions are verifier/composition.composition_value_plain
@@ -38,6 +41,7 @@ from functools import lru_cache
 
 import torch
 
+from ..core import qm31_host as qh
 from ..verifier.spec import (
     N_INTERACTION_PLONK,
     N_PREPROCESSED_PLONK,
@@ -245,6 +249,21 @@ def _canonical(v, name: str) -> list:
     return limbs
 
 
+def domain_constraints(air: int) -> int:
+    """The constraints an AIR emits (AIR_CONSTRAINTS)."""
+    return sum(count for _, count in AIR_CONSTRAINTS[air])
+
+
+def domain_powers(random_coeff, n: int) -> list:
+    """rc^0 .. rc^n, each four python ints: the domain kernel's power table,
+    the same at every point of a launch."""
+    rc = qh.q_scalar(*_canonical(random_coeff, "random_coeff"))
+    table = [qh.q_scalar(1, 0, 0, 0)]
+    for _ in range(n):
+        table.append(qh.q_mul(table[-1], rc))
+    return [list(qh.q_to_tuple(v)) for v in table]
+
+
 def domain(evaluate_fn, pre, tr, inter, perm, denom_inv, acc, first: bool, total, lookup, random_coeff,
            log_size: int) -> None:
     """Fold one AIR table's constraints over the domain into `acc` (4, N)
@@ -261,13 +280,13 @@ def domain(evaluate_fn, pre, tr, inter, perm, denom_inv, acc, first: bool, total
                            (perm, "perm", (n,)), (denom_inv, "denom_inv", (n,))):
         _check_tensor(x, name, shape, dev)
     consts = _canonical(total, "total") + _canonical(lookup[0], "z") + _canonical(lookup[1], "alpha")
-    consts += _canonical(random_coeff, "random_coeff") + [_inv_pow2(log_size)]
+    consts += [_inv_pow2(log_size)] + [x for v in domain_powers(random_coeff, domain_constraints(air)) for x in v]
     lib = build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.composition_domain(
             air, pre.data_ptr(), tr.data_ptr(), inter.data_ptr(), perm.data_ptr(), denom_inv.data_ptr(),
-            acc.data_ptr(), int(first), n, (ctypes.c_int64 * 17)(*consts), stream,
+            acc.data_ptr(), int(first), n, (ctypes.c_int64 * len(consts))(*consts), stream,
         )
     _raise_on(err, "composition_domain")
     if n:
@@ -402,18 +421,25 @@ class _Component:
     type of a preprocessed or trace mask (QM31 samples, or the prover's M31
     rows), `ext_combines` whether an interaction row is four samples
     combined (the verifier) or four limb rows (the prover), `scale` the
-    1/vanishing (QM31 or M31)."""
+    1/vanishing (QM31 or M31).  Each constraint goes into a Horner fold
+    (acc rc + c scale), or with `weighted` into the least form of the same
+    sum: c times its power of rc, added (an M31 x QM31 multiply-add for an
+    M31 constraint), then once the sum times `scale` and acc rc^n added."""
 
-    def __init__(self, o: _Ops, acc, mask, ext_combines: bool, scale, air: int):
+    def __init__(self, o: _Ops, acc, mask, ext_combines: bool, scale, air: int, weighted: bool = False):
         self.o, self.acc, self.mask, self.ext_combines, self.scale = o, acc, mask, ext_combines, scale
         self.n_fracs, self.batch = AIR_SHAPES[air][2:]
         self.alpha2 = None  # alpha^2, computed where a relation of three values needs it
         self.shift = o.q_mul_m31(_Q)
         self.fracs = []
+        self.weighted, self.sum = weighted, _Z
 
     def emit(self, v):
         o = self.o
-        self.acc = o.q_add(o.q_mul(self.acc, _Q), o.q_mul(v, self.scale))
+        if self.weighted:
+            self.sum = o.q_add(self.sum, o.q_mul(v, _Q))
+        else:
+            self.acc = o.q_add(o.q_mul(self.acc, _Q), o.q_mul(v, self.scale))
 
     def relation(self, mult, *values):
         o = self.o
@@ -445,6 +471,8 @@ class _Component:
                 prev_row, cur = self.ext(), self.ext()
                 fixed = o.q_add(o.q_sub(o.q_sub(cur, prev_row), prev), self.shift)
                 self.emit(o.q_sub(o.q_mul(fixed, q), p))
+        if self.weighted:
+            return o.q_add(o.q_mul(self.acc, _Q), o.q_mul(self.sum, self.scale))
         return self.acc
 
 
@@ -524,8 +552,8 @@ def _poseidon(c: _Component):
 _AIR_BODIES = {PLONK: _plonk, POSEIDON: _poseidon, PLONK_NP: _plonk_np}
 
 
-def _component_ops(o: _Ops, air: int, acc, mask, ext_combines: bool, scale):
-    c = _Component(o, acc, mask, ext_combines, scale, air)
+def _component_ops(o: _Ops, air: int, acc, mask, ext_combines: bool, scale, weighted: bool = False):
+    c = _Component(o, acc, mask, ext_combines, scale, air, weighted)
     _AIR_BODIES[air](c)
     return c.finalize()
 
@@ -548,9 +576,13 @@ def check_ops(spec) -> int:
 @lru_cache(maxsize=None)
 def domain_ops(air: int, first: bool) -> int:
     """int32 operations of one point of the domain kernel: an AIR on M31
-    masks and four-limb interaction rows, constraints scaled by an M31."""
+    masks and four-limb interaction rows, its constraints combined at the
+    least form the inputs need (each times its power of rc and added: an
+    M31 x QM31 multiply-add for an M31-valued constraint, a QM31 product
+    and add for a logup one; once a point the M31 1/vanishing and, unless
+    `first`, acc rc^n)."""
     o = _Ops()
-    _component_ops(o, air, _Z if first else _Q, _M, False, _M)
+    _component_ops(o, air, _Z if first else _Q, _M, False, _M, weighted=True)
     return o.int_ops
 
 

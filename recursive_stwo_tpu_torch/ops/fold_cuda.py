@@ -2,11 +2,11 @@
 
   fold(spec, pa, raw_queries, oods, random_coeff, fri_alphas)
       -> (answers (G, B, Q, 4), self_vals (n_inner, B, Q, 4), (B,) bool):
-      the verifier's fold phase of a batch in one launch, one thread a
-      (proof, query) slot: every group's OODS quotient, the first layer's
-      circle folds, the inner layers' line folds and the last-layer check;
-      the twin of what XLA compiled from recursive_stwo_tpu/verifier/
-      verify.py `fold_phase` (:97-126).
+      the verifier's fold phase of a batch in one launch, a block a proof:
+      every group's OODS quotient, the first layer's circle folds, the inner
+      layers' line folds and the last-layer check; the twin of what XLA
+      compiled from recursive_stwo_tpu/verifier/verify.py `fold_phase`
+      (:97-126).
 
 It takes CUDA int64 tensors of canonical residues and raises on anything
 else; the plain version is verifier/verify.fold_values_plain.  The kernel
@@ -19,9 +19,15 @@ every sample of every group's columns, in the order the eager
 `fri_answers_for_group` walks them (group by group, sample batch by sample
 batch of `quotients_host.group_batches`; a column sampled at two points is
 in two batches): the column's block (one of `blocks`: a tree's (B, Q,
-width) columns at the group's log size), its place in the block and the
-sample's index; and for every sample batch its first entry, its length and
-its shift point (the identity for the OODS batch).
+width) columns at the group's log size), its place in the block, the
+sample's index and its batch; and for every sample batch its first entry,
+its length and its shift point (the identity for the OODS batch).  A block
+computes each entry's line coefficients once a proof, thread t the entries
+t, t + 128, ...; W lanes a query (`lanes_per_query`) split each batch's
+entries for a slot's sums, lane w the entries first + w, first + w + W, ...
+of each batch, reading the proof's tree column rows, which the block stages
+in shared memory.  Its shared memory is laid out here (`smem_layout`); a
+spec and query count whose layout exceeds a block's shared memory raises.
 """
 
 from __future__ import annotations
@@ -45,13 +51,23 @@ LAUNCHES = {"fold_phase": 0}
 
 # csrc/fold.cu's limits and the positions of its `scalars` and `ptrs` arrays
 MAX_LOG, MAX_GROUPS, MAX_BLOCKS, MAX_INNER, MAX_LAST_LOG = 31, 8, 32, 32, 16
-(S_BATCH, S_QUERIES, S_SAMPLES, S_PARAMS, S_FIRST_LOG, S_INNER, S_GROUPS, S_LAST_LOG, S_BATCH_TAB, S_INIT_X,
- S_INIT_Y, S_JX, S_JY) = range(13)
-S_STEP = 16
+THREADS = 128  # a block, one proof
+SMEM_MAX = 232448  # an H100 block's shared memory, bytes
+MAX_STAGED_LOG = 10  # last layers of up to 2**10 coefficients are staged in shared memory
+(S_BATCH, S_QUERIES, S_SAMPLES, S_PARAMS, S_FIRST_LOG, S_INNER, S_GROUPS, S_LAST_LOG, S_ENTRIES, S_INIT_X,
+ S_INIT_Y, S_JX, S_JY, S_LANES, S_CHUNK, S_ALPHA_ROWS, S_STEP) = range(17)
 S_GROUP_LOG = S_STEP + 2 * MAX_LOG
 S_GROUP_BATCH = S_GROUP_LOG + MAX_GROUPS
 S_BLOCK_WIDTH = S_GROUP_BATCH + MAX_GROUPS + 1
-N_SCALARS = S_BLOCK_WIDTH + MAX_BLOCKS
+S_LAYOUT = S_BLOCK_WIDTH + MAX_BLOCKS
+N_SCALARS = S_LAYOUT + 20
+# csrc/fold.cu's shared-memory regions (its enum Region, in order): QM31
+# regions first (four words an element, 16-byte aligned), then words; the
+# last two (A and B, read only before step 1) overlay the chunk's scratch
+# SCRATCH, which step 1 writes first
+SMEM_REGIONS = ("alpha", "c", "pxy", "sums", "fri", "coef", "sib", "ans", "folded", "inv", "dy", "den", "dbl", "cols",
+                "col_at", "a", "b")
+SCRATCH = ("ans", "folded", "inv", "dy", "den", "dbl")
 P_RAW, P_SAMPLES, P_PARAMS, P_LAST_POLY, P_TAB, P_ANSWERS, P_SELF_VALS, P_LAST_EQ, P_BLOCKS = range(9)
 P_FIRST_SIB = P_BLOCKS + MAX_BLOCKS
 P_INNER_SIB = P_FIRST_SIB + MAX_GROUPS
@@ -105,11 +121,73 @@ def spec_tables(spec) -> FoldTables:
     return FoldTables(tuple(blocks), tuple(columns), tuple(batches), tuple(group_batch), steps)
 
 
+def entry_batches(spec) -> tuple:
+    """The sample batch of each entry of spec_tables(spec).columns."""
+    t = spec_tables(spec)
+    return tuple(bt for bt, (_, n, _, _) in enumerate(t.batches) for _ in range(n))
+
+
 @lru_cache(maxsize=None)
 def _device_table(spec, device) -> torch.Tensor:
     t = spec_tables(spec)
-    rows = [c + (0,) for c in t.columns] + list(t.batches)
+    rows = [c + (bt,) for c, bt in zip(t.columns, entry_batches(spec))] + list(t.batches)
     return torch.tensor(rows, dtype=torch.int32, device=device).reshape(-1)
+
+
+def lanes_per_query(n_queries: int) -> int:
+    """W, the lanes of a query in the kernel's quotient and last-layer
+    steps: the largest power of two up to 32 with W * Q <= THREADS (1 for
+    more than THREADS / 2 queries)."""
+    w = 32
+    while w > 1 and w * n_queries > THREADS:
+        w //= 2
+    return w
+
+
+def chunk_queries(n_queries: int) -> int:
+    """Queries a chunk: a block takes a proof's queries in chunks of W * chunk
+    <= THREADS lanes (all of them when Q <= THREADS)."""
+    return min(n_queries, THREADS // lanes_per_query(n_queries))
+
+
+def alpha_rows(spec) -> int:
+    """Rows of the kernel's alpha_k = -2u rc^k table: the largest group's
+    entries (k restarts at 0 each group)."""
+    t = spec_tables(spec)
+    return max(t.batches[t.group_batch[g + 1] - 1][0] + t.batches[t.group_batch[g + 1] - 1][1]
+               - t.batches[t.group_batch[g]][0] for g in range(len(t.group_batch) - 1))
+
+
+class SmemLayout(NamedTuple):
+    offsets: tuple  # each region's first word (SMEM_REGIONS), and the end of the last
+    sizes: tuple  # each region's words
+    bytes: int
+
+
+@lru_cache(maxsize=None)
+def smem_layout(spec, n_queries: int) -> SmemLayout:
+    """The kernel's shared memory for this spec at Q queries: each region's
+    size in words (a QM31 four), laid out in SMEM_REGIONS order."""
+    t = spec_tables(spec)
+    E, NB, G, n_inner = len(t.columns), len(t.batches), len(spec.all_log_sizes), spec.n_inner_layers
+    d = spec.log_last_layer_degree_bound
+    qc = chunk_queries(n_queries)
+    sizes = dict(
+        alpha=4 * alpha_rows(spec), c=4 * E, a=4 * E, b=4 * E, pxy=8 * NB, sums=8 * NB, fri=4 * (n_inner + 1),
+        coef=4 << d if d <= MAX_STAGED_LOG else 0, sib=4 * (G + n_inner) * qc, ans=4 * G * qc, folded=4 * qc,
+        cols=qc * sum(width for _, _, width in t.blocks), col_at=2 * E, inv=(n_inner + G + NB) * qc, dy=G * qc,
+        den=2 * NB * qc, dbl=d * qc,
+    )
+    offsets, at = {}, 0
+    for name in SMEM_REGIONS[:-2]:
+        offsets[name] = at
+        at += sizes[name]
+        if name == SCRATCH[-1]:  # A and B over the scratch
+            offsets["a"] = offsets[SCRATCH[0]]
+            offsets["b"] = offsets["a"] + sizes["a"]
+            at = max(at, offsets["b"] + sizes["b"])
+    return SmemLayout(tuple(offsets[name] for name in SMEM_REGIONS) + (at,),
+                      tuple(sizes[name] for name in SMEM_REGIONS), 4 * at)
 
 
 def _check_shape(spec) -> None:
@@ -124,6 +202,13 @@ def _check_shape(spec) -> None:
         raise ValueError(f"log size {min(logs)} lies below the last fold ({M - n_inner})")
 
 
+def _check_smem(spec, n_queries: int) -> None:
+    need = smem_layout(spec, n_queries).bytes
+    if need > SMEM_MAX:
+        raise ValueError(f"the fold kernel's shared memory for this spec at {n_queries} queries, {need} bytes, "
+                         f"exceeds a block's {SMEM_MAX}")
+
+
 def _scalars(spec, batch: int, n_queries: int, n_params: int) -> list:
     t = spec_tables(spec)
     M = spec.max_first_layer_log
@@ -131,7 +216,11 @@ def _scalars(spec, batch: int, n_queries: int, n_params: int) -> list:
     init = Coset.half_odds(M).initial
     s[S_BATCH], s[S_QUERIES], s[S_SAMPLES], s[S_PARAMS] = batch, n_queries, spec.total_samples, n_params
     s[S_FIRST_LOG], s[S_INNER], s[S_GROUPS] = M, spec.n_inner_layers, len(spec.all_log_sizes)
-    s[S_LAST_LOG], s[S_BATCH_TAB] = spec.log_last_layer_degree_bound, 4 * len(t.columns)
+    s[S_LAST_LOG], s[S_ENTRIES] = spec.log_last_layer_degree_bound, len(t.columns)
+    s[S_LANES], s[S_CHUNK], s[S_ALPHA_ROWS] = lanes_per_query(n_queries), chunk_queries(n_queries), alpha_rows(spec)
+    layout = smem_layout(spec, n_queries)
+    s[S_LAYOUT:S_LAYOUT + len(SMEM_REGIONS)] = layout.offsets[:-1]
+    s[S_LAYOUT + len(SMEM_REGIONS)] = layout.bytes
     s[S_INIT_X], s[S_INIT_Y], s[S_JX], s[S_JY] = int(init[0]), int(init[1]), int(_J[0]), int(_J[1])
     for k, (x, y) in enumerate(t.steps):
         s[S_STEP + 2 * k], s[S_STEP + 2 * k + 1] = int(x), int(y)
@@ -156,6 +245,7 @@ def fold(spec, pa, raw_queries: torch.Tensor, oods, random_coeff, fri_alphas) ->
     M, n_inner = spec.max_first_layer_log, spec.n_inner_layers
     n_groups = len(spec.all_log_sizes)
     batch, n_queries = raw_queries.shape
+    _check_smem(spec, n_queries)
     dev = raw_queries.device
     _check_tensor(raw_queries, "raw_queries", (batch, n_queries))
     _check_tensor(pa.samples_flat, "samples_flat", (batch, spec.total_samples, 4), dev)
@@ -202,17 +292,19 @@ def fold(spec, pa, raw_queries: torch.Tensor, oods, random_coeff, fri_alphas) ->
 # bound: the int32 operations the fold phase needs, counted as
 # ops/composition_cuda counts them (a modular add 3, a multiply 6, at 132
 # SMs x 128 lanes x 1.98 GHz), with the per-proof quotient coefficients
-# counted once a proof (the kernel repeats them in each of a proof's Q
-# threads) and each conditional point addition of the half-index chain
-# counted where the query's bit asks for it; against the bytes of every
-# input read once and every output written once.
+# counted once a proof and each conditional point addition of the
+# half-index chain counted where the query's bit asks for it; against the
+# bytes of every input read once and every output written once.  A batch's
+# numerator, the sum over its columns of C val - (A dy + B), is counted at
+# its least form, sum of C val - (SA dy + SB) with SA and SB the per-proof
+# sums of A and B: one M31 x QM31 product and add a column a slot.
 # ---------------------------------------------------------------------------
 
 _MINUS_2U = (False, False, True, False)  # limb flags of the constant -2u
 
 
 class FoldOps(NamedTuple):
-    per_proof: int  # the quotients' coefficients, rc powers and shift points
+    per_proof: int  # the quotients' coefficients and their batch sums, rc powers and shift points
     per_slot: int  # everything else of one (proof, query) slot
     per_point_add: int  # one conditional addition of the half-index chain
 
@@ -235,20 +327,25 @@ def fold_ops(spec) -> FoldOps:
         if (cx, cy) != IDENTITY:
             proof.q_sub(proof.q_mul_m31(_Q), proof.q_mul_m31(_Q))
             proof.q_add(proof.q_mul_m31(_Q), proof.q_mul_m31(_Q))
-        for _ in range(n):
+        for k in range(n):
             alpha = proof.q_mul(_Q, _MINUS_2U)
             proof.q_mul(_Q, _Q)  # the next power of rc
             v0y1, v1y0 = proof.c_mul((True, True), (True, True)), proof.c_mul((True, True), (True, True))
             b_c = (proof.sub(v0y1[0], v1y0[0]), proof.sub(v0y1[1], v1y0[1]))
             for s in ((True, True), (True, True), b_c):  # A, C and B
                 proof.q_mul_cm31(alpha, s)
-            # the slot's term: C val - (A dy + B), summed
-            slot.q_add(_Q, slot.q_sub(slot.q_mul_m31(_Q), slot.q_add(slot.q_mul_m31(_Q), _Q)))
-        # the denominator, its inverse and the batch's share
+            if k:  # SA and SB
+                proof.q_add(_Q, _Q)
+                proof.q_add(_Q, _Q)
+            # the slot's sum of C val
+            slot.q_add(_Q, slot.q_mul_m31(_Q))
+        # the denominator, its inverse and the batch's share: (sum of C val
+        # - (SA dy + SB)) / denominator
         ta = slot.c_mul((slot.sub(True, True), True), (True, True))
         tb = slot.c_mul((slot.sub(True, True), True), (True, True))
         den = slot.c_inv((slot.sub(ta[0], tb[0]), slot.sub(ta[1], tb[1])))
-        slot.q_add(_Q, slot.q_mul_cm31(_Q, den))
+        num = slot.q_sub(_Q, slot.q_add(slot.q_mul_m31(_Q), _Q))
+        slot.q_add(_Q, slot.q_mul_cm31(num, den))
     M, n_inner = spec.max_first_layer_log, spec.n_inner_layers
     folded = _Z
     for L in spec.all_log_sizes:

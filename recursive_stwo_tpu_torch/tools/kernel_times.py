@@ -19,8 +19,9 @@ times, at the shapes the port calls them with:
      and np_small, at np_small's B=512 and at the SHA fast paths' batch 1
      (level 14, bitcoin), beside its latency floor where the checkout has
      one; the domain kernel (composition_domain) on each table of chain
-     levels 1 and 2 (the tables `prove` hands its composition stage),
-     beside the plain version's time on the card.
+     levels 1 and 2 (the tables `prove` hands its composition stage) and
+     on a without-Poseidon table of random rows at their 2**21 points, first
+     and accumulating, beside the plain version's time on the card.
   The fold kernel (fold_phase), where the checkout has it: each verifier's
      batch, small_proof and recursive_proof_16_15 at B=1024, np_small at
      B=512, level 14 and bitcoin at B=128, beside the plain version's time.
@@ -33,7 +34,7 @@ times, at the shapes the port calls them with:
 `--kernels poseidon`, `--kernels composition`, `--kernels fold` or
 `--kernels transcript` times only those.
 Before timing, every kernel output is held to the plain version bit for bit.
-Prints ptxas' report of the transcript and check kernels first.
+Prints ptxas' report of the transcript, check, domain and fold kernels first.
 Two times per shape: CUDA events around `reps` back-to-back calls (what a
 caller's loop pays, the wrapper's host cost included once it exceeds the
 kernel) and the kernels' mean device duration under torch.profiler.  Prints
@@ -61,6 +62,7 @@ SCAN_BATCH, SWEEP_BATCH, SWEEP_LOG_N = 1024, 1 << 14, range(12, 19)
 CHECK_SHAPES = (("small_proof", 1024), ("recursive_proof_16_15", 1024), ("np_small", 1024), ("np_small", 512),
                 ("level14", 1), ("bitcoin", 1))
 DOMAIN_LEVELS = (1, 2)
+NP_DOMAIN_LOG = 21  # the without-Poseidon AIR's table of random rows, as many points as the levels' domains
 # the fold kernel at each verifier's batch: verify_batch's, verify_batch_np's
 # and the SHA-256 device checks'
 FOLD_SHAPES = (("small_proof", 1024), ("recursive_proof_16_15", 1024), ("np_small", 512), ("level14", 128),
@@ -210,22 +212,21 @@ def composition_lines(torch, dev) -> list:
                           bound_ms=bound, bound_by=by))
         if lat:
             lines[-1].update(floor_ms=composition_cuda.latency_floor_ms(case.spec, lat))
-    for level in DOMAIN_LEVELS:
-        trace, config, _ = flagship.chain_level_trace(level)
-        spec, tables, lookup, rc = cases.prover_tables(trace, config, dev)
-        calls = cases.domain_calls(spec, tables)
-        del trace, tables
-        n = 1 << spec.composition_log_degree_bound
+    tables = [(f"level {level}", *_level_calls(flagship, cases, level, dev)) for level in DOMAIN_LEVELS]
+    tables.append(("random rows", *_np_domain_calls(torch, cases, dev)))
+    for label, calls, lookup, rc in tables:
+        n = calls[0].perm.shape[0]
         acc = torch.zeros((4, n), dtype=torch.int64, device=dev)
         for call in calls:
             air = composition_cuda.air_id(call.evaluate_fn)
             plain = cases.run_domain(call, acc, lookup, rc, plain=True)
             if not torch.equal(cases.run_domain(call, acc.clone(), lookup, rc), plain):
-                raise RuntimeError(f"composition_domain differs from the plain version at level {level}, AIR {air}")
+                raise RuntimeError(f"composition_domain differs from the plain version on {label}, AIR {air}")
             bound, by = composition_cuda.domain_bound_ms(call.evaluate_fn, n, call.first)
             work = acc.clone()
-            lines.append(dict(kernel="composition_domain", shape=f"level {level} AIR {air} ({call.pre.shape[0]} + "
-                              f"{call.tr.shape[0]} + {call.inter.shape[0]} rows x {n})", points=n,
+            lines.append(dict(kernel="composition_domain", shape=f"{label} AIR {air} ({call.pre.shape[0]} + "
+                              f"{call.tr.shape[0]} + {call.inter.shape[0]} rows x {n}"
+                              f"{'' if call.first else ', accumulating'})", points=n,
                               int_ops=n * composition_cuda.domain_ops(air, call.first),
                               events_ms=cuda_ms(torch, lambda: cases.run_domain(call, work, lookup, rc), 10),
                               device_ms=profiled_ms(torch, lambda: cases.run_domain(call, work, lookup, rc), 10,
@@ -237,6 +238,36 @@ def composition_lines(torch, dev) -> list:
         del calls, acc
         torch.cuda.empty_cache()
     return lines
+
+
+def _level_calls(flagship, cases, level: int, dev) -> tuple:
+    """(domain calls, lookup, random_coeff) of chain level `level`'s tables."""
+    trace, config, _ = flagship.chain_level_trace(level)
+    spec, tables, lookup, rc = cases.prover_tables(trace, config, dev)
+    return cases.domain_calls(spec, tables), lookup, rc
+
+
+def _np_domain_calls(torch, cases, dev) -> tuple:
+    """The without-Poseidon AIR on random canonical rows at 2**NP_DOMAIN_LOG
+    points, as the first table and accumulating: (calls, lookup, rc)."""
+    from recursive_stwo_tpu_torch.core.qm31 import QM31
+    from recursive_stwo_tpu_torch.ops import composition_cuda
+    from recursive_stwo_tpu_torch.verifier import composition as vcomp
+
+    n = 1 << NP_DOMAIN_LOG
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n_pre, n_tr, n_fracs, batch = composition_cuda.AIR_SHAPES[composition_cuda.PLONK_NP]
+
+    def rows(k):
+        return torch.randint(0, P, (k, n), generator=gen, device=dev, dtype=torch.int64)
+
+    def qm31():
+        return QM31(*(int(x) for x in rows(4)[:, 0]))
+
+    perm = torch.randperm(n, generator=gen, device=dev)
+    call = cases.DomainCall(vcomp.evaluate_plonk_np, rows(n_pre), rows(n_tr), rows(4 * -(-n_fracs // batch)), perm,
+                            rows(1)[0], True, qm31(), NP_DOMAIN_LOG - 1)
+    return [call, call._replace(first=False)], (qm31(), qm31()), qm31()
 
 
 def fold_lines(torch, dev) -> list:
@@ -335,7 +366,7 @@ def main() -> int:
             print(f"[{label}] ptxas:\n{f.read().strip()}")
     print(f"[{label}] library {os.path.basename(build.library_path())} from {lib._name}")
     if hasattr(build, "ptxas_report"):
-        for name in ("transcript_kernel", "composition_check_kernel"):
+        for name in ("transcript_kernel", "composition_check_kernel", "composition_domain_kernel", "fold_kernel"):
             for r in build.ptxas_report(name):
                 print(json.dumps(dict(label=label, ptxas=name, **r)), flush=True)
 

@@ -17,8 +17,10 @@ one card.  For each fixture at B=1024, on a device-resident batch, warm:
   - one verify_batch under torch.profiler: the device time of the hash
     kernels (every kernel whose name holds "wordmajor": K2's steps, or the
     scans and K2's leaf step), of the fold kernel and of the transcript
-    kernel, and every CUDA kernel, copy and fill the call issued with the
-    kernels' summed device time (tools/flavour_times).
+    kernel, the device time of each kernel name in that trace (the ten
+    largest) and their sum, and from another traced call every CUDA
+    kernel, copy and fill the call issued with the kernels' summed device
+    time (tools/flavour_times).
 Prints one JSON line per fixture, then the card's nvidia-smi line.
 """
 
@@ -111,9 +113,13 @@ def main() -> int:
             step(arrays)
             torch.cuda.synchronize()
 
+        def total(e):
+            return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3
+
+        by_name = {e.key: total(e) for e in prof.key_averages() if total(e) > 0}
+
         def device_ms(part):
-            return sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
-                       for e in prof.key_averages() if part in e.key) / 1e3
+            return sum(ms for key, ms in by_name.items() if part in key)
 
         print(json.dumps(dict(
             label=args.label or args.root, fixture=name, batch=BATCH, launches=launches,
@@ -123,6 +129,8 @@ def main() -> int:
             **{f"{phase}_ms": [x * 1e3 for x in w] for phase, w in phases.items()},
             hash_kernel_device_ms=device_ms("wordmajor"), fold_kernel_device_ms=device_ms("fold_kernel"),
             transcript_kernel_device_ms=device_ms("transcript_"),
+            device_ms_by_name=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10]),
+            traced_device_ms=sum(by_name.values()),
             cuda_kernels=issued["kernels"], copies_and_fills=issued["copies_and_fills"],
             kernels_busy_ms=issued["busy_ms"], busy_share=issued["busy_ms"] / statistics.median(walls) / 1e3,
         )), flush=True)

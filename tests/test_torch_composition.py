@@ -10,6 +10,13 @@ value corrupted.  The index table that csrc/composition.cu reads samples
 through must name the sample indices `_Eval._gather` visits, in its order,
 then the 8 composition samples.
 
+The domain kernel's arithmetic: a numpy model of its weighted-sum sink (the
+wrapper's power table, each emitted constraint times rc^(n-1-i) in four lazy
+64-bit limb sums, the 1/vanishing and acc rc^n once a point) must give the
+plain version's Horner fold on the demo circuits' tables, first and
+accumulating; its bound (`domain_ops`) counts that least form, below the
+Horner count and, for the plonk AIR, equal to a count by hand.
+
 The check kernel's arithmetic: its lane table (ops/composition_cuda.py
 `lane_table`) must place each AIR's constraints as the reference emits them
 (count, blocks and order, and the same (kind, count) table as
@@ -379,3 +386,115 @@ def test_weighted_lane_sum_reproduces_the_reference_value(name, variant, monkeyp
         got = r_q.q_add(got, r_q.q_mul(a, dinv))
     for g, w in zip(got, want):
         assert np.array_equal(np.asarray(g), np.asarray(w))
+
+
+def _sink_model(call, acc, lookup, rc) -> torch.Tensor:
+    """The domain kernel on one table, in numpy: each constraint the AIR
+    emits (unscaled) times rc^(n-1-i) from the wrapper's power table, summed
+    per point in four 64-bit limb sums as csrc/composition_air.cuh
+    `PowerSum` keeps them (an M31-valued constraint's four products, another
+    constraint's canonical QM31 product; every third constraint folded below
+    2^62 + 4), reduced, times the point's 1/vanishing, plus acc rc^n unless
+    `first`."""
+    from recursive_stwo_tpu_torch.prover import composition as p_comp
+
+    emitted = []
+
+    class Record:
+        def append(self, block):
+            cols = [np.asarray(c).reshape(c.shape[0], -1).astype(np.uint64) for c in block]
+            emitted.extend([tuple(c[:, k] for c in cols) for k in range(cols[0].shape[1])])
+
+    ones = torch.ones_like(call.denom_inv)
+    call.evaluate_fn(p_comp._ProverEval(call.pre, call.tr, call.inter, call.perm, call.total, ones, call.log,
+                                        Record()), lookup)
+    air = composition_cuda.air_id(call.evaluate_fn)
+    n = composition_cuda.domain_constraints(air)
+    assert len(emitted) == n == sum(1 for comp, _, _ in composition_cuda.constraint_order(
+        composition_cuda.WITHOUT_POSEIDON if air == composition_cuda.PLONK_NP else composition_cuda.WITH_POSEIDON)
+        if comp == (air == composition_cuda.POSEIDON))
+    pw = composition_cuda.domain_powers(rc, n)
+    sums = [np.zeros(call.pre.shape[1], dtype=np.uint64) for _ in range(4)]
+    for i, c in enumerate(emitted):
+        p = pw[n - 1 - i]
+        m31 = (c[1] == 0) & (c[2] == 0) & (c[3] == 0)
+        full = r_q.q_mul(RQM31(*(x.astype(np.uint32) for x in c)), RQM31(*(np.uint32(x) for x in p)))
+        for k in range(4):
+            term = np.where(m31, c[0] * np.uint64(p[k]), np.asarray(full[k]).astype(np.uint64))
+            new = sums[k] + term
+            assert np.all(new >= sums[k]), "a 64-bit limb sum overflowed"
+            sums[k] = new
+        if (i + 1) % 3 == 0:
+            sums = [(s & np.uint64((1 << 62) - 1)) + (s >> np.uint64(62)) for s in sums]
+    P = np.uint64(2**31 - 1)
+    value = RQM31(*(np.asarray([int(x) % (2**31 - 1) for x in s], dtype=np.uint32) for s in sums))
+    value = r_q.q_mul_m31(value, call.denom_inv.numpy().astype(np.uint32))
+    if not call.first:
+        value = r_q.q_add(r_q.q_mul(RQM31(*(a.numpy().astype(np.uint32) for a in acc)),
+                                    RQM31(*(np.uint32(x) for x in pw[n]))), value)
+    assert all(int(np.max(np.asarray(v))) < P for v in value)
+    return torch.from_numpy(np.stack([np.asarray(v).astype(np.int64) for v in value]))
+
+
+@pytest.mark.parametrize("circuit", ["demo", "without-Poseidon demo"])
+def test_weighted_domain_sink_reproduces_the_plain_evals(circuit):
+    """The domain kernel's weighted sum, modelled in numpy with the power
+    table the wrapper passes, equals the plain version's Horner fold table by
+    table: each table as the first and accumulating into a random previous
+    accumulator, and over all tables `composition_evals_plain`."""
+    from test_torch_chain import T_NP_CONFIG, _np_trace
+
+    from recursive_stwo_tpu_torch.models import flagship
+    from recursive_stwo_tpu_torch.prover import composition as p_comp
+
+    if circuit == "demo":
+        trace, config = flagship.demo_trace(), flagship.DEMO_CONFIG
+    else:
+        trace, config = _np_trace(), T_NP_CONFIG
+    spec, tables, lookup, rc = cases.prover_tables(trace, config, "cpu", circuit.startswith("without"))
+    calls = cases.domain_calls(spec, tables)
+    assert [c.first for c in calls] == [True] + [False] * (len(calls) - 1)
+    assert len(calls) == (1 if circuit.startswith("without") else 2)
+    acc = torch.zeros((4, 1 << spec.composition_log_degree_bound), dtype=torch.int64)
+    rng = np.random.default_rng(5)
+    for call in calls:
+        want = cases.run_domain(call, acc, lookup, rc, plain=True)
+        assert torch.equal(_sink_model(call, acc, lookup, rc), want)
+        prev = torch.from_numpy(rng.integers(0, 2**31 - 1, tuple(acc.shape)))
+        onto = call._replace(first=False)
+        assert torch.equal(_sink_model(onto, prev, lookup, rc),
+                           cases.run_domain(onto, prev, lookup, rc, plain=True))
+        acc = want
+    assert torch.equal(acc, p_comp.composition_evals_plain(spec, tables, lookup, rc))
+
+
+def test_domain_ops_counts_the_weighted_sum():
+    """The domain kernel's bound counts the combination at its least form:
+    below the Horner fold's count for every AIR, and for the plonk AIR equal
+    to a count by hand (composition_air.cuh's evaluate_plonk on M31 rows; a
+    modular add 3, a product 6, a product or add with a limb known zero
+    free)."""
+    for air in (composition_cuda.PLONK, composition_cuda.POSEIDON, composition_cuda.PLONK_NP):
+        for first in (True, False):
+            o = composition_cuda._Ops()
+            acc = composition_cuda._Z if first else composition_cuda._Q
+            composition_cuda._component_ops(o, air, acc, composition_cuda._M, False, composition_cuda._M)
+            assert composition_cuda.domain_ops(air, first) < o.int_ops, (air, first)
+    add, mul = 3, 6
+    qq = 16 * mul + 16 * add  # a QM31 x QM31 product
+    mq = 4 * mul  # an M31 x QM31 product
+    qa = 4 * add  # a QM31 add or sub
+    hand = (
+        mq  # the cumsum shift, total sum x 1 / 2^log_size
+        + 3 * (mul + mq) + 2 * qa  # enforce_c_m31: an M31 product each, weighted, summed (the first into zero)
+        + qa + mq + qa + add + mq + qq + qa  # the gate (a QM31 value: the wires combined)
+        + qq + qa  # its weighted add
+        + 3 * (mq + qa + qa)  # three relations a + alpha wire - z
+        + add + qq + add + qq + qq + qa + qa  # the fourth: -mult, a 3-value relation and alpha^2
+        + 2 * (2 * mq + qa + qq)  # each batch's fraction p / q folded
+        + qq + qa + qq + qa  # batch 0's emitted value, weighted and added
+        + 3 * qa + qq + qa + qq + qa  # batch 1 against the previous and current row
+        + mq  # the sum times 1/vanishing, once
+    )
+    assert composition_cuda.domain_ops(composition_cuda.PLONK, True) == hand == 2223
+    assert composition_cuda.domain_ops(composition_cuda.PLONK, False) == hand + qq + qa

@@ -389,7 +389,9 @@ def test_composition_check_bit_exact(cuda, name, batch):
 def test_composition_domain_bit_exact(cuda, circuit):
     """The domain kernel against its plain version on the card, table by
     table into one accumulator, on the tables `prove` / `prove_np` hand
-    their composition stage; composition_evals launches it once a table."""
+    their composition stage, and each table (every AIR) also accumulating
+    into a random accumulator; composition_evals launches it once a
+    table."""
     from test_torch_chain import T_NP_CONFIG, _np_trace
 
     from recursive_stwo_tpu_torch.ops import composition_cuda
@@ -404,9 +406,14 @@ def test_composition_domain_bit_exact(cuda, circuit):
         trace, config = _np_trace(), T_NP_CONFIG
     spec, tables, lookup, rc = cases.prover_tables(trace, config, cuda, circuit.startswith("without"))
     acc = torch.zeros((4, 1 << spec.composition_log_degree_bound), dtype=torch.int64, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
     for call in cases.domain_calls(spec, tables):
         plain = cases.run_domain(call, acc, lookup, rc, plain=True)
         assert torch.equal(cases.run_domain(call, acc.clone(), lookup, rc), plain)
+        prev = torch.randint(0, P, tuple(acc.shape), generator=gen, device=cuda, dtype=torch.int64)
+        onto = call._replace(first=False)
+        assert torch.equal(cases.run_domain(onto, prev.clone(), lookup, rc),
+                           cases.run_domain(onto, prev, lookup, rc, plain=True))
         acc = plain
     composition_cuda.reset_launches()
     assert torch.equal(t_comp.composition_evals(spec, tables, lookup, rc), acc)
@@ -446,7 +453,9 @@ def test_composition_kernels_launch_once_per_call(cuda):
         assert (got["composition_check"], got["composition_domain"]) == (checks, tables), (label, got)
 
 
-@pytest.mark.parametrize("batch", [1, 7, 1024])
+# the fold kernel runs a block a proof: batches of one, a few, a warp's
+# worth and around the main path's 1024, at the fixtures' own Q of 16 and 8
+@pytest.mark.parametrize("batch", [1, 3, 7, 33, 1023, 1024])
 @pytest.mark.parametrize("name", ["small_proof", "recursive_proof_16_15", "np_small", "level14", "bitcoin"])
 def test_fold_phase_bit_exact(cuda, name, batch):
     """The fold kernel against its plain version on the card, in one
@@ -468,6 +477,20 @@ def test_fold_phase_bit_exact(cuda, name, batch):
     if batch > max(cases.CORRUPT_SLOTS):
         ok = cases.fold_values(case)[2].tolist()
         assert [b for b in range(batch) if not ok[b]] == list(cases.CORRUPT_SLOTS)
+
+
+def test_redesigned_kernels_keep_every_value_in_registers_or_shared_memory(cuda):
+    """ptxas' report of the build: the fold kernel and every instance of the
+    composition check and domain kernels have no stack frame and spill
+    nothing."""
+    from recursive_stwo_tpu_torch.ops import build
+
+    build.load()
+    for name, instances in (("fold_kernel", 1), ("composition_domain_kernel", 3), ("composition_check_kernel", 2)):
+        report = build.ptxas_report(name)
+        assert len(report) == instances, (name, report)
+        for r in report:
+            assert (r["stack_bytes"], r["spill_stores"], r["spill_loads"]) == (0, 0, 0), r
 
 
 def test_fold_phase_launches_once_per_verifier_call(cuda):

@@ -11,8 +11,10 @@ slot by slot, on a clean batch and on one with a sampled value and a
 first-layer sibling corrupted in one slot.  The index table that
 csrc/fold.cu reads columns and samples through must walk every group's
 columns in `quotients_host.group_batches` order, naming each column's tree
-block and sample as `spec.group_columns` and `spec.sample_offsets` do.  The
-kernel itself runs only on the card (tests/test_torch_cuda.py).
+block and sample as `spec.group_columns` and `spec.sample_offsets` do; the
+block's per-proof table (each thread's entries) and a query's lane split of
+each batch must cover every entry once, and its shared-memory layout fit a
+block.  The kernel itself runs only on the card (tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -164,3 +166,55 @@ def test_bound_counts_the_queries_point_additions():
     assert fold_cuda.point_adds(spec, raw) == want
     ms, by = fold_cuda.fold_bound_ms(spec, raw)
     assert ms > 0 and by in ("bytes", "operations")
+
+
+@pytest.mark.parametrize("name", fold_cases.FOLD_FIXTURES)
+def test_block_tables_cover_every_entry_once(name):
+    """A block's per-proof column table (each thread's entries, the device
+    table's rows) and a query's lane split of each batch's columns cover
+    every (column, sample) entry of spec_tables exactly once, each lane
+    taking first + w, first + w + W, ... of each batch; the shared-memory
+    layout's regions follow each other, QM31 ones 16-byte aligned, within
+    an H100 block's shared memory."""
+    case = fold_cases.fold_case(name, 1, "cpu")
+    spec, n_queries = case.spec, case.fs.raw_queries.shape[1]
+    t = fold_cuda.spec_tables(spec)
+    entries = list(range(len(t.columns)))
+    # csrc/fold.cu proof_coefficients: thread t computes the entries t, t + THREADS, ...
+    threads = [range(th, len(entries), fold_cuda.THREADS) for th in range(fold_cuda.THREADS)]
+    assert sorted(e for th in threads for e in th) == entries
+    W = fold_cuda.lanes_per_query(n_queries)
+    assert W * n_queries <= fold_cuda.THREADS and (W == 32 or 2 * W * n_queries > fold_cuda.THREADS)
+    assert {16: 8, 8: 16}[n_queries] == W
+    # csrc/fold.cu quotients: lane w sums the entries first + w, first + w + W, ... of each batch
+    lanes = [[k for first, n, _, _ in t.batches for k in range(first + w, first + n, W)] for w in range(W)]
+    assert sorted(e for lane in lanes for e in lane) == entries
+    batch_of = fold_cuda.entry_batches(spec)
+    for w, lane in enumerate(lanes):
+        for e in lane:
+            first = t.batches[batch_of[e]][0]
+            assert (e - first) % W == w
+    rows = fold_cuda._device_table(spec, "cpu").reshape(-1, 4).tolist()
+    assert [tuple(r[:3]) for r in rows[:len(entries)]] == list(t.columns)
+    assert [r[3] for r in rows[:len(entries)]] == list(batch_of)
+    assert [tuple(r) for r in rows[len(entries):]] == list(t.batches)
+    # the samples the entries name: each group's (tree, column, sample) once
+    seen = {(g, t.columns[e][2]) for g in range(len(spec.all_log_sizes))
+            for bt in range(t.group_batch[g], t.group_batch[g + 1])
+            for e in range(t.batches[bt][0], t.batches[bt][0] + t.batches[bt][1])}
+    assert len(seen) == len(entries)
+    layout = fold_cuda.smem_layout(spec, n_queries)
+    regions = dict(zip(fold_cuda.SMEM_REGIONS, zip(layout.offsets, layout.sizes)))
+    spans = [(at, at + n) for name, (at, n) in regions.items() if name not in ("a", "b")]
+    assert spans == sorted(spans) and all(end <= nxt for (_, end), (nxt, _) in zip(spans, spans[1:]))
+    # A and B lie over the chunk's scratch and touch nothing step 1 does not write first
+    lo, hi = regions[fold_cuda.SCRATCH[0]][0], regions["a"][0] + regions["a"][1] + regions["b"][1]
+    assert regions["a"][0] == lo and regions["b"][0] == lo + regions["a"][1]
+    assert all(at >= hi or at + n <= lo for name, (at, n) in regions.items()
+               if name not in fold_cuda.SCRATCH + ("a", "b") and n)
+    q_regions = fold_cuda.SMEM_REGIONS.index("inv")
+    assert all(at % 4 == 0 for at in layout.offsets[:q_regions + 1] + (regions["a"][0], regions["b"][0]))
+    assert layout.bytes == 4 * layout.offsets[-1] <= fold_cuda.SMEM_MAX
+    assert layout.offsets[-1] == max(at + n for at, n in regions.values())
+    assert fold_cuda.alpha_rows(spec) == max(sum(t.batches[bt][1] for bt in range(t.group_batch[g], t.group_batch[g + 1]))
+                                             for g in range(len(spec.all_log_sizes)))
