@@ -5,11 +5,11 @@
 
 Phases; any failure ends the run with a non-zero exit and no result line:
   1. card: the GPU's name and power limit, as nvidia-smi prints them;
-  2. build: nvcc builds the Poseidon2-16, SHA-256, composition, fold and
-     transcript kernels and the latency probe from csrc/ (one nvcc a source,
-     all at once, then a link; seconds); ptxas' report (registers, stack
-     frame, spills) of the transcript, check, domain and fold kernels on
-     lines of their own;
+  2. build: nvcc builds the Poseidon2-16, SHA-256, composition, fold,
+     transcript, circle FFT and quotient kernels and the latency probe from
+     csrc/ (one nvcc a source, all at once, then a link; seconds); ptxas'
+     report (registers, stack frame, spills) of the transcript, check,
+     domain, fold, FFT pass and quotient kernels on lines of their own;
   3. kernels vs plain: K1 and K2 against their plain PyTorch versions on
      the card and on the host CPU, bit for bit, at 2**20 states and at the
      main path's shapes, plus the Poseidon2-16 known-answer test; each of
@@ -56,7 +56,20 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      0); its times (both fixtures at B=1024, np_small at B=512, small_proof
      at B=1 and 512) beside its bound and its latency floor (a proof's
      chain in dependent steps, each at the latency the probe measures
-     on the card, ops/latency_cuda.py);
+     on the card, ops/latency_cuda.py); the provers' circle FFT
+     (csrc/circle_fft.cu) against its plain versions, bit for bit:
+     interpolate, evaluate and the LDE x2 and x8 at FFT_SHAPES, every
+     interpolation and LDE of chain levels 1 and 2 at their shapes
+     (tools/prover_cases.py, seeded random columns) and both ends of an LDE
+     of 17 columns to 2**27 (past 2**31 elements); its tile entry at
+     TILE_SHAPES, a tile of one coefficient and a streamed chunk of every
+     first-layer group of level 2, level 14 and the last layer; the quotient
+     kernel (csrc/quotients.cu) on every first-layer group of levels 1 and 2
+     over its domain (and with the OODS point on the domain, its
+     denominators zero) and on a streamed chunk of every group of level 14
+     and the last layer; their times (the FFT at level 2's largest LDE and
+     interpolation, the tiles at the last layer's chunk, the quotients at
+     level 2's three groups) beside their bounds and the plain versions';
   4. main path, small_proof at B=1024: the port's verify_batch on CUDA over
      a batch with a flipped sibling hash and a flipped nonce, and again with
      a wrong public input; every named check of every slot must equal the
@@ -76,9 +89,12 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      (tools/chain.run_level); its m31x8 bytes must hash to level1-5.bin's
      digest in docs/chain_artifacts.txt (a51ea3f3...), the port's
      verify_batch on CUDA must accept it, K1 must have launched while
-     proving and the composition domain kernel once an AIR table (twice);
-     prints the wall time, each stage's time, the kernels' launches and
-     the peak device memory;
+     proving, the composition domain kernel once an AIR table (twice), the
+     circle FFT, and the quotient kernel once a first-layer group; the
+     proof runs under a device-only torch.profiler trace; prints the wall
+     time (traced), each stage's time, the kernels' launches, the CUDA
+     kernels of the trace (eager torch's and the hand-written ones) and the
+     peak device memory;
   8. the same for level 2 (the committed level1-5.pkl verified once,
      fast_prover2, largest domain 2**23; level2-1.bin, 7476baa5...) and
      level 3 (the committed level2-1.pkl verified once, preset standard,
@@ -110,7 +126,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      bitcoin_proof.bin's 71da12a3..., and verify_sha256np on CUDA must
      accept it; its 22 SHA-256 trees are hashed on the card by the SHA-256
      kernel (which must launch), its one AIR table by one launch of the
-     domain kernel; prints the wall, each stage, the peak
+     domain kernel, its transforms by the circle FFT, its two first-layer
+     groups by two launches of the quotient kernel, under the trace;
+     prints the wall, each stage, the eager and hand-written kernels, the peak
      device memory, the kernels' launches and the trees' hashing and digest
      copy-back time;
  13. prove_sha256p31 of the demo circuit on CUDA equals the CPU run, byte
@@ -140,7 +158,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      Sha256MerkleChannel flavour (largest domain 2**27), its "bytes32" bytes
      hashing to bitcoin_proof.bin's 71da12a3..., accepted by
      verify_sha256np on CUDA, the SHA-256 kernel launched; each streamed
-     proof launches the domain kernel once an AIR table.  (b) and (c) run
+     proof launches the domain kernel once an AIR table, the circle FFT,
+     the tile kernel, and the quotient kernel once a streamed chunk of
+     2**20 points.  (b) and (c) run
      under a device-only torch.profiler trace, which counts every kernel
      the card ran; each prints its wall (traced), stages, the kernels'
      launches and the eager launches, and its peak device memory beside
@@ -157,7 +177,8 @@ levels 2 and 3 and phase 12's last layer; streamed_launches: phase 15's
 phase 10's launches and shapes, and the kernel's times there;
 mesh_launches: each rank's launches in phase 14 (c); launches is each
 kernel's count in its main path: phase 4's verify_batch, phase 7's level 1
-for K1 and the domain kernel, phase 15 (c) for the SHA-256 kernel; K1's
+for K1, the domain kernel, the circle FFT and the quotients, phase 15 (c)
+for the SHA-256 and tile kernels; K1's
 times are at 2**20 rows, a block of a prover level, with step_* at (1024,
 16); floor_ms the latency floors of the transcript and check kernels),
 and {"ok": true, "device": {...}}.
@@ -232,6 +253,14 @@ FOLD_BATCHES = (1, 3, 7, 33, BATCH - 1, BATCH)
 # both fixtures (the chain's batch 1, tails of its blocks of sixteen, the
 # main path's batch)
 TRANSCRIPT_BATCHES = (1, 3, 7, 33, BATCH - 1, BATCH)
+
+# the circle FFT is held to its plain version at these (log, columns), tails
+# of a block's tile of 2**12 and one and two strided passes above it; the
+# tile kernel at these (T, b, tiles [t0, t1), column blocks); both at the
+# shapes of these committed chain proofs (tools/prover_cases.py)
+FFT_SHAPES = ((0, 1), (1, 1), (5, 3), (11, 1), (12, 5), (13, 2), (20, 1), (21, 9))
+TILE_SHAPES = ((6, 1, 0, 32, (3,)), (12, 9, 2, 6, (2, 1, 5)), (10, 4, 5, 61, (1,)), (16, 13, 3, 7, (4,)))
+PROVER_SHAPES = ("level1-5", "level2-1", "level14-1", "bitcoin_proof")
 
 
 class SmokeError(RuntimeError):
@@ -743,6 +772,141 @@ def check_transcript_kernel(torch, dev, lat: dict) -> dict:
     return out
 
 
+def check_prover_kernels(torch, dev) -> tuple:
+    """Phase 3, the provers' circle FFT and quotient kernels against their
+    plain versions on the card, bit for bit.  The whole-column transforms
+    (interpolate, evaluate, the LDE to 2 and 8 times the size) at
+    FFT_SHAPES, every interpolation and LDE of chain levels 1 and 2 at their
+    shapes (tools/prover_cases.fft_cases) and an LDE of 17 columns to 2**27
+    (its output passes 2**31 elements; its first and last column held to the
+    plain version of each alone); the tile evaluation at TILE_SHAPES, at a
+    tile of one coefficient, and on a streamed chunk of every first-layer
+    group of level 2, level 14 and the last layer; the quotients of every
+    first-layer group of levels 1 and 2 over its whole domain (and with the
+    OODS point on the domain, its denominators zero), and of a streamed
+    chunk of every group of level 14 and the last layer.  Returns
+    ({max_abs_err, ms, events_ms, plain_ms, bound_ms, bound_by, library_ms}
+    of each) at the main path's shapes: the FFT at level 2's largest LDE and
+    interpolation, the tiles at the last layer's chunk, the quotients at
+    level 2's groups (their sum; each group's beside it)."""
+    from recursive_stwo_tpu_torch.ops import fft_cuda, quotients_cuda
+    from recursive_stwo_tpu_torch.prover import circle_fft, tiles
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+    from recursive_stwo_tpu_torch.tools.kernel_times import cuda_ms, profiled_ms
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    errs = dict(fft=0, tiles=0, quotients=0)
+
+    def hold(kind, label, got, want):
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"{kind} differs from its plain version on {label}")
+        errs[kind] = max(errs[kind], int((got - want).abs().max()) if got.numel() else 0)
+
+    for log, cols in FFT_SHAPES:
+        x = torch.randint(0, P, (cols, 1 << log), generator=gen, device=dev, dtype=torch.int64)
+        hold("fft", f"interpolate ({cols}, 2**{log})", fft_cuda.interpolate(x), circle_fft.interpolate_plain(x))
+        hold("fft", f"evaluate ({cols}, 2**{log})", fft_cuda.evaluate(x, log), circle_fft.evaluate_plain(x))
+        for blowup in (1, 3):
+            hold("fft", f"LDE ({cols}, 2**{log}) to 2**{log + blowup}", fft_cuda.evaluate(x, log + blowup),
+                 circle_fft.evaluate_plain(circle_fft.extend(x, log + blowup)))
+    specs = {name: cases.prover_spec(name) for name in PROVER_SHAPES}
+    level_cases = {}
+    for name in ("level1-5", "level2-1"):
+        level_cases[name] = cases.fft_cases(specs[name], dev, SEED)
+        for case in level_cases[name]:
+            hold("fft", f"{name}'s {case.label}", cases.run_fft(case), cases.run_fft(case, plain=True))
+    x = torch.randint(0, P, (17, 1 << 18), generator=gen, device=dev, dtype=torch.int64)
+    big = fft_cuda.evaluate(x, 27)
+    for col in (0, 16):
+        hold("fft", f"column {col} of an LDE of (17, 2**18) to 2**27",
+             big[col], circle_fft.evaluate_plain(circle_fft.extend(x[col:col + 1], 27))[0])
+    del big, x
+    torch.cuda.empty_cache()
+    print(f"circle_fft: bit-exact vs plain (interpolate, evaluate, LDE x2 and x8) at {FFT_SHAPES} (log, columns), "
+          f"on every transform of chain levels 1 and 2 at their shapes, and on both ends of a (17, 2**27) LDE "
+          f"(2.3e9 elements)")
+
+    for T, b, t0, t1, widths in TILE_SHAPES:
+        blocks = [torch.randint(0, P, (w, 1 << b), generator=gen, device=dev, dtype=torch.int64) for w in widths]
+        case = cases.TileCase(f"{widths} columns of 2**{b}, tiles [{t0}, {t1}) of 2**{T}", blocks,
+                              tiles.circle_tiles(T, b, t0, t1, dev))
+        hold("tiles", case.label, cases.run_tiles(case), cases.run_tiles(case, plain=True))
+    one = torch.randint(0, P, (3, 1), generator=gen, device=dev, dtype=torch.int64)
+    z = torch.zeros(7, dtype=torch.int64, device=dev)
+    hold("tiles", "a tile of one coefficient", fft_cuda.eval_tiles([one], z, z, z[:1] + 1, z[:1]), one.expand(3, 7))
+    for name in ("level2-1", "level14-1", "bitcoin_proof"):
+        for g in range(len(specs[name].all_log_sizes)):
+            case = cases.tile_case(specs[name], g, dev, SEED, chunk=1)
+            hold("tiles", f"{name}'s {case.label}", cases.run_tiles(case), cases.run_tiles(case, plain=True))
+    print(f"eval_tiles: bit-exact vs plain at {TILE_SHAPES} (T, b, tiles, columns), a tile of one coefficient, "
+          f"and on chunk 1 of every first-layer group of level 2, level 14 and the last layer")
+
+    for name in ("level1-5", "level2-1", "level14-1", "bitcoin_proof"):
+        spec = specs[name]
+        for g in range(len(spec.all_log_sizes)):
+            resident = name.startswith("level1") or name.startswith("level2")
+            case = cases.quotient_case(spec, g, dev, SEED + g, None if resident else cases.STREAM_CHUNK_LOG)
+            hold("quotients", f"{name}'s {case.label}", cases.run_quotients(case),
+                 cases.run_quotients(case, plain=True))
+            if resident:
+                x0, y0 = (int(v[0]) for v in case.points)
+                on = case._replace(inputs=case.inputs._replace(oods=(x0, 0, 0, 0, y0, 0, 0, 0)))
+                hold("quotients", f"{name}'s {case.label} with the OODS point on the domain",
+                     cases.run_quotients(on), cases.run_quotients(on, plain=True))
+    print("quotients: bit-exact vs plain on every first-layer group of levels 1 and 2 over its domain (and with the "
+          "OODS point on the domain), and on a streamed chunk of every group of level 14 and the last layer")
+
+    def timed(kind, label, run, plain, name, per_call, bound, reps):
+        ms = profiled_ms(torch, run, reps, name, per_call)
+        events_ms = cuda_ms(torch, run, reps)
+        plain_ms = cuda_ms(torch, plain, 1)
+        print(f"{kind} {label}: kernel {ms:.4f} ms device, {events_ms:.4f} ms per call back to back (bound "
+              f"{bound[0]:.4f} ms by {bound[1]}, {bound[0] / ms:.1%}), plain {plain_ms:.4f} ms")
+        return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
+
+    out = {}
+    fft = {}
+    for key, case in (("", max((c for c in level_cases["level2-1"] if c.log_out),
+                               key=lambda c: c.x.shape[0] << c.log_out)),
+                      ("interp_", max((c for c in level_cases["level2-1"] if not c.log_out),
+                                      key=lambda c: c.x.numel()))):
+        rows, n = case.x.shape
+        b = n.bit_length() - 1
+        segments = 1 << ((case.log_out or b) - b)
+        r = timed("circle_fft", f"level 2's {case.label}", lambda: cases.run_fft(case),
+                  lambda: cases.run_fft(case, plain=True), "fft_pass_kernel", fft_cuda.passes(b),
+                  fft_cuda.bound_ms(rows, b, segments, n, interpolate=not case.log_out), 10)
+        fft.update({f"{key}{k}": v for k, v in r.items() if not (key and k == "bound_by")})
+    out["circle_fft"] = dict(fft, max_abs_err=errs["fft"], library_ms=None)
+    del level_cases
+
+    spec = specs["bitcoin_proof"]
+    g = max(range(len(spec.all_log_sizes)), key=lambda g: sum(quotients_cuda.group_tables(spec, g).widths))
+    case = cases.tile_case(spec, g, dev, SEED)
+    rows, b, G = sum(c.shape[0] for c in case.blocks), case.tiles.b, case.tiles.bx.shape[0]
+    out["eval_tiles"] = dict(timed("eval_tiles", f"the last layer's {case.label}", lambda: cases.run_tiles(case),
+                                   lambda: cases.run_tiles(case, plain=True), "fft_pass_kernel", fft_cuda.passes(b),
+                                   fft_cuda.bound_ms(rows, b, G, 1 << b, tiles=True), 10),
+                             max_abs_err=errs["tiles"], library_ms=None)
+
+    spec = specs["level2-1"]
+    groups = []
+    for g in range(len(spec.all_log_sizes)):
+        case = cases.quotient_case(spec, g, dev, SEED + g)
+        groups.append(timed("quotients", f"level 2's {case.label}", lambda: cases.run_quotients(case),
+                            lambda: cases.run_quotients(case, plain=True), "quotient_",
+                            quotients_cuda.KERNELS_PER_CALL, quotients_cuda.bound_ms(spec, g, 1 << spec.all_log_sizes[g]), 10))
+        del case
+    total = {k: sum(r[k] for r in groups) for k in ("ms", "events_ms", "plain_ms", "bound_ms")}
+    print(f"quotients, level 2's {len(groups)} groups together: kernel {total['ms']:.4f} ms device (bound "
+          f"{total['bound_ms']:.4f} ms, {total['bound_ms'] / total['ms']:.1%}), plain {total['plain_ms']:.4f} ms")
+    out["quotients"] = dict(total, bound_by=groups[0]["bound_by"], groups_ms=[r["ms"] for r in groups],
+                            groups_bound_ms=[r["bound_ms"] for r in groups], max_abs_err=errs["quotients"],
+                            library_ms=None)
+    torch.cuda.empty_cache()
+    return out["circle_fft"], out["eval_tiles"], out["quotients"]
+
+
 def _failing(checks: dict, slot: int) -> list:
     return sorted(k for k, v in checks.items() if not bool(v[slot]))
 
@@ -905,7 +1069,8 @@ def print_timing(label: str, r: dict) -> None:
           f"({r['peak_bytes']} bytes; {r['start_bytes']} held at the start); kernel launches {r['prove_launches']}")
     if "cuda_kernels" in r:
         print(f"{label}: {r['cuda_kernels']} CUDA kernels on the card under the trace, "
-              f"{r['cuda_kernels'] - sum(r['prove_launches'].values())} of them eager torch; "
+              f"{r['cuda_kernels'] - r['hand_written_kernels']} of them eager torch "
+              f"({r['hand_written_kernels']} hand-written); "
               f"{r['copies_and_fills']} copies and fills; kernels busy {r['busy_ms']:.1f} ms, "
               f"{r['busy_ms'] / 1e3 / r['prove_s']:.1%} of the traced proving wall")
     trees = r["sha_trees"]
@@ -926,13 +1091,14 @@ def prove_level(dev, level: int, seen: set, proof_in=None, streamed: bool = Fals
     a device-only trace that counts the card's kernels.  Returns the
     level's record (tools/chain.run_level)."""
     from recursive_stwo_tpu_torch.models import flagship
-    from recursive_stwo_tpu_torch.tools import chain
+    from recursive_stwo_tpu_torch.tools import chain, prover_cases
+    from recursive_stwo_tpu_torch.verifier.spec import NoPoseidonVerifierSpec, VerifierSpec
 
     label = ("last layer" if level == chain.LAST else f"level {level}") + (", streamed" if streamed else "")
     name = chain.level_name(level)
     expected = flagship.expected_sha256(name)
     require(expected == LEVEL_SHA256[level], f"{label}: docs/chain_artifacts.txt lists {expected} for {name}.bin")
-    _, r = chain.run_level(level, proof_in, None, dev, seen, streamed=streamed, count_kernels=streamed)
+    proof, r = chain.run_level(level, proof_in, None, dev, seen, streamed=streamed, count_kernels=True)
     print(f"{label}: circuit of {r['rows']} rows and {r['public_inputs']} public inputs built on the host in "
           f"{r['circuit_s']:.2f} s; pow {r['pow_bits']}, FRI {r['fri']}")
     print_timing(label, r)
@@ -941,6 +1107,15 @@ def prove_level(dev, level: int, seen: set, proof_in=None, streamed: bool = Fals
     tables = 1 if level == chain.LAST else 2
     require(r["prove_launches"]["composition_domain"] == tables,
             f"{label}: expected {tables} composition_domain launches (one an AIR table), got {r['prove_launches']}")
+    spec = (NoPoseidonVerifierSpec.for_rows(proof.log_size, proof.config) if level == chain.LAST
+            else VerifierSpec.from_proof(proof))
+    got = r["prove_launches"]
+    quotient_calls = prover_cases.n_chunks(spec) if streamed else len(spec.all_log_sizes)
+    require(got["circle_fft"] > 0 and got["quotients"] == quotient_calls and (got["eval_tiles"] > 0) == streamed,
+            f"{label}: expected circle_fft launches, {quotient_calls} quotient launches (one a "
+            f"{'streamed chunk' if streamed else 'first-layer group'}) and eval_tiles launches "
+            f"{'' if streamed else 'none '}while proving, got {got}")
+    del proof
     print(f"{label}: proof equals {name}.bin byte for byte ({r['bytes']} bytes, sha256 {r['sha256']}); "
           f"the port's verifier on CUDA accepts it ({r['verify_s']:.2f} s)")
     return r
@@ -1294,7 +1469,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t:.2f} s -> {lib_path}")
     with open(lib_path + ".log") as f:
         print(f.read().strip())
-    for name in ("transcript_kernel", "composition_check_kernel", "composition_domain_kernel", "fold_kernel"):
+    for name in ("transcript_kernel", "composition_check_kernel", "composition_domain_kernel", "fold_kernel",
+                 "fft_pass_kernel", "quotient_coeffs_kernel", "quotient_points_kernel"):
         for r in build.ptxas_report(name):
             print(f"ptxas {name} ({r['kernel']}): {r['registers']} registers, {r['stack_bytes']} bytes stack frame, "
                   f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads")
@@ -1322,6 +1498,7 @@ def main() -> int:
     kernels["composition_check"], kernels["composition_domain"] = check_composition_kernels(torch, dev, lat)
     kernels["fold_phase"] = check_fold_kernel(torch, dev)
     kernels["transcript"] = check_transcript_kernel(torch, dev, lat)
+    kernels["circle_fft"], kernels["eval_tiles"], kernels["quotients"] = check_prover_kernels(torch, dev)
     torch.cuda.synchronize()
     phase_done("3 (kernels vs plain)")
 
@@ -1391,18 +1568,27 @@ def main() -> int:
                       "core/m31.py:195)",
         "transcript": "recursive_stwo_tpu/verifier/transcript.py:97 (digest_chain, the lax.scan at :121) and :159 "
                       "(the batched draw)",
+        "circle_fft": "recursive_stwo_tpu/prover/circle_fft.py:156,174,193 (interpolate_traced, evaluate_traced, "
+                      "extend_traced), reached through prover/device_prove.py:149 (_lde_t)",
+        "eval_tiles": "recursive_stwo_tpu/prover/stream.py:164,176 (_tile_twiddles, _eval_tiles)",
+        "quotients": "recursive_stwo_tpu/prover/device_prove.py:543 (_stage_quotients_jit) and "
+                     "recursive_stwo_tpu/prover/stream.py:585 (_quot_chunk_jit)",
     }
     sources = {k: "recursive_stwo_tpu_torch/csrc/poseidon2.cu" for k in replaces}
     sources["sha256_level"] = "recursive_stwo_tpu_torch/csrc/sha256.cu"
     sources["composition_check"] = sources["composition_domain"] = "recursive_stwo_tpu_torch/csrc/composition.cu"
     sources["fold_phase"] = "recursive_stwo_tpu_torch/csrc/fold.cu"
     sources["transcript"] = "recursive_stwo_tpu_torch/csrc/transcript.cu"
+    sources["circle_fft"] = sources["eval_tiles"] = "recursive_stwo_tpu_torch/csrc/circle_fft.cu"
+    sources["quotients"] = "recursive_stwo_tpu_torch/csrc/quotients.cu"
     # the main path of each: phase 4's verify_batch for the transcript, K2,
     # scan, check and fold kernels, phase 15 (c)'s streamed last layer for
-    # the SHA-256 kernel, phase 7's level-1 proof for K1 and the domain kernel
+    # the SHA-256 and tile kernels, phase 7's level-1 proof for K1, the
+    # domain kernel, the circle FFT and the quotients
     main_launches = {k: launches[FIXTURES[0]][k] for k in replaces}
-    main_launches["sha256_level"] = streamed[LAST_LAYER]["sha256_level"]
-    for k in ("permute_rows", "composition_domain"):
+    for k in ("sha256_level", "eval_tiles"):
+        main_launches[k] = streamed[LAST_LAYER][k]
+    for k in ("permute_rows", "composition_domain", "circle_fft", "quotients"):
         main_launches[k] = levels[1]["prove_launches"][k]
     report = [
         dict(name=k, route="cuda", source=sources[k],

@@ -63,6 +63,8 @@
 //      free), folded with the doublings of the high levels (an unrolled
 //      tree of 8 and a product of doublings a block of 8), then a shuffle
 //      combine with the doublings of the low levels; lane 0 compares.
+// The alpha powers, shifted points, line coefficients and denominators are
+// quotient.cuh's, which quotients.cu shares for the provers' quotients.
 // Every value is a canonical residue and every step a field operation, so
 // the results are the plain version's residues whatever the order of the
 // sums.  inv(0) = 0: a zero fold denominator or quotient denominator gives
@@ -80,11 +82,13 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
-#include "qm31.cuh"
+#include "quotient.cuh"
 
 namespace {
 
 using namespace qm31;
+using quotient::load_q;
+using quotient::store_q;
 
 constexpr int kThreads = 128;
 constexpr int kBlocksPerSm = 8;  // 1024 proofs in one wave on 132 SMs: at most 64 registers a thread
@@ -197,17 +201,6 @@ struct FoldArgs {
   __device__ __forceinline__ const int32_t* batch_row(int bt) const { return tab + 4 * (n_entries + bt); }
 };
 
-__device__ __forceinline__ Q load_q(const int64_t* p) {
-  return Q{(uint32_t)p[0], (uint32_t)p[1], (uint32_t)p[2], (uint32_t)p[3]};
-}
-
-__device__ __forceinline__ void store_q(int64_t* p, Q v) {
-  p[0] = v.a;
-  p[1] = v.b;
-  p[2] = v.c;
-  p[3] = v.d;
-}
-
 __device__ __forceinline__ Q shfl_xor_q(Q v, int m) {
   return Q{__shfl_xor_sync(kFull, v.a, m), __shfl_xor_sync(kFull, v.b, m), __shfl_xor_sync(kFull, v.c, m),
            __shfl_xor_sync(kFull, v.d, m)};
@@ -258,29 +251,13 @@ __device__ __forceinline__ void proof_coefficients(const FoldArgs& a, const Smem
 
   // alpha_k = -2u rc^k, on the last warp (the rest of the block has its own
   // work): lane l takes rc^l by its index's bits, then k = l, l + 32, ...
-  if (t >= kThreads - 32) {
-    const int lane = t - (kThreads - 32);
-    const Q minus_2u = Q{0u, 0u, poseidon2_m31::P - 2u, 0u};
-    Q p = q_one(), sq = rc;
-#pragma unroll
-    for (int bit = 0; bit < 5; ++bit) {
-      if ((lane >> bit) & 1) p = q_mul(p, sq);
-      sq = q_mul(sq, sq);
-    }
-    Q* alpha = sm.q(kRAlpha);
-    for (int k = lane; k < a.alpha_rows; k += 32) {
-      alpha[k] = q_mul(p, minus_2u);
-      p = q_mul(p, sq);
-    }
-  }
+  if (t >= kThreads - 32) quotient::alpha_powers(rc, t - (kThreads - 32), a.alpha_rows, sm.q(kRAlpha));
   // each batch's point: the OODS point plus the batch's shift
   // (points.py add_constant_point)
   Q* pxy = sm.q(kRPxy);
   for (int bt = t; bt < a.n_batches(); bt += kThreads) {
     const int32_t* row = a.batch_row(bt);
-    const uint32_t cx = (uint32_t)row[2], cy = (uint32_t)row[3];
-    pxy[2 * bt] = q_sub(q_mul_m31(ox, cx), q_mul_m31(oy, cy));
-    pxy[2 * bt + 1] = q_add(q_mul_m31(ox, cy), q_mul_m31(oy, cx));
+    quotient::batch_point(ox, oy, (uint32_t)row[2], (uint32_t)row[3], pxy[2 * bt], pxy[2 * bt + 1]);
   }
   uint32_t* fri = sm.w(kRFri);
   for (int k = t; k < 4 * (a.n_inner + 1); k += kThreads) fri[k] = (uint32_t)par[12 + k];
@@ -298,11 +275,10 @@ __device__ __forceinline__ void proof_coefficients(const FoldArgs& a, const Smem
     while (a.group_batch[g + 1] <= bt) ++g;
     const Q al = alpha[e - a.batch_row(a.group_batch[g])[0]];
     const Q sv = load_q(smp + 4 * (int64_t)row[2]);
-    const Q py = pxy[2 * bt + 1];
-    const C y0{py.a, py.b}, y1{py.c, py.d}, v0{sv.a, sv.b}, v1{sv.c, sv.d};
-    sm.q(kRC)[e] = q_mul_cm31(al, y1);
-    sm.q(kRA)[e] = q_mul_cm31(al, v1);
-    sm.q(kRB)[e] = q_mul_cm31(al, c_sub(c_mul(v0, y1), c_mul(v1, y0)));
+    const quotient::LineCoeffs lc = quotient::line_coeffs(al, sv, pxy[2 * bt + 1]);
+    sm.q(kRC)[e] = lc.c;
+    sm.q(kRA)[e] = lc.a;
+    sm.q(kRB)[e] = lc.b;
   }
   __syncthreads();
 
@@ -391,7 +367,7 @@ __device__ __forceinline__ void walk(const FoldArgs& a, const Smem& sm, int64_t 
       // each batch's denominator (px.re - dx) py.im - (py.re - dy) px.im
       for (int bt = a.group_batch[g]; bt < a.group_batch[g + 1]; ++bt) {
         const Q px = pxy[2 * bt], py = pxy[2 * bt + 1];
-        const C d = c_sub(c_mul(C{sub(px.a, dx), px.b}, C{py.c, py.d}), c_mul(C{sub(py.a, dy), py.b}, C{px.c, px.d}));
+        const C d = quotient::denominator(px, py, dx, dy);
         den[2 * bt] = d.re;
         den[2 * bt + 1] = d.im;
         to_invert[a.n_inner + G + bt] = add(mul(d.re, d.re), mul(d.im, d.im));

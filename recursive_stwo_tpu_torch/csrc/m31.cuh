@@ -1,7 +1,7 @@
 // M31 (p = 2^31 - 1) arithmetic on canonical residues in registers, and the
 // two linear layers of Poseidon2-16 (the external mds16 and the internal
-// diagonal layer), shared by poseidon2.cuh, qm31.cuh, composition.cu and
-// fold.cu.
+// diagonal layer), shared by poseidon2.cuh, qm31.cuh, composition.cu,
+// fold.cu and circle_fft.cu.
 //
 // The header holds no __constant__ data, so more than one translation unit
 // may include it.  Every operation takes and gives canonical residues, and

@@ -1,5 +1,5 @@
 // CM31 and QM31 arithmetic on canonical residues in registers, shared by
-// composition_air.cuh, fold.cu and transcript.cu.
+// composition_air.cuh, fold.cu, transcript.cu and quotient.cuh.
 //
 // Twin of core/qm31.py:
 //   CM31 = M31[i] / (i^2 + 1),  (re, im) = re + im i

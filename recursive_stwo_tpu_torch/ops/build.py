@@ -132,6 +132,10 @@ def load() -> ctypes.CDLL:
             lib.fold_phase.restype = ctypes.c_int
             lib.transcript_replay.argtypes = [i64p, i64p, vp]
             lib.transcript_replay.restype = ctypes.c_int
+            lib.circle_fft.argtypes = [i64p, i64p, vp, i64p]
+            lib.circle_fft.restype = ctypes.c_int
+            lib.quotients_group.argtypes = [i64p, i64p, vp]
+            lib.quotients_group.restype = ctypes.c_int
             lib.latency_probe.argtypes = [i32, i64, vp, vp, vp]
             lib.latency_probe.restype = ctypes.c_int
             _lib = lib

@@ -6,6 +6,15 @@ bit-reversed circle-domain order, coefficients in the stwo FFT basis,
 transforms over the last axis and vectorised over the leading ones.  The
 per-layer twiddles and the domain points are the JAX package's host tables,
 lifted to the device once per log size.
+
+`interpolate`, `evaluate` and `lde` dispatch on their tensor's device: a CPU
+tensor takes the plain versions here (`interpolate_plain`,
+`evaluate_plain`: one eager op a step, about six passes over memory a
+layer), a CUDA tensor the circle FFT kernel (ops/fft_cuda.py,
+csrc/circle_fft.cu: a few passes a transform), which raises on anything it
+does not take; nothing falls back.  On CUDA `lde` hands the kernel the
+unpadded coefficients and the target size, so the zero padding is never
+written.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ from functools import lru_cache
 import torch
 
 from ..core import m31
+from ..ops import fft_cuda
 from . import circle_fft_host as host_fft
 from .arrays import to_device
 
@@ -41,6 +51,20 @@ def _log(n: int) -> int:
 
 def interpolate(values: torch.Tensor) -> torch.Tensor:
     """Evaluations (..., 2**n) in bit-reversed domain order -> coefficients."""
+    if values.device.type == "cpu":
+        return interpolate_plain(values)
+    return fft_cuda.interpolate(values)
+
+
+def evaluate(coeffs: torch.Tensor) -> torch.Tensor:
+    """Coefficients (..., 2**n) -> evaluations in bit-reversed domain order."""
+    if coeffs.device.type == "cpu":
+        return evaluate_plain(coeffs)
+    return fft_cuda.evaluate(coeffs, _log(coeffs.shape[-1]))
+
+
+def interpolate_plain(values: torch.Tensor) -> torch.Tensor:
+    """The plain version of `interpolate`, eager torch on core/m31.py."""
     n = values.shape[-1]
     log_size = _log(n)
     itw = _layer_twiddles(log_size, True, values.device)
@@ -54,8 +78,8 @@ def interpolate(values: torch.Tensor) -> torch.Tensor:
     return m31.mul(v, pow(n, m31.P - 2, m31.P))
 
 
-def evaluate(coeffs: torch.Tensor) -> torch.Tensor:
-    """Coefficients (..., 2**n) -> evaluations in bit-reversed domain order."""
+def evaluate_plain(coeffs: torch.Tensor) -> torch.Tensor:
+    """The plain version of `evaluate`, eager torch on core/m31.py."""
     n = coeffs.shape[-1]
     log_size = _log(n)
     tw = _layer_twiddles(log_size, False, coeffs.device)
@@ -79,4 +103,6 @@ def extend(coeffs: torch.Tensor, target_log_size: int) -> torch.Tensor:
 
 def lde(coeffs: torch.Tensor, target_log_size: int) -> torch.Tensor:
     """Coefficients -> evaluations on the larger domain (`_lde_t`)."""
-    return evaluate(extend(coeffs, target_log_size))
+    if coeffs.device.type == "cpu":
+        return evaluate_plain(extend(coeffs, target_log_size))
+    return fft_cuda.evaluate(coeffs, target_log_size)

@@ -6,7 +6,10 @@ proof is byte-identical to the JAX package's.  One code path at every size:
 the JAX package's fused-stage programs and its per-table split for large
 domains (`RSTPU_DEVICE_BIG_LOG`, :668-675) exist to fit a TPU's HBM or XLA's
 fusion and have no counterpart here.  Every Poseidon2 permutation (Merkle
-commits, the PoW grind at 22 bits or more) runs on kernel K1 on CUDA.
+commits, the PoW grind at 22 bits or more) runs on kernel K1 on CUDA, every
+interpolation and LDE on the circle FFT kernel (prover/circle_fft.py) and
+each first-layer group's quotients on one call of the quotient kernel
+(prover/quotients.py), its columns read in place from the trees.
 
 The channel and the tree class are parameters, as they are in the JAX
 package's host flow (prove.py:164-208, `_fri_tail(tree_cls=)`): the

@@ -11,7 +11,8 @@ map onto the stages the PlonkWithPoseidon prover already runs on tensors:
 - composition (`_composition_evals_np`): `composition_stage` with one table;
 - samples: `sample`, laid out by `_assemble_samples_np` (copied);
 - quotients (`_group_quotients_np`): `quotients_stage` on
-  `NoPoseidonVerifierSpec`'s groups;
+  `NoPoseidonVerifierSpec`'s groups (on CUDA the quotient kernel, once a
+  group; the transforms on the circle FFT kernel);
 - the FRI tail: `fri_tail`.
 
 `channel` / `tree_cls` pick the flavour as `prove` does: the Poseidon31

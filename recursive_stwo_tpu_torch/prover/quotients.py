@@ -1,28 +1,43 @@
 """FRI first-layer quotients over the commitment domains.
 
-Twin of device_prove.py:533-568 (`_stage_quotients_jit`, `_dev_domain`): per
-first-layer log size, the port's verifier `fri_answers_for_group` evaluated
-with the whole domain as its query axis.  The
-answer is pointwise in the domain, so the domain is taken in chunks of
-CHUNK points; that bounds the (points, columns) QM31 temporaries (96 columns
-at 2**21 points would be several GB each) and changes no value.  A group's
-columns stay in their trees' LDE blocks: only each chunk is gathered.
+Twin of device_prove.py:533-568 (`_stage_quotients_jit`, `_dev_domain`) and
+stream.py:585-613 (`_quot_chunk_jit`): per first-layer log size, the port's
+verifier `fri_answers_for_group` evaluated with the whole domain (or a
+chunk of it) as its query axis.
+
+`group_answers` dispatches on its columns' device: on CUDA one call of the
+quotient kernel (ops/quotients_cuda.py, csrc/quotients.cu), which reads the
+group's columns in place from their blocks and raises on anything it does
+not take; on the CPU the plain version, `group_answers_plain`.  The answer
+is pointwise in the domain, so the plain version takes the domain in chunks
+of CHUNK points; that bounds its (points, columns) QM31 temporaries (96
+columns at 2**21 points would be several GB each) and changes no value.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from ..core.qm31 import QM31
+from ..ops import quotients_cuda
 from ..verifier import quotients as vquot
 from ..verifier.spec import VerifierSpec
 from . import circle_fft
 from .arrays import to_device
+from .tiles import TilePoints
 
 CHUNK = 1 << 18
+
+
+class AnswerInputs(NamedTuple):
+    """The proof-wide inputs of `group_answers` on one device."""
+
+    samples: torch.Tensor  # (S, 4) sampled values
+    oods: tuple  # the OODS point's eight limbs, x then y
+    rc: tuple  # the quotients' random coefficient's four limbs
 
 
 def _q_vec(v4, device) -> QM31:
@@ -30,19 +45,21 @@ def _q_vec(v4, device) -> QM31:
     return QM31(*(torch.tensor([int(x)], dtype=torch.int64, device=device) for x in v4))
 
 
-def answer_inputs(samples_flat: np.ndarray, oods: Tuple[tuple, tuple], after_coeff, device):
-    """(samples (1, S, 4), OODS point, random coefficient) on `device`: the
-    proof-wide inputs of `group_answers`, a batch of one."""
-    samples = to_device(samples_flat, device)[None]
-    point = (_q_vec(oods[0], device), _q_vec(oods[1], device))
-    return samples, point, _q_vec(after_coeff, device)
+def answer_inputs(samples_flat: np.ndarray, oods: Tuple[tuple, tuple], after_coeff, device) -> AnswerInputs:
+    """samples_flat (S, 4), the OODS point (x, y) and the random coefficient
+    as `group_answers` takes them, the samples on `device`."""
+    return AnswerInputs(to_device(samples_flat, device), tuple(int(v) for c in oods for v in c),
+                        tuple(int(v) for v in after_coeff))
 
 
-def group_answers(spec: VerifierSpec, g: int, inputs, blocks: List[torch.Tensor], dx, dy) -> torch.Tensor:
-    """(4, N) first-layer quotient limbs of group g at the N points (dx, dy)
-    of its domain, from its columns' values there: `blocks`, (n_cols, N)
-    tensors in group column order; CHUNK points at a time."""
-    samples, point, after = inputs
+def group_answers_plain(spec: VerifierSpec, g: int, inputs: AnswerInputs, blocks: List[torch.Tensor], dx,
+                        dy) -> torch.Tensor:
+    """The plain version of `group_answers` at the points (dx, dy), CHUNK
+    points at a time."""
+    dev = dx.device
+    samples = inputs.samples[None]
+    point = (_q_vec(inputs.oods[:4], dev), _q_vec(inputs.oods[4:], dev))
+    after = _q_vec(inputs.rc, dev)
     parts = []
     for s in range(0, dx.shape[0], CHUNK):
         rows = torch.cat([b[:, s : s + CHUNK] for b in blocks]).T[None]  # (1, points, n_cols)
@@ -52,6 +69,21 @@ def group_answers(spec: VerifierSpec, g: int, inputs, blocks: List[torch.Tensor]
             )
         )
     return torch.stack([torch.cat([p[i][0] for p in parts]) for i in range(4)])
+
+
+def group_answers(spec: VerifierSpec, g: int, inputs: AnswerInputs, blocks: List[torch.Tensor], points,
+                  out=None) -> torch.Tensor:
+    """(4, N) first-layer quotient limbs of group g at N points of its
+    domain, from its columns' values there: `blocks`, tensors whose rows in
+    order are the group's columns (group column order), each (rows, N).
+    `points` is the points' (x, y), a pair of (N,) tensors, or a chunk's
+    TilePoints.  Written into `out`, a (4, N) view, when given."""
+    if blocks[0].device.type == "cpu":
+        if isinstance(points, TilePoints):
+            points = tuple(c.reshape(-1) for c in points.points())
+        got = group_answers_plain(spec, g, inputs, blocks, *points)
+        return got if out is None else out.copy_(got)
+    return quotients_cuda.quotients(spec, g, inputs.samples, inputs.oods, inputs.rc, blocks, points, out)
 
 
 def quotients_stage(
@@ -68,6 +100,5 @@ def quotients_stage(
     inputs = answer_inputs(samples_flat, oods, after_coeff, device)
     first_cols = {}
     for g, L in enumerate(spec.all_log_sizes):
-        dx, dy = circle_fft.domain_points(L, device)
-        first_cols[L] = group_answers(spec, g, inputs, blocks_by_log[L], dx, dy)
+        first_cols[L] = group_answers(spec, g, inputs, blocks_by_log[L], circle_fft.domain_points(L, device))
     return first_cols

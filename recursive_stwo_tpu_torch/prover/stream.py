@@ -10,22 +10,25 @@ of the card's 79.  Here the device holds the base-domain coefficients only:
   zero-padded into the larger FFT basis (the stwo basis is nested), and every
   butterfly layer whose step exceeds the base size has a zero second
   operand, so each aligned output tile of base size is the base coefficients
-  transformed with that tile's twiddles (`_eval_tiles`).  A tile's points
+  transformed with that tile's twiddles (`eval_tiles`).  A tile's points
   come from prover/tiles.py on the device, and the twiddles follow from
-  them.
+  them.  On CUDA a call is one launch of the circle FFT's tile entry
+  (ops/fft_cuda.py), which derives the twiddles from each tile's base
+  point; on the CPU the plain version, `_eval_tiles`.
 * **Streamed Merkle commitment** (`StreamedTree`).  A chunk of 2**C leaf rows
   is evaluated and hashed, absorbing every column size it covers, down to
   its summit digests at level K; only levels K..0 leave the device.  A
   decommitment recomputes the spans it touches (2**(M-K) leaves each) and
   checks each against its stored summit, raising on a mismatch.
 * **Streamed quotients**: the first-layer quotients of a chunk are taken
-  from its re-evaluated columns and never need the LDE whole.
+  from its re-evaluated columns and never need the LDE whole: on CUDA one
+  tile launch and one quotient-kernel call a chunk (prover/quotients.py).
 
 The hashes are the resident trees': Poseidon31 through `commit._level`
 (kernel K1 on CUDA), SHA-256 through `core/sha256.sha256_level` (the SHA-256
 tree-level kernel on CUDA); on the CPU both take their plain versions.
-Everything else is eager torch on core/m31.py and core/qm31.py.  Nothing
-falls back: a tile is evaluated on its source's device and an error
+Everything else but the tile evaluation and the quotients is eager torch on
+core/m31.py and core/qm31.py.  Nothing falls back: a tile is evaluated on its source's device and an error
 propagates.  The proofs are byte-identical to the JAX package's
 (tests/test_torch_stream.py).  `chunk_log` and `cutoff` are keyword
 arguments with the JAX defaults (its RSTPU_STREAM_CHUNK_LOG and
@@ -36,7 +39,7 @@ from __future__ import annotations
 
 import logging
 from functools import partial
-from typing import Dict, List, Tuple
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -45,6 +48,7 @@ from ..core import circle
 from ..core import circle_host as ccircle
 from ..core import m31
 from ..core.sha256 import sha256_level
+from ..ops import fft_cuda
 from ..proof.containers import PcsConfig, PlonkWithoutPoseidonProof, PlonkWithPoseidonProof
 from ..verifier import composition as vcomp
 from ..verifier import sha256_merkle
@@ -63,7 +67,7 @@ from .prove_host import _add_const, _assemble_samples, _factors_at_point, _oods_
 from .prove_np import _assemble_samples_np
 from .quotients import answer_inputs, group_answers
 from .sample import sample
-from .tiles import tile_bases, tile_consts, tile_points
+from .tiles import TilePoints, circle_tiles
 
 # the JAX package's defaults (stream.py:64-70): chunks of 2**20 leaf rows,
 # summits at level 13
@@ -75,7 +79,8 @@ _RES_STREAM_MIN = 23
 
 
 # ---------------------------------------------------------------------------
-# tile evaluation (stream.py:143-200), eager torch on core/m31.py
+# tile evaluation (stream.py:143-200): the plain version, eager torch on
+# core/m31.py, and the dispatch
 # ---------------------------------------------------------------------------
 
 
@@ -107,6 +112,19 @@ def _eval_tiles(coeffs: torch.Tensor, tws, b: int, G: int) -> torch.Tensor:
     return v
 
 
+def eval_tiles(blocks: List[torch.Tensor], tiles: TilePoints) -> torch.Tensor:
+    """Base coefficient blocks (n_i, 2^b) evaluated on the G tiles of
+    `tiles` -> (sum of n_i, G * 2^b), the blocks' rows in order: on CUDA one
+    launch of the tile kernel, which reads the blocks in place; on the CPU
+    the plain version."""
+    if blocks[0].device.type != "cpu":
+        return fft_cuda.eval_tiles(blocks, tiles.bx, tiles.by, tiles.tx, tiles.ty)
+    coeffs = blocks[0] if len(blocks) == 1 else torch.cat(blocks)
+    cx, cy = tiles.points()
+    G = cx.shape[0]
+    return _eval_tiles(coeffs, _tile_twiddles(cx, cy, tiles.b), tiles.b, G).reshape(coeffs.shape[0], G << tiles.b)
+
+
 # ---------------------------------------------------------------------------
 # column sources (stream.py:208-243)
 # ---------------------------------------------------------------------------
@@ -124,20 +142,15 @@ class CoeffSource:
         self.b = int(coeffs.shape[1]).bit_length() - 1
         self.L = int(L)
 
-    def tiles(self, t0: int, t1: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(cx, cy, values) of tiles [t0, t1): points (G, 2^b) and the
-        columns' values (n_cols, G * 2^b), in bit-reversed domain order."""
-        b, G = self.b, t1 - t0
-        tx, ty, odd = tile_consts(self.L, b, False, self.dev.device)
-        bx, by = tile_bases(self.L, b, t0, t1, False, self.dev.device)
-        cx, cy = tile_points(bx, by, tx, ty, odd)
-        vals = _eval_tiles(self.dev, _tile_twiddles(cx, cy, b), b, G)
-        return cx, cy, vals.reshape(self.n_cols, G << b)
+    def values(self, t0: int, t1: int) -> torch.Tensor:
+        """The columns' values on tiles [t0, t1), (n_cols, G * 2^b), in
+        bit-reversed domain order."""
+        return eval_tiles([self.dev], circle_tiles(self.L, self.b, t0, t1, self.dev.device))
 
     def rows(self, lo: int, hi: int) -> torch.Tensor:
         """(n_cols, hi - lo) values at positions [lo, hi) of the domain."""
         t0, t1 = lo >> self.b, ((hi - 1) >> self.b) + 1
-        vals = self.tiles(t0, t1)[2]
+        vals = self.values(t0, t1)
         return vals[:, lo - (t0 << self.b) : hi - (t0 << self.b)]
 
 
@@ -272,7 +285,7 @@ class StreamedTree(CommittedTree):
         tiles = idx >> src.b
         for t in np.unique(tiles):
             sel = np.nonzero(tiles == t)[0]
-            vals = src.tiles(int(t), int(t) + 1)[2]
+            vals = src.values(int(t), int(t) + 1)
             local = torch.as_tensor(idx[sel] - (int(t) << src.b), device=vals.device)
             out[:, sel] = to_numpy(vals[:, local])
         return out
@@ -305,17 +318,20 @@ def _streamed_group_evals(spec, blocks_by_log: Dict[int, List[torch.Tensor]], in
                           plog) -> Dict[int, torch.Tensor]:
     """blocks_by_log: {log: [coefficient blocks in tree-major order]}.
     Returns the first-layer quotients {log: (4, 2^log) limbs}, resident,
-    each chunk's columns re-evaluated from the coefficients."""
+    each chunk's columns re-evaluated from the coefficients: a tile
+    evaluation of the group's blocks as they are and a quotient call a
+    chunk, written in place."""
     group_evals = {}
     for g, L in enumerate(spec.all_log_sizes):
         blocks = blocks_by_log[L]
-        src = CoeffSource(blocks[0] if len(blocks) == 1 else torch.cat(blocks), L)
-        Cq = min(L, max(src.b, chunk_log))
-        G = 1 << (Cq - src.b)
-        out = torch.empty((4, 1 << L), dtype=torch.int64, device=src.dev.device)
+        b = int(blocks[0].shape[1]).bit_length() - 1
+        Cq = min(L, max(b, chunk_log))
+        G = 1 << (Cq - b)
+        dev = blocks[0].device
+        out = torch.empty((4, 1 << L), dtype=torch.int64, device=dev)
         for j in range(1 << (L - Cq)):
-            cx, cy, vals = src.tiles(j * G, (j + 1) * G)
-            out[:, j << Cq : (j + 1) << Cq] = group_answers(spec, g, inputs, [vals], cx.reshape(-1), cy.reshape(-1))
+            tiles = circle_tiles(L, b, j * G, (j + 1) * G, dev)
+            group_answers(spec, g, inputs, [eval_tiles(blocks, tiles)], tiles, out=out[:, j << Cq : (j + 1) << Cq])
         group_evals[L] = out
         plog(f"quotients at log {L} streamed")
     return group_evals

@@ -9,14 +9,16 @@ tiles of 2**b: a position p = j * 2**b + r has br_T(p) = br_b(r) * 2**(T-b)
 odd r (`odd_mask`).  The host tables are numpy, lru-cached, and only 2**b
 and 2**(T-b) long, so a domain of 2**27 needs no host table of its size;
 `tile_points` rotates them on the device in eager torch on core/m31.py.
-The streamed prover evaluates its columns on these tiles (prover/stream.py)
-and the FRI folds take their 1/y and 1/x from them (prover/fri.py).
+The streamed prover evaluates its columns on these tiles (prover/stream.py;
+on CUDA the tile kernel and the quotient kernel take a chunk's tiles as a
+`TilePoints` and rotate the table themselves) and the FRI folds take their
+1/y and 1/x from them (prover/fri.py).
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -98,3 +100,27 @@ def tile_points(bx, by, tx, ty, conj):
     if conj is not None:
         cy = torch.where(conj[None, :], m31.neg(cy), cy)
     return cx, cy
+
+
+class TilePoints(NamedTuple):
+    """Tiles [t0, t1) of a 2**T circle domain in tiles of 2**b: each tile's
+    base point (bx, by) (G,), the tile table (tx, ty) (2**b,) and its odd
+    mask, on one device."""
+
+    bx: torch.Tensor
+    by: torch.Tensor
+    tx: torch.Tensor
+    ty: torch.Tensor
+    odd: torch.Tensor
+    b: int
+
+    def points(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(cx, cy), each (G, 2**b)."""
+        return tile_points(self.bx, self.by, self.tx, self.ty, self.odd)
+
+
+def circle_tiles(T: int, b: int, t0: int, t1: int, device) -> TilePoints:
+    """The TilePoints of tiles [t0, t1) of the 2**T circle domain."""
+    device = torch.device(device)
+    tx, ty, odd = tile_consts(T, b, False, device)
+    return TilePoints(*tile_bases(T, b, t0, t1, False, device), tx, ty, odd, b)

@@ -32,12 +32,15 @@ line.
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+from functools import lru_cache
 
 NP_BATCH = 512  # bench.py:187-188
 SHA_BATCH = 128  # bench.py:248
@@ -71,13 +74,27 @@ def raw_events(torch, prof) -> list:
                            "(prof.profiler.kineto_results.events()) cannot be read") from exc
 
 
+@lru_cache(maxsize=None)
+def hand_written_kernels() -> tuple:
+    """The names of the __global__ functions of csrc/ (each in an anonymous
+    namespace there), as a trace names them: "(anonymous namespace)::<name>"."""
+    names = []
+    csrc = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+    for path in sorted(glob.glob(os.path.join(csrc, "*.cu"))):
+        with open(path) as f:
+            names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", f.read())
+    return tuple(f"(anonymous namespace)::{n}" for n in names)
+
+
 def count_device_events(torch, prof) -> dict:
-    """Kernels, copies and fills, and the kernels' summed device time (ms)
-    of a finished device-only trace, from its raw events."""
+    """Kernels (and of them the hand-written ones, csrc/'s), copies and
+    fills, and the kernels' summed device time (ms) of a finished
+    device-only trace, from its raw events."""
     from torch.autograd import DeviceType
 
-    kernels = copies = 0
+    kernels = copies = own = 0
     busy_us = 0.0
+    mine = hand_written_kernels()
     for device_type, name, duration_ns in raw_events(torch, prof):
         if device_type != DeviceType.CUDA:
             continue
@@ -85,8 +102,9 @@ def count_device_events(torch, prof) -> dict:
             copies += 1
         else:
             kernels += 1
+            own += any(k in name for k in mine)
             busy_us += duration_ns / 1e3
-    return dict(cuda_kernels=kernels, copies_and_fills=copies, busy_ms=busy_us / 1e3)
+    return dict(cuda_kernels=kernels, hand_written_kernels=own, copies_and_fills=copies, busy_ms=busy_us / 1e3)
 
 
 def device_profile(torch, fn) -> dict:

@@ -31,10 +31,21 @@ times, at the shapes the port calls them with:
      version's time, the bound and, where the checkout has one, the
      latency floor (a proof's chain in dependent steps at the latency
      probe's cycles, ops/latency_cuda.py, measured here).
-`--kernels poseidon`, `--kernels composition`, `--kernels fold` or
-`--kernels transcript` times only those.
+  The circle FFT (circle_fft, eval_tiles), where the checkout has it:
+     every interpolation and LDE of chain levels 1 and 2 at their shapes
+     (tools/prover_cases.fft_cases), and the tile evaluation of a streamed
+     chunk of each first-layer group of level 14 and the last layer.
+  The quotient kernel (quotients), where the checkout has it: every
+     first-layer group of levels 1 and 2 over its domain, and a streamed
+     chunk of each group of level 14 and the last layer.
+  Both beside the plain version's time on the card and their bounds, on
+  seeded random columns.
+`--kernels poseidon`, `--kernels composition`, `--kernels fold`,
+`--kernels transcript`, `--kernels fft` or `--kernels quotients` times only
+those.
 Before timing, every kernel output is held to the plain version bit for bit.
-Prints ptxas' report of the transcript, check, domain and fold kernels first.
+Prints ptxas' report of the transcript, check, domain, fold, FFT pass and
+quotient kernels first.
 Two times per shape: CUDA events around `reps` back-to-back calls (what a
 caller's loop pays, the wrapper's host cost included once it exceeds the
 kernel) and the kernels' mean device duration under torch.profiler.  Prints
@@ -86,11 +97,13 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled_ms(torch, fn, reps: int, name: str) -> float:
+def profiled_ms(torch, fn, reps: int, name: str, kernels_per_call: int = 1) -> float:
     """Mean device duration in milliseconds of the kernels whose name holds
-    `name`, over `reps` calls under torch.profiler.  A trace without such a
-    kernel is taken again, up to three times: CUPTI now and then returns a
-    trace with no device events."""
+    `name`, over `reps` calls under torch.profiler, times `kernels_per_call`
+    (a call that launches several, as a transform's passes: the mean over
+    the kernels the trace kept, so a call it lost counts for nothing).  A
+    trace without such a kernel is taken again, up to three times: CUPTI now
+    and then returns a trace with no device events, or with some missing."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -106,7 +119,7 @@ def profiled_ms(torch, fn, reps: int, name: str) -> float:
                 total += getattr(evt, "device_time_total", getattr(evt, "cuda_time_total", 0.0))
                 count += evt.count
         if count:
-            return total / count / 1e3
+            return total / count * kernels_per_call / 1e3
     raise RuntimeError(f"the profiler saw no kernel named *{name}* in three traces")
 
 
@@ -330,6 +343,77 @@ def transcript_lines(torch, dev) -> list:
     return lines
 
 
+def fft_lines(torch, dev) -> list:
+    """One dict a transform of chain levels 1 and 2 and a tile evaluation of
+    a streamed chunk of level 14's and the last layer's groups, each held
+    bit for bit to its plain version first: events and device ms (a
+    transform's passes summed), the plain version's ms, the bound."""
+    from recursive_stwo_tpu_torch.ops import fft_cuda
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    lines = []
+
+    def add(kernel, label, run, plain, rows, b, segments, source_len, interpolate=False, tiles=False):
+        if not torch.equal(run(), plain()):
+            raise RuntimeError(f"{kernel} differs from the plain version on {label}")
+        bound, by = fft_cuda.bound_ms(rows, b, segments, source_len, interpolate, tiles)
+        lines.append(dict(kernel=kernel, shape=label, rows=rows, b=b, segments=segments,
+                          bytes=fft_cuda.transform_bytes(rows, b, segments, source_len, tiles),
+                          int_ops=fft_cuda.transform_ops(rows, b, segments, interpolate, tiles),
+                          events_ms=cuda_ms(torch, run, 10),
+                          device_ms=profiled_ms(torch, run, 10, "fft_pass_kernel", fft_cuda.passes(b)),
+                          plain_ms=cuda_ms(torch, plain, 1), bound_ms=bound, bound_by=by))
+
+    for name in ("level1-5", "level2-1"):
+        for case in cases.fft_cases(cases.prover_spec(name), dev, SEED):
+            rows, n = case.x.shape
+            b = n.bit_length() - 1
+            add("circle_fft", f"{name} {case.label}", lambda: cases.run_fft(case),
+                lambda: cases.run_fft(case, plain=True), rows, b, 1 << ((case.log_out or b) - b), n,
+                interpolate=case.log_out is None)
+    for name in ("level14-1", "bitcoin_proof"):
+        spec = cases.prover_spec(name)
+        for g in range(len(spec.all_log_sizes)):
+            case = cases.tile_case(spec, g, dev, SEED)
+            b = case.tiles.b
+            add("eval_tiles", f"{name} {case.label}", lambda: cases.run_tiles(case),
+                lambda: cases.run_tiles(case, plain=True), sum(c.shape[0] for c in case.blocks), b,
+                case.tiles.bx.shape[0], 1 << b, tiles=True)
+    return lines
+
+
+def quotient_lines(torch, dev) -> list:
+    """One dict a first-layer group of levels 1 and 2 (over its domain) and
+    of level 14 and the last layer (a streamed chunk), each held bit for bit
+    to its plain version first: events and device ms (both kernels of a
+    call summed), the plain version's ms, the bound."""
+    from recursive_stwo_tpu_torch.ops import quotients_cuda
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    lines = []
+    for name, chunk_log in (("level1-5", None), ("level2-1", None), ("level14-1", cases.STREAM_CHUNK_LOG),
+                            ("bitcoin_proof", cases.STREAM_CHUNK_LOG)):
+        spec = cases.prover_spec(name)
+        for g in range(len(spec.all_log_sizes)):
+            case = cases.quotient_case(spec, g, dev, SEED + g, chunk_log)
+            if not torch.equal(cases.run_quotients(case), cases.run_quotients(case, plain=True)):
+                raise RuntimeError(f"quotients differ from the plain version on {name}'s {case.label}")
+            n = case.blocks[0].shape[1]
+            tile_log = None if chunk_log is None else case.points.b
+            bound, by = quotients_cuda.bound_ms(spec, g, n, tile_log)
+            lines.append(dict(kernel="quotients", shape=f"{name} {case.label}", points=n,
+                              sampled_columns=len(quotients_cuda.group_tables(spec, g).entries),
+                              bytes=quotients_cuda.quotient_bytes(spec, g, n, tile_log),
+                              int_ops=n * quotients_cuda.point_ops(spec, g),
+                              events_ms=cuda_ms(torch, lambda: cases.run_quotients(case), 10),
+                              device_ms=profiled_ms(torch, lambda: cases.run_quotients(case), 10, "quotient_",
+                                                    quotients_cuda.KERNELS_PER_CALL),
+                              plain_ms=cuda_ms(torch, lambda: cases.run_quotients(case, plain=True), 1),
+                              bound_ms=bound, bound_by=by))
+            del case
+    return lines
+
+
 def _latencies(dev):
     """The latency probe's cycles a dependent step (and the clock), where
     the checkout has the probe; else None."""
@@ -346,7 +430,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
     ap.add_argument("--label", default=None, help="name printed with every line (default: the root)")
-    ap.add_argument("--kernels", choices=("all", "poseidon", "composition", "fold", "transcript"), default="all")
+    ap.add_argument("--kernels", choices=("all", "poseidon", "composition", "fold", "transcript", "fft", "quotients"),
+                    default="all")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -366,7 +451,8 @@ def main() -> int:
             print(f"[{label}] ptxas:\n{f.read().strip()}")
     print(f"[{label}] library {os.path.basename(build.library_path())} from {lib._name}")
     if hasattr(build, "ptxas_report"):
-        for name in ("transcript_kernel", "composition_check_kernel", "composition_domain_kernel", "fold_kernel"):
+        for name in ("transcript_kernel", "composition_check_kernel", "composition_domain_kernel", "fold_kernel",
+                     "fft_pass_kernel", "quotient_coeffs_kernel", "quotient_points_kernel"):
             for r in build.ptxas_report(name):
                 print(json.dumps(dict(label=label, ptxas=name, **r)), flush=True)
 
@@ -377,7 +463,9 @@ def main() -> int:
 
     for kind, wrapper, lines in (("composition", "composition_cuda.py", composition_lines),
                                  ("fold", "fold_cuda.py", fold_lines),
-                                 ("transcript", "transcript_cuda.py", transcript_lines)):
+                                 ("transcript", "transcript_cuda.py", transcript_lines),
+                                 ("fft", "fft_cuda.py", fft_lines),
+                                 ("quotients", "quotients_cuda.py", quotient_lines)):
         if args.kernels in ("all", kind) and has(wrapper):
             for line in lines(torch, dev):
                 line.update(label=label, share_of_bound=line["bound_ms"] / line["device_ms"])

@@ -16,9 +16,13 @@ and holds its m31x8 bytes to the sha256 docs/chain_artifacts.txt lists
 Each of the K proofs prints one JSON line: its wall time, and the time and
 peak of `torch.cuda.max_memory_allocated()` in each prover stage.  The first
 proof in the process is cold (host tables built per log size); the later
-ones are warm.  `--profile` adds one more proof under `torch.profiler` and
-prints its device time: all kernels, K1 (`permute_rows`), the `% p`
-(`remainder`) kernels, copies, and the launch counts.  It needs a GPU; an
+ones are warm.  The first-layer quotients are the stage that ends with "FRI
+first-layer quotients computed"; the transforms run inside the tree stages.
+`--profile` adds one more proof under `torch.profiler` and prints its device
+time: all kernels, K1 (`permute_rows`), the circle FFT's passes
+(`fft_pass_kernel`), the quotient kernels (`quotient_`), the `% p`
+(`remainder`) kernels, copies, and the launch counts, the hand-written
+kernels' (csrc/) apart from eager torch's.  It needs a GPU; an
 out-of-memory error ends it with that error.
 """
 
@@ -39,6 +43,7 @@ from ..models import flagship
 from ..prover.air import ROWS_PER_INV
 from ..prover.prove import prove
 from .chain import timed_proof
+from .flavour_times import hand_written_kernels
 from ..verifier import hints, verify
 from ..verifier.arrays import to_torch
 from ..verifier.spec import VerifierSpec
@@ -82,11 +87,17 @@ def _device_time(prof) -> dict:
     copies = [e for e in events if e.key.startswith(("Memcpy", "Memset"))]
     kernels = [e for e in events if e not in copies]
     k1 = [e for e in kernels if "permute_rows" in e.key]
+    fft = [e for e in kernels if "fft_pass_kernel" in e.key]
+    quot = [e for e in kernels if "quotient_" in e.key]
+    own = [e for e in kernels if any(k in e.key for k in hand_written_kernels())]
     rem = [e for e in kernels if "remainder" in e.key.lower()]
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return dict(
         kernel_ms=ms(kernels), kernel_launches=sum(e.count for e in kernels),
+        hand_written_launches=sum(e.count for e in own), eager_launches=sum(e.count for e in kernels if e not in own),
         k1_ms=ms(k1), k1_launches=sum(e.count for e in k1),
+        fft_ms=ms(fft), fft_launches=sum(e.count for e in fft), quotients_ms=ms(quot),
+        quotient_launches=sum(e.count for e in quot),
         remainder_ms=ms(rem), remainder_launches=sum(e.count for e in rem),
         copy_ms=ms(copies), copies=sum(e.count for e in copies),
         top=[dict(kernel=e.key[:100], ms=ms([e]), launches=e.count) for e in top],

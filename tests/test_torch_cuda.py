@@ -574,3 +574,197 @@ def test_latency_probe_times_each_step_kind(cuda):
     assert set(lat) == set(latency_cuda.KINDS) | {"ghz"}
     assert all(lat[k] > 0 for k in latency_cuda.KINDS), lat
     assert 0.5 < lat["ghz"] < 3.0, lat
+
+
+# ---- the provers' circle FFT and quotient kernels ----------------------------
+# (csrc/circle_fft.cu, csrc/quotients.cu)
+
+# (log n, columns): one point, one butterfly, below a block's tile of 2**12
+# and at it, one and two strided passes above it, a single column
+FFT_SHAPES = [(0, 1), (1, 1), (5, 3), (11, 1), (12, 5), (13, 2), (20, 1), (21, 9)]
+
+
+@pytest.mark.parametrize("log_size,cols", FFT_SHAPES)
+def test_circle_fft_bit_exact(cuda, log_size, cols):
+    """interpolate, evaluate and the LDE to 2 and 8 times the size against
+    their plain versions on the card, each one launch of the wrapper."""
+    from recursive_stwo_tpu_torch.ops import fft_cuda
+    from recursive_stwo_tpu_torch.prover import circle_fft
+
+    gen = torch.Generator(device=cuda).manual_seed(log_size)
+    x = torch.randint(0, P, (cols, 1 << log_size), generator=gen, device=cuda, dtype=torch.int64)
+    x[0, -1] = P - 1
+    before = fft_cuda.LAUNCHES["circle_fft"]
+    c = fft_cuda.interpolate(x)
+    assert torch.equal(c, circle_fft.interpolate_plain(x))
+    assert torch.equal(fft_cuda.evaluate(c, log_size), x)
+    assert torch.equal(fft_cuda.evaluate(x, log_size), circle_fft.evaluate_plain(x))
+    for blowup in (1, 3):
+        want = circle_fft.evaluate_plain(circle_fft.extend(x, log_size + blowup))
+        assert torch.equal(fft_cuda.evaluate(x, log_size + blowup), want)
+    torch.cuda.synchronize()
+    assert fft_cuda.LAUNCHES["circle_fft"] == before + 5
+
+
+@pytest.mark.parametrize("name", ["level1-5", "level2-1"])
+def test_circle_fft_bit_exact_at_prover_shapes(cuda, name):
+    """Every interpolation and LDE of a chain level's prover, at its shapes
+    (tools/prover_cases.fft_cases), against the plain versions."""
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    for case in cases.fft_cases(cases.prover_spec(name), cuda, seed=3):
+        assert torch.equal(cases.run_fft(case), cases.run_fft(case, plain=True)), case.label
+
+
+def test_circle_fft_past_2_31_elements(cuda):
+    """An LDE whose output passes 2**31 elements (17 columns of 2**27): its
+    first and last columns against the plain version of each alone."""
+    from recursive_stwo_tpu_torch.ops import fft_cuda
+    from recursive_stwo_tpu_torch.prover import circle_fft
+
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    x = torch.randint(0, P, (17, 1 << 18), generator=gen, device=cuda, dtype=torch.int64)
+    out = fft_cuda.evaluate(x, 27)
+    assert out.shape == (17, 1 << 27) and out.numel() > 2**31
+    for col in (0, 16):
+        assert torch.equal(out[col], circle_fft.evaluate_plain(circle_fft.extend(x[col : col + 1], 27))[0]), col
+    del out
+    torch.cuda.empty_cache()
+
+
+# (T, b, t0, t1, widths): tiles of one butterfly, a tile within a block and
+# many tiles a block, several coefficient blocks, strided passes, chain level
+# 3's streamed chunk (three blocks of 2**17 on 8 tiles)
+TILE_SHAPES = [(6, 1, 0, 32, (3,)), (12, 9, 2, 6, (2, 1, 5)), (10, 4, 5, 61, (1,)), (16, 13, 3, 7, (4,)),
+               (22, 17, 8, 16, (10, 12, 8))]
+
+
+@pytest.mark.parametrize("T,b,t0,t1,widths", TILE_SHAPES)
+def test_eval_tiles_bit_exact(cuda, T, b, t0, t1, widths):
+    """The tile kernel against the plain tile evaluation (the blocks
+    concatenated), one launch a call."""
+    from recursive_stwo_tpu_torch.ops import fft_cuda
+    from recursive_stwo_tpu_torch.prover import stream, tiles
+
+    gen = torch.Generator(device=cuda).manual_seed(T + b)
+    blocks = [torch.randint(0, P, (w, 1 << b), generator=gen, device=cuda, dtype=torch.int64) for w in widths]
+    tp = tiles.circle_tiles(T, b, t0, t1, cuda)
+    before = fft_cuda.LAUNCHES["eval_tiles"]
+    got = fft_cuda.eval_tiles(blocks, tp.bx, tp.by, tp.tx, tp.ty)
+    torch.cuda.synchronize()
+    assert fft_cuda.LAUNCHES["eval_tiles"] == before + 1
+    cat = torch.cat(blocks)
+    cx, cy = tp.points()
+    want = stream._eval_tiles(cat, stream._tile_twiddles(cx, cy, b), b, t1 - t0).reshape(cat.shape[0], -1)
+    assert torch.equal(got, want)
+
+
+def test_eval_tiles_of_one_coefficient(cuda):
+    """b = 0: every tile is the column's one coefficient."""
+    from recursive_stwo_tpu_torch.ops import fft_cuda
+
+    c = torch.arange(3, dtype=torch.int64, device=cuda)[:, None] + 5
+    z = torch.zeros(7, dtype=torch.int64, device=cuda)
+    got = fft_cuda.eval_tiles([c], z, z, torch.ones(1, dtype=torch.int64, device=cuda), z[:1])
+    assert torch.equal(got, c.expand(3, 7))
+
+
+# (artifact, group, chunk log): level 2's groups resident (2**23, 2**22 and
+# 2**21 points), level 3's shapes streamed, the last layer's chunk of 2**20
+# in tiles of 2**18
+QUOTIENT_SHAPES = [("level2-1", 0, None), ("level2-1", 1, None), ("level2-1", 2, None), ("level1-5", 2, 20),
+                   ("bitcoin_proof", 0, 20), ("bitcoin_proof", 1, 20)]
+
+
+@pytest.mark.parametrize("name,g,chunk_log", QUOTIENT_SHAPES)
+def test_quotients_bit_exact_at_prover_shapes(cuda, name, g, chunk_log):
+    """The quotient kernel against group_answers_plain on random columns of
+    a chain proof's group, one launch a call; and with the OODS point on the
+    domain's first point (the OODS batch's denominators zero there: inv(0) =
+    0 in both)."""
+    from recursive_stwo_tpu_torch.ops import quotients_cuda
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    case = cases.quotient_case(cases.prover_spec(name), g, cuda, seed=g, chunk_log=chunk_log)
+    before = quotients_cuda.LAUNCHES["quotients"]
+    got = cases.run_quotients(case)
+    torch.cuda.synchronize()
+    assert quotients_cuda.LAUNCHES["quotients"] == before + 1
+    assert torch.equal(got, cases.run_quotients(case, plain=True))
+    if chunk_log is None:
+        x, y = (int(v[0]) for v in case.points)
+        on_domain = case._replace(inputs=case.inputs._replace(oods=(x, 0, 0, 0, y, 0, 0, 0)))
+        assert torch.equal(cases.run_quotients(on_domain), cases.run_quotients(on_domain, plain=True))
+
+
+def _no_plain_on_cuda(monkeypatch):
+    """Make every plain FFT, tile and quotient version raise when handed a
+    CUDA tensor."""
+    from recursive_stwo_tpu_torch.prover import circle_fft, quotients, stream
+
+    for module, name in ((circle_fft, "interpolate_plain"), (circle_fft, "evaluate_plain"), (stream, "_eval_tiles"),
+                         (quotients, "group_answers_plain")):
+        real = getattr(module, name)
+
+        def guard(*args, real=real, name=name, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                raise AssertionError(f"{name} ran on a CUDA tensor")
+            for a in args:
+                if isinstance(a, list) and any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                    raise AssertionError(f"{name} ran on a CUDA tensor")
+            return real(*args, **kw)
+
+        monkeypatch.setattr(module, name, guard)
+
+
+@pytest.mark.parametrize("prover", ["prove", "prove_np", "prove_streamed", "prove_np_streamed"])
+def test_provers_run_fft_and_quotients_on_the_kernels(cuda, monkeypatch, prover):
+    """On CUDA every prover's transforms, tile evaluations and first-layer
+    quotients go through the kernels, never their plain versions: the FFT
+    launches, the quotient kernel once a first-layer group (resident) or a
+    streamed chunk; the proof equals the CPU run's."""
+    from test_torch_chain import T_NP_CONFIG, _np_trace
+
+    from recursive_stwo_tpu_torch.ops import launches
+    from recursive_stwo_tpu_torch.prover.prove import prove
+    from recursive_stwo_tpu_torch.prover.prove_np import prove_np
+    from recursive_stwo_tpu_torch.prover.stream import prove_np_streamed, prove_streamed
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+    from recursive_stwo_tpu_torch.verifier.spec import NoPoseidonVerifierSpec, VerifierSpec
+
+    stream_args = dict(chunk_log=6, cutoff=4)
+    run = {
+        "prove": lambda d: prove(flagship.demo_trace(), flagship.DEMO_CONFIG, device=d),
+        "prove_np": lambda d: prove_np(_np_trace(), T_NP_CONFIG, device=d),
+        "prove_streamed": lambda d: prove_streamed(flagship.demo_trace(), flagship.DEMO_CONFIG, device=d, **stream_args),
+        "prove_np_streamed": lambda d: prove_np_streamed(_np_trace(), T_NP_CONFIG, device=d, **stream_args),
+    }[prover]
+    want = run("cpu")
+    _no_plain_on_cuda(monkeypatch)
+    launches.reset()
+    got = run(cuda)
+    torch.cuda.synchronize()
+    counts = launches.counts()
+    assert flagship.proof_bytes(got) == flagship.proof_bytes(want)
+    spec = (NoPoseidonVerifierSpec.for_rows(got.log_size, got.config) if prover.startswith("prove_np")
+            else VerifierSpec.from_proof(got))
+    assert counts["circle_fft"] > 0, counts
+    if prover.endswith("streamed"):
+        assert counts["eval_tiles"] > 0, counts
+        assert counts["quotients"] == cases.n_chunks(spec, stream_args["chunk_log"]), counts
+    else:
+        assert counts["eval_tiles"] == 0 and counts["quotients"] == len(spec.all_log_sizes), counts
+
+
+def test_fft_and_quotient_kernels_keep_every_value_in_registers_or_shared_memory(cuda):
+    """ptxas' report of the build: the FFT pass kernel's three instances
+    (interpolation, evaluation, tiles) and both quotient kernels have no
+    stack frame and spill nothing."""
+    from recursive_stwo_tpu_torch.ops import build
+
+    build.load()
+    for name, instances in (("fft_pass_kernel", 3), ("quotient_coeffs_kernel", 1), ("quotient_points_kernel", 1)):
+        report = build.ptxas_report(name)
+        assert len(report) == instances, (name, report)
+        for r in report:
+            assert (r["stack_bytes"], r["spill_stores"], r["spill_loads"]) == (0, 0, 0), r

@@ -127,7 +127,8 @@ def test_tile_geometry_matches_reference(T, b):
     full = r_fft.evaluate(r_fft.extend(coeffs, T))
     src = t_stream.CoeffSource(_t(coeffs), T)
     n_tiles = 1 << (T - b)
-    cx, cy, vals = src.tiles(0, n_tiles)
+    cx, cy = t_tiles.circle_tiles(T, b, 0, n_tiles, "cpu").points()
+    vals = src.values(0, n_tiles)
     assert np.array_equal(vals.numpy(), full.astype(np.int64))
     # the reference's own tile evaluation on the same points
     bx, by = r_stream.circle_tile_bases(T, b)
