@@ -254,12 +254,18 @@ FOLD_BATCHES = (1, 3, 7, 33, BATCH - 1, BATCH)
 # main path's batch)
 TRANSCRIPT_BATCHES = (1, 3, 7, 33, BATCH - 1, BATCH)
 
-# the circle FFT is held to its plain version at these (log, columns), tails
-# of a block's tile of 2**12 and one and two strided passes above it; the
-# tile kernel at these (T, b, tiles [t0, t1), column blocks); both at the
-# shapes of these committed chain proofs (tools/prover_cases.py)
-FFT_SHAPES = ((0, 1), (1, 1), (5, 3), (11, 1), (12, 5), (13, 2), (20, 1), (21, 9))
-TILE_SHAPES = ((6, 1, 0, 32, (3,)), (12, 9, 2, 6, (2, 1, 5)), (10, 4, 5, 61, (1,)), (16, 13, 3, 7, (4,)))
+# the circle FFT is held to its plain version at these (log, columns): one
+# point, one butterfly, one radix-8 round, tails of a block's tile of 2**13,
+# clusters of 2-8 blocks (2**14-2**18) and two passes (2**19-2**21); at LDEs
+# of these (log, segments); the tile kernel at these (T, b, tiles [t0, t1),
+# column blocks), level 14's tiles of 2**15 and the last layer's of 2**17 on
+# clusters among them; both at the shapes of these committed chain proofs
+# (tools/prover_cases.py)
+FFT_SHAPES = ((0, 1), (1, 1), (3, 2), (5, 3), (11, 1), (12, 5), (13, 2), (15, 2), (16, 1), (17, 2), (18, 1),
+              (19, 1), (20, 1), (21, 9))
+LDE_SEGMENTS = ((12, 1), (12, 2), (12, 512), (17, 2), (18, 8))
+TILE_SHAPES = ((6, 1, 0, 32, (3,)), (12, 9, 2, 6, (2, 1, 5)), (10, 4, 5, 61, (1,)), (16, 13, 3, 7, (4,)),
+               (20, 15, 4, 12, (3, 5, 2)), (24, 17, 3, 8, (2, 3)))
 PROVER_SHAPES = ("level1-5", "level2-1", "level14-1", "bitcoin_proof")
 
 
@@ -809,6 +815,11 @@ def check_prover_kernels(torch, dev) -> tuple:
         for blowup in (1, 3):
             hold("fft", f"LDE ({cols}, 2**{log}) to 2**{log + blowup}", fft_cuda.evaluate(x, log + blowup),
                  circle_fft.evaluate_plain(circle_fft.extend(x, log + blowup)))
+    for log, segments in LDE_SEGMENTS:
+        x = torch.randint(0, P, (3, 1 << log), generator=gen, device=dev, dtype=torch.int64)
+        out = log + segments.bit_length() - 1
+        hold("fft", f"LDE (3, 2**{log}) to 2**{out}", fft_cuda.evaluate(x, out),
+             circle_fft.evaluate_plain(circle_fft.extend(x, out)))
     specs = {name: cases.prover_spec(name) for name in PROVER_SHAPES}
     level_cases = {}
     for name in ("level1-5", "level2-1"):
@@ -823,8 +834,8 @@ def check_prover_kernels(torch, dev) -> tuple:
     del big, x
     torch.cuda.empty_cache()
     print(f"circle_fft: bit-exact vs plain (interpolate, evaluate, LDE x2 and x8) at {FFT_SHAPES} (log, columns), "
-          f"on every transform of chain levels 1 and 2 at their shapes, and on both ends of a (17, 2**27) LDE "
-          f"(2.3e9 elements)")
+          f"LDEs at {LDE_SEGMENTS} (log, segments), on every transform of chain levels 1 and 2 at their shapes, and "
+          f"on both ends of a (17, 2**27) LDE (2.3e9 elements)")
 
     for T, b, t0, t1, widths in TILE_SHAPES:
         blocks = [torch.randint(0, P, (w, 1 << b), generator=gen, device=dev, dtype=torch.int64) for w in widths]
@@ -874,7 +885,7 @@ def check_prover_kernels(torch, dev) -> tuple:
         b = n.bit_length() - 1
         segments = 1 << ((case.log_out or b) - b)
         r = timed("circle_fft", f"level 2's {case.label}", lambda: cases.run_fft(case),
-                  lambda: cases.run_fft(case, plain=True), "fft_pass_kernel", fft_cuda.passes(b),
+                  lambda: cases.run_fft(case, plain=True), "fft_", fft_cuda.kernels_per_call(b),
                   fft_cuda.bound_ms(rows, b, segments, n, interpolate=not case.log_out), 10)
         fft.update({f"{key}{k}": v for k, v in r.items() if not (key and k == "bound_by")})
     out["circle_fft"] = dict(fft, max_abs_err=errs["fft"], library_ms=None)
@@ -885,7 +896,8 @@ def check_prover_kernels(torch, dev) -> tuple:
     case = cases.tile_case(spec, g, dev, SEED)
     rows, b, G = sum(c.shape[0] for c in case.blocks), case.tiles.b, case.tiles.bx.shape[0]
     out["eval_tiles"] = dict(timed("eval_tiles", f"the last layer's {case.label}", lambda: cases.run_tiles(case),
-                                   lambda: cases.run_tiles(case, plain=True), "fft_pass_kernel", fft_cuda.passes(b),
+                                   lambda: cases.run_tiles(case, plain=True), "fft_",
+                                   fft_cuda.kernels_per_call(b, tiles=True),
                                    fft_cuda.bound_ms(rows, b, G, 1 << b, tiles=True), 10),
                              max_abs_err=errs["tiles"], library_ms=None)
 
@@ -1470,9 +1482,10 @@ def main() -> int:
     with open(lib_path + ".log") as f:
         print(f.read().strip())
     for name in ("transcript_kernel", "composition_check_kernel", "composition_domain_kernel", "fold_kernel",
-                 "fft_pass_kernel", "quotient_coeffs_kernel", "quotient_points_kernel"):
+                 "fft_pass_kernel", "fft_tile_twiddle_kernel", "quotient_coeffs_kernel", "quotient_points_kernel"):
         for r in build.ptxas_report(name):
-            print(f"ptxas {name} ({r['kernel']}): {r['registers']} registers, {r['stack_bytes']} bytes stack frame, "
+            print(f"ptxas {name} ({r['kernel']}): {r['registers']} registers, {r['smem_bytes']} bytes static smem, "
+                  f"{r['stack_bytes']} bytes stack frame, "
                   f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads")
     phase_done("1-2 (card, build)")
 

@@ -50,13 +50,16 @@ def library_path() -> str:
 def ptxas_report(name: str) -> list:
     """ptxas' report of every compiled kernel whose mangled name holds
     `name` (one a template instance), read from the library's log:
-    [{"kernel", "registers", "stack_bytes", "spill_stores", "spill_loads"}]."""
+    [{"kernel", "registers", "smem_bytes", "stack_bytes", "spill_stores",
+    "spill_loads"}] (smem_bytes: the static shared memory; dynamic shared
+    memory is set at launch)."""
     with open(library_path() + ".log") as f:
         log = f.read()
     entries = re.findall(r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                         r"(\d+) bytes spill loads\n.*?Used (\d+) registers", log)
-    return [dict(kernel=k, registers=int(r), stack_bytes=int(st), spill_stores=int(ss), spill_loads=int(sl))
-            for k, st, ss, sl, r in entries if name in k]
+                         r"(\d+) bytes spill loads\n.*?Used (\d+) registers([^\n]*)", log)
+    return [dict(kernel=k, registers=int(r), smem_bytes=int(next(iter(re.findall(r"(\d+) bytes smem", rest)), 0)),
+                 stack_bytes=int(st), spill_stores=int(ss), spill_loads=int(sl))
+            for k, st, ss, sl, r, rest in entries if name in k]
 
 
 def _nvcc() -> str:

@@ -16,22 +16,25 @@
 Each takes CUDA int64 tensors of canonical residues and raises on anything
 else; the plain versions are prover/circle_fft.py `interpolate_plain` /
 `evaluate_plain` and prover/stream.py `_eval_tiles`.  A transform of b
-layers is a few launches of one kernel, each a pass over device memory (one
-pass up to b = 12, then one more a further 8 layers: three at b = 27), on the
-current stream of its tensors' device, without synchronising; the output is
-a new tensor and the input is only read.
+layers is one pass over device memory up to b = 18 (a block's tile of up to
+2**15 words, a cluster of up to eight blocks) and two above (`plan`,
+`passes`); a tile evaluation launches a twiddle kernel first.  Each runs on
+the current stream of its tensors' device, without synchronising; the
+output is a new tensor and the input is only read.
 `LAUNCHES` counts calls that launched: "circle_fft" the whole-column
 transforms, "eval_tiles" the tile evaluations.
 
 Whole-column transforms read the per-layer twiddles of circle_fft_host
 (`_twiddles`, `_inv_twiddles`) flattened into one int32 table a log size
-and direction, lifted to the device once (`_table`; 4 bytes a point).
+and direction, lifted to the device once (`_table`; 4 bytes a point); a
+tile evaluation derives its tiles' table into scratch of the same layout.
 """
 
 from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,13 +49,17 @@ LAUNCHES = {"circle_fft": 0, "eval_tiles": 0}
 # csrc/circle_fft.cu's limits and the positions of its `scalars` and `ptrs`
 MAX_LOG = 27  # positions a column
 MAX_SOURCES = 8  # source blocks of one tile evaluation
+MAX_PASSES = 2
 INTERPOLATE, EVALUATE, TILES = 0, 1, 2
-S_MODE, S_COLS, S_LOG_SEGMENT, S_SEGMENTS, S_SOURCES, S_SCALE, S_SOURCE_ROWS = range(7)
+S_MODE, S_COLS, S_LOG_SEGMENT, S_SEGMENTS, S_SOURCES, S_SCALE, S_PASSES, S_PLAN = range(8)
+PASS_FIELDS = 6  # a pass's (k0, S, c, U, R, Bt)
+S_SOURCE_ROWS = S_PLAN + PASS_FIELDS * MAX_PASSES
 S_SOURCE_STRIDE = S_SOURCE_ROWS + MAX_SOURCES
 N_SCALARS = S_SOURCE_STRIDE + MAX_SOURCES
 P_OUT, P_TABLE, P_BX, P_BY, P_TX, P_TY, P_SOURCE = range(7)
 N_PTRS = P_SOURCE + MAX_SOURCES
 P = 2**31 - 1
+WORDS_PER_THREAD = 64  # a thread holds 64 words of its block's tile
 
 
 def reset_launches() -> None:
@@ -69,10 +76,95 @@ def _table(log_size: int, inverse: bool, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(flat.astype(np.int32)).to(device)
 
 
+# ---------------------------------------------------------------------------
+# the pass plan: which layers each launch runs and how its tiles are cut.
+# A pass runs layers [k0, k0 + S) on tiles of 2**(U + S + c) elements e =
+# (u << (S + c)) | (m << c) | l (2**U units of 2**S positions, runs of 2**c
+# contiguous positions), each held by a cluster of 2**R blocks of 2**Bt words
+# (U + S + c = Bt + R).  The kernel checks every pass it is given.
+# ---------------------------------------------------------------------------
+
+
+class Limits(NamedTuple):
+    block_min: int = 13  # a block's tile where a pass's layers fit in it: 2**13 words, 128 threads
+    block_max: int = 14  # at most 2**14 words (72 KB of dynamic shared memory, 256 threads): two blocks an SM
+    cluster_pref: int = 3  # clusters of up to 8 blocks (the portable size) while a block's tile can grow
+    cluster_max: int = 4  # then up to 16
+    split: int = 17  # past one pass's reach: the contiguous pass's layers
+    min_run: int = 4  # a strided tile's contiguous run: at least 16 positions, 128 bytes of int64
+
+
+HOPPER = Limits()
+
+
+class Pass(NamedTuple):
+    k0: int
+    S: int
+    c: int
+    U: int
+    R: int
+    Bt: int
+
+
+def _trailing_zeros(n: int) -> int:
+    return (n & -n).bit_length() - 1
+
+
+def _contiguous(L: int, units: int, lim: Limits) -> Pass:
+    """Layers [0, L) of `units` consecutive runs of 2**L positions: a block
+    of 2**block_min words (several runs a block where they fit, as many as
+    divide `units`), or a cluster: up to 2**cluster_pref blocks of
+    2**block_min words, larger blocks up to 2**block_max, then up to
+    2**cluster_max blocks."""
+    if L <= lim.block_min:
+        U = min(lim.block_min - L, _trailing_zeros(units))
+        return Pass(0, L, 0, U, 0, L + U)
+    R = min(lim.cluster_pref, L - lim.block_min)
+    if L - R > lim.block_max:
+        R = L - lim.block_max
+    if not R <= min(L - R, lim.cluster_max):
+        raise ValueError(f"{L} layers exceed a cluster's 2**{lim.block_max + lim.cluster_max} words")
+    return Pass(0, L, 0, 0, R, L - R)
+
+
+def plan(b: int, segments: int, inverse: bool, lim: Limits = HOPPER) -> tuple:
+    """The passes of a transform of b layers over `segments` segments of
+    2**b, in the order they run: one contiguous pass up to the reach of a
+    cluster (block_max + cluster_max layers); past it a contiguous pass of
+    layers [0, split) and a strided one of the rest, the interpolation's
+    contiguous pass first, the evaluation's last."""
+    if b <= lim.block_max + lim.cluster_max:
+        return (_contiguous(b, segments, lim),)
+    S = b - lim.split
+    Bt = max(lim.block_min, S + lim.min_run)
+    if Bt > lim.block_max:
+        raise ValueError(f"{S} strided layers exceed a block's 2**{lim.block_max} words")
+    strided = Pass(lim.split, S, Bt - S, 0, 0, Bt)
+    contiguous = _contiguous(lim.split, segments << S, lim)
+    return (contiguous, strided) if inverse else (strided, contiguous)
+
+
 def passes(b: int) -> int:
-    """The kernel launches of a transform of b layers, as csrc/circle_fft.cu
-    plans them: one pass of up to 12, then one more a further 8."""
-    return 1 + -(-max(b - 12, 0) // 8)
+    """The pass kernel's launches for a transform of b layers, as `plan`
+    cuts it: one up to 18 layers (a cluster of 16 blocks of 2**14 words),
+    two above."""
+    return len(plan(b, 1, False))
+
+
+def kernels_per_call(b: int, tiles: bool = False) -> int:
+    """Kernels a call launches: its passes, and a tile evaluation's twiddle
+    kernel (b >= 1)."""
+    return passes(b) + (1 if tiles and b else 0)
+
+
+def threads(p: Pass) -> int:
+    """A pass's block: 64 words of the tile a thread, at least a warp."""
+    return max(32, (1 << p.Bt) // WORDS_PER_THREAD)
+
+
+def smem_bytes(p: Pass) -> int:
+    """A pass's dynamic shared memory: its tile and one pad word a 32."""
+    return 4 * ((1 << p.Bt) + ((1 << p.Bt) >> 3))
 
 
 def _log(n: int, what: str) -> int:
@@ -109,6 +201,10 @@ def _launch(mode: int, out: torch.Tensor, sources: list, b: int, segments: int, 
     ptrs = [0] * N_PTRS
     scalars[S_MODE], scalars[S_COLS], scalars[S_LOG_SEGMENT], scalars[S_SEGMENTS] = mode, out.shape[0], b, segments
     scalars[S_SOURCES], scalars[S_SCALE] = len(sources), scale
+    steps = plan(b, segments, mode == INTERPOLATE)
+    scalars[S_PASSES] = len(steps)
+    for i, step in enumerate(steps):
+        scalars[S_PLAN + PASS_FIELDS * i : S_PLAN + PASS_FIELDS * (i + 1)] = step
     for k, src in enumerate(sources):
         scalars[S_SOURCE_ROWS + k], scalars[S_SOURCE_STRIDE + k] = src.shape[0], src.stride(0)
         ptrs[P_SOURCE + k] = src.data_ptr() if src.numel() else 0
@@ -116,15 +212,18 @@ def _launch(mode: int, out: torch.Tensor, sources: list, b: int, segments: int, 
     if table is not None:
         ptrs[P_TABLE] = table.data_ptr()
     if tiles is not None:
+        # the tiles' twiddles, derived by the kernel (layer k at N - (N >> k))
+        table = torch.empty(max((segments << b) - segments, 1), dtype=torch.int32, device=out.device)
+        ptrs[P_TABLE] = table.data_ptr()
         ptrs[P_BX], ptrs[P_BY], ptrs[P_TX], ptrs[P_TY] = (t.data_ptr() for t in tiles)
-    passes = ctypes.c_int64(0)
+    launched = ctypes.c_int64(0)
     lib = build.load()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         err = lib.circle_fft((ctypes.c_int64 * N_SCALARS)(*scalars), (ctypes.c_int64 * N_PTRS)(*ptrs), stream,
-                             ctypes.byref(passes))
+                             ctypes.byref(launched))
     _raise_on(err, "circle_fft")
-    if passes.value:
+    if launched.value:
         LAUNCHES["eval_tiles" if mode == TILES else "circle_fft"] += 1
 
 

@@ -357,11 +357,15 @@ def fft_lines(torch, dev) -> list:
         if not torch.equal(run(), plain()):
             raise RuntimeError(f"{kernel} differs from the plain version on {label}")
         bound, by = fft_cuda.bound_ms(rows, b, segments, source_len, interpolate, tiles)
-        lines.append(dict(kernel=kernel, shape=label, rows=rows, b=b, segments=segments,
+        # a call's kernels: its passes, and a tile evaluation's twiddle kernel
+        # where the checkout has one
+        per_call = (fft_cuda.kernels_per_call(b, tiles) if hasattr(fft_cuda, "kernels_per_call")
+                    else fft_cuda.passes(b))
+        lines.append(dict(kernel=kernel, shape=label, rows=rows, b=b, segments=segments, kernels_per_call=per_call,
                           bytes=fft_cuda.transform_bytes(rows, b, segments, source_len, tiles),
                           int_ops=fft_cuda.transform_ops(rows, b, segments, interpolate, tiles),
                           events_ms=cuda_ms(torch, run, 10),
-                          device_ms=profiled_ms(torch, run, 10, "fft_pass_kernel", fft_cuda.passes(b)),
+                          device_ms=profiled_ms(torch, run, 10, "fft_", per_call),
                           plain_ms=cuda_ms(torch, plain, 1), bound_ms=bound, bound_by=by))
 
     for name in ("level1-5", "level2-1"):
@@ -452,7 +456,7 @@ def main() -> int:
     print(f"[{label}] library {os.path.basename(build.library_path())} from {lib._name}")
     if hasattr(build, "ptxas_report"):
         for name in ("transcript_kernel", "composition_check_kernel", "composition_domain_kernel", "fold_kernel",
-                     "fft_pass_kernel", "quotient_coeffs_kernel", "quotient_points_kernel"):
+                     "fft_pass_kernel", "fft_tile_twiddle_kernel", "quotient_coeffs_kernel", "quotient_points_kernel"):
             for r in build.ptxas_report(name):
                 print(json.dumps(dict(label=label, ptxas=name, **r)), flush=True)
 

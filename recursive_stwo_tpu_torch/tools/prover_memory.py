@@ -19,8 +19,8 @@ proof in the process is cold (host tables built per log size); the later
 ones are warm.  The first-layer quotients are the stage that ends with "FRI
 first-layer quotients computed"; the transforms run inside the tree stages.
 `--profile` adds one more proof under `torch.profiler` and prints its device
-time: all kernels, K1 (`permute_rows`), the circle FFT's passes
-(`fft_pass_kernel`), the quotient kernels (`quotient_`), the `% p`
+time: all kernels, K1 (`permute_rows`), the circle FFT's passes and tile
+twiddles (`fft_`), the quotient kernels (`quotient_`), the `% p`
 (`remainder`) kernels, copies, and the launch counts, the hand-written
 kernels' (csrc/) apart from eager torch's.  It needs a GPU; an
 out-of-memory error ends it with that error.
@@ -87,7 +87,7 @@ def _device_time(prof) -> dict:
     copies = [e for e in events if e.key.startswith(("Memcpy", "Memset"))]
     kernels = [e for e in events if e not in copies]
     k1 = [e for e in kernels if "permute_rows" in e.key]
-    fft = [e for e in kernels if "fft_pass_kernel" in e.key]
+    fft = [e for e in kernels if "fft_" in e.key]
     quot = [e for e in kernels if "quotient_" in e.key]
     own = [e for e in kernels if any(k in e.key for k in hand_written_kernels())]
     rem = [e for e in kernels if "remainder" in e.key.lower()]

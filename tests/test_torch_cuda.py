@@ -579,9 +579,11 @@ def test_latency_probe_times_each_step_kind(cuda):
 # ---- the provers' circle FFT and quotient kernels ----------------------------
 # (csrc/circle_fft.cu, csrc/quotients.cu)
 
-# (log n, columns): one point, one butterfly, below a block's tile of 2**12
-# and at it, one and two strided passes above it, a single column
-FFT_SHAPES = [(0, 1), (1, 1), (5, 3), (11, 1), (12, 5), (13, 2), (20, 1), (21, 9)]
+# (log n, columns): one point, one butterfly, one radix-8 round, a block's
+# tile of 2**13 and below it, clusters of 2, 4 and 8 blocks (2**14-2**18, the
+# last of 2**15-word blocks), two passes (2**19-2**21), a single column
+FFT_SHAPES = [(0, 1), (1, 1), (3, 2), (5, 3), (11, 1), (12, 5), (13, 2), (14, 1), (15, 3), (16, 2), (17, 3),
+              (18, 2), (19, 1), (20, 1), (21, 9)]
 
 
 @pytest.mark.parametrize("log_size,cols", FFT_SHAPES)
@@ -616,6 +618,33 @@ def test_circle_fft_bit_exact_at_prover_shapes(cuda, name):
         assert torch.equal(cases.run_fft(case), cases.run_fft(case, plain=True)), case.label
 
 
+@pytest.mark.parametrize("log_size,segments", [(12, 1), (12, 2), (12, 512), (17, 2), (15, 512), (18, 8)])
+def test_circle_fft_lde_segments(cuda, log_size, segments):
+    """LDEs of G = 1, 2, 512 and 8 segments: several segments a block below
+    its tile, one a cluster above it (level 2's tree-1 shape, 2**18 to 2**21)."""
+    from recursive_stwo_tpu_torch.ops import fft_cuda
+    from recursive_stwo_tpu_torch.prover import circle_fft
+
+    gen = torch.Generator(device=cuda).manual_seed(log_size + segments)
+    x = torch.randint(0, P, (3, 1 << log_size), generator=gen, device=cuda, dtype=torch.int64)
+    log = log_size + segments.bit_length() - 1
+    assert torch.equal(fft_cuda.evaluate(x, log), circle_fft.evaluate_plain(circle_fft.extend(x, log)))
+
+
+def test_circle_fft_reads_rows_off_16_bytes(cuda):
+    """Rows that start off a 16-byte boundary (an odd row stride, an odd
+    offset) take the one-word loads where aligned rows take 16 bytes."""
+    from recursive_stwo_tpu_torch.ops import fft_cuda
+    from recursive_stwo_tpu_torch.prover import circle_fft
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    for log in (3, 12, 16):
+        x = torch.randint(0, P, (3, (1 << log) + 1), generator=gen, device=cuda, dtype=torch.int64)[:, 1:]
+        assert x.stride(0) % 2 == 1
+        assert torch.equal(fft_cuda.interpolate(x), circle_fft.interpolate_plain(x)), log
+        assert torch.equal(fft_cuda.evaluate(x, log + 1), circle_fft.evaluate_plain(circle_fft.extend(x, log + 1)))
+
+
 def test_circle_fft_past_2_31_elements(cuda):
     """An LDE whose output passes 2**31 elements (17 columns of 2**27): its
     first and last columns against the plain version of each alone."""
@@ -633,10 +662,11 @@ def test_circle_fft_past_2_31_elements(cuda):
 
 
 # (T, b, t0, t1, widths): tiles of one butterfly, a tile within a block and
-# many tiles a block, several coefficient blocks, strided passes, chain level
-# 3's streamed chunk (three blocks of 2**17 on 8 tiles)
+# many tiles a block, several coefficient blocks, a block's tile, level 14's
+# tiles of 2**15 on clusters of 4, chain level 3's streamed chunk (three
+# blocks of 2**17 on 8 tiles) and an odd number of such tiles
 TILE_SHAPES = [(6, 1, 0, 32, (3,)), (12, 9, 2, 6, (2, 1, 5)), (10, 4, 5, 61, (1,)), (16, 13, 3, 7, (4,)),
-               (22, 17, 8, 16, (10, 12, 8))]
+               (20, 15, 4, 12, (3, 5, 2)), (22, 17, 8, 16, (10, 12, 8)), (24, 17, 3, 8, (2, 3))]
 
 
 @pytest.mark.parametrize("T,b,t0,t1,widths", TILE_SHAPES)
@@ -757,13 +787,15 @@ def test_provers_run_fft_and_quotients_on_the_kernels(cuda, monkeypatch, prover)
 
 
 def test_fft_and_quotient_kernels_keep_every_value_in_registers_or_shared_memory(cuda):
-    """ptxas' report of the build: the FFT pass kernel's three instances
-    (interpolation, evaluation, tiles) and both quotient kernels have no
-    stack frame and spill nothing."""
+    """ptxas' report of the build: the FFT pass kernel's four instances
+    (interpolation; evaluation and tiles; each for clusters of up to 8 and
+    of 16), the tile twiddle kernel and both quotient kernels have no stack
+    frame and spill nothing."""
     from recursive_stwo_tpu_torch.ops import build
 
     build.load()
-    for name, instances in (("fft_pass_kernel", 3), ("quotient_coeffs_kernel", 1), ("quotient_points_kernel", 1)):
+    for name, instances in (("fft_pass_kernel", 4), ("fft_tile_twiddle_kernel", 1), ("quotient_coeffs_kernel", 1),
+                            ("quotient_points_kernel", 1)):
         report = build.ptxas_report(name)
         assert len(report) == instances, (name, report)
         for r in report:

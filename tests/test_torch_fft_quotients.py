@@ -336,3 +336,226 @@ def test_bounds_count_what_the_kernels_must_move_and_compute():
     assert quotients_cuda.quotient_bytes(spec, 0, 1 << 10) == (1 << 10) * 8 * (columns + 4) + 16 * (1 << 10)
     assert quotients_cuda.point_ops(spec, 0) > 36 * len(t.entries)
     assert quotients_cuda.bound_ms(spec, 0, 1 << 20)[0] > 0
+
+
+# ---- the FFT kernel's pass plan and index mapping, modelled in numpy ----------
+# (csrc/circle_fft.cu: fft_pass_kernel's rounds, radix groups, cluster ranks,
+# shared-memory words and twiddle slots; fft_tile_twiddle_kernel's table)
+
+# a block's tile shrunk to 2**3-2**5 words, so that small transforms take
+# clusters of up to 16 blocks and two passes
+SMALL = fft_cuda.Limits(block_min=3, block_max=5, cluster_pref=3, cluster_max=4, split=6, min_run=1)
+
+
+def _phys(e):
+    """The shared-memory word of tile element e (a pad word after each 32)."""
+    return e + ((e >> 5) << 2)
+
+
+def _butterflies(v, w, Q, inverse):
+    n = 1 << Q
+    for i in range(Q):
+        lay = i if inverse else Q - 1 - i
+        half = 1 << lay
+        for j in range(n):
+            if j & half:
+                continue
+            t = w[n - (n >> lay) + (j >> (lay + 1))]
+            if inverse:
+                a, b = v[j], v[j + half]
+                v[j], v[j + half] = (a + b) % P, (a - b) % P * t % P
+            else:
+                tb = v[j + half] * t % P
+                v[j], v[j + half] = (v[j] + tb) % P, (v[j] - tb) % P
+
+
+def _model_pass(ps, b, n_total, tw, inp, mask, out, inverse, scale):
+    """One launch of fft_pass_kernel, every tile at once: `inp` (cols, ...)
+    read at position & mask, `out` (cols, n_total) written."""
+    k0, S, c, U, R, Bt = ps
+    nth, per = fft_cuda.threads(ps), fft_cuda.WORDS_PER_THREAD
+    words = fft_cuda.smem_bytes(ps) // 4
+    tiles = n_total >> (U + S + c)
+    tile = np.arange(tiles)[:, None, None]
+    rank = np.arange(1 << R)[None, :, None]
+    pbase = ((tile >> (k0 - c)) << (k0 + S + U)) + ((tile & ((1 << (k0 - c)) - 1)) << c)
+
+    def position(E):
+        return pbase + ((E >> c) << k0) + (E & ((1 << c) - 1))
+
+    smem = np.zeros((inp.shape[0], tiles, 1 << R, words), np.int64)
+    if S == 0:
+        p = position(np.arange(1 << Bt))
+        out[:, p] = inp[:, p & mask]
+        return
+    local, rounds = S - R, (S - R + 2) // 3
+    seq = [("local", r) for r in (range(rounds) if inverse else reversed(range(rounds)))]
+    if R:
+        seq = seq + [("cluster", None)] if inverse else [("cluster", None)] + seq
+    for at, (kind, r) in enumerate(seq):
+        first, last = at == 0, at == len(seq) - 1
+        if kind == "cluster":
+            Q, k = R, Bt
+            o = [(rh << (Bt - R)) + t + i * nth for rh in range(1 << R) for i in range(per >> R) for t in range(nth)
+                 if t + i * nth < 1 << (Bt - R)]
+            assert sorted(o) == list(range(1 << Bt))  # every offset once, each rank its share
+            o = np.array(o).reshape(1 << R, -1)[None]
+            p0, s0 = pbase + o, _phys(o)
+            if inverse:
+                v = [smem[:, tile, j, s0] for j in range(1 << Q)]
+            else:
+                v = [inp[:, (p0 & mask) + (j << k)] for j in range(1 << Q)]
+        else:
+            q0 = 3 * r
+            Q = min(3, local - q0)
+            s, k, groups = q0 + c, k0 + q0, 1 << (Bt - Q)
+            g = [t + i * nth for i in range(per >> Q) for t in range(nth) if t + i * nth < groups]
+            assert sorted(g) == list(range(groups))
+            g = np.array(g)
+            low = (1 << s) - 1
+            e0 = (g & low) | ((g & ~low) << Q)
+            p0 = position((rank << Bt) | e0)
+            s0 = _phys(e0)
+            d = [_phys(j << s) for j in range(1 << Q)]
+            for j in range(1 << Q):  # the pad map is additive over the group's bits, and stays in the buffer
+                assert np.array_equal(_phys(e0 | (j << s)), s0 + d[j]) and (s0 + d[j]).max() < words
+            if Q == 3 and s == 0:  # 16-byte accesses: eight neighbours on 16 bytes of shared and device memory
+                assert (s0 % 4 == 0).all() and (p0 % 8 == 0).all()
+            v = ([inp[:, (p0 & mask) + (j << k)] for j in range(1 << Q)] if first
+                 else [smem[:, tile, rank, s0 + d[j]] for j in range(1 << Q)])
+        w = []
+        for lay in range(Q):
+            idx = n_total - (n_total >> (k + lay)) + (p0 >> (k + lay + 1))
+            count = 1 << (Q - 1 - lay)
+            assert (idx % count == 0).all()  # a vector load of `count` words
+            w += [tw[idx + x] for x in range(count)]
+        _butterflies(v, w, Q, inverse)
+        if last:
+            for j in range(1 << Q):
+                out[:, p0 + (j << k)] = v[j] * scale % P if scale else v[j]
+        elif kind == "cluster":
+            for j in range(1 << Q):
+                smem[:, tile, j, s0] = v[j]
+        else:
+            for j in range(1 << Q):
+                smem[:, tile, rank, s0 + d[j]] = v[j]
+
+
+def _model_transform(mode, src, b, G, tw, lim, scale=0):
+    """The kernel's launches of a transform on the CPU: the passes of
+    fft_cuda.plan(lim), the first from the sources (position mod 2**b)."""
+    n_total = G << b
+    out = np.zeros((src.shape[0], n_total), np.int64)
+    steps = fft_cuda.plan(b, G, mode == fft_cuda.INTERPOLATE, lim)
+    for i, ps in enumerate(steps):
+        inp, mask = (src, (1 << b) - 1) if i == 0 else (out.copy(), -1)
+        _model_pass(ps, b, n_total, tw, inp, mask, out, mode == fft_cuda.INTERPOLATE,
+                    scale if i == len(steps) - 1 else 0)
+    return out
+
+
+def _model_tile_twiddles(bx, by, tx, ty, b):
+    """fft_tile_twiddle_kernel: thread (g, j) on the even point 2j of tile
+    g; layer k's twiddle of tile g's group i at N - (N >> k) + g 2**(b-k-1) + i."""
+    G = bx.shape[0]
+    n = G << b
+    tw = np.zeros(max(n - G, 1), np.int64)
+    ids = np.arange(G << (b - 1))
+    g, j = ids >> (b - 1), ids & ((1 << (b - 1)) - 1)
+    tw[(g << (b - 1)) + j] = (bx[g] * ty[2 * j] + by[g] * tx[2 * j]) % P
+    act = (j & 1) == 0
+    x, i = (bx[g] * tx[2 * j] - by[g] * ty[2 * j]) % P, j >> 1
+    k = 1
+    while b >= 2 and act.any():
+        tw[(n - (n >> k) + (g << (b - 1 - k)) + i)[act]] = x[act]
+        act &= (k + 1 < b) & ((i & 1) == 0)
+        i, x, k = i >> 1, (2 * x * x - 1) % P, k + 1
+    return tw
+
+
+@pytest.mark.parametrize("b", range(28))
+def test_fft_plan_passes_and_kernel_limits(b):
+    """fft_cuda.passes: one pass up to a cluster's reach (2**14 words a block,
+    16 blocks: 18 layers), two above.  Every pass of every transform the
+    wrappers can ask for (whole columns with G = 1, 2 and up to 2**27
+    points; tiles with an odd G) stays within the kernel's limits: 2**15
+    words and 512 threads a block, 227 KB of shared memory, clusters of at
+    most 16 (8 up to 17 layers), a whole number of tiles a column, layers
+    [0, b) once each in the direction of the transform."""
+    assert fft_cuda.passes(b) == (1 if b <= 18 else 2)
+    assert fft_cuda.kernels_per_call(b, tiles=True) == fft_cuda.passes(b) + (b > 0)
+    for G in sorted({1, 2, 3, 1 << (27 - b)}):
+        if G << b > 1 << 27:
+            continue
+        for inverse in (True, False):
+            steps = fft_cuda.plan(b, G, inverse)
+            assert len(steps) == fft_cuda.passes(b)
+            covered = 0
+            for ps in steps:
+                k0, S, c, U, R, Bt = ps
+                assert Bt <= 15 and R <= (3 if S <= 17 else 4) and R <= Bt
+                assert fft_cuda.threads(ps) <= 512 and fft_cuda.smem_bytes(ps) <= 232448
+                assert U + S + c == Bt + R and c <= k0 and (k0 == 0 or U == 0) and (R == 0 or (U, k0) == (0, 0))
+                assert (G << b) % (1 << (U + S + c)) == 0
+                assert k0 == (covered if inverse else b - covered - S)
+                covered += S
+            assert covered == b
+
+
+def _small_src(rng, cols, b):
+    return rng.integers(0, P, (cols, 1 << b)).astype(np.int64)
+
+
+@pytest.mark.parametrize("b", range(11))
+def test_fft_model_holds_the_whole_column_transforms(b):
+    """The kernel's index mapping (numpy model, a block's tile shrunk to
+    2**3-2**5 words so that b = 4-9 take clusters of 2-16 blocks and b = 10
+    two passes) against interpolate_plain, evaluate_plain and the LDE to 2
+    and 8 times the size, bit for bit."""
+    x = _small_src(_rng(700 + b), 3, b)
+    table = fft_cuda._table(b, True, CPU).numpy().astype(np.int64)
+    got = _model_transform(fft_cuda.INTERPOLATE, x, b, 1, table, SMALL, pow(1 << b, P - 2, P))
+    assert np.array_equal(got, t_fft.interpolate_plain(_t(x)).numpy())
+    for blowup in (0, 1, 3):
+        if b + blowup > 11:
+            continue
+        table = fft_cuda._table(b + blowup, False, CPU).numpy().astype(np.int64)
+        got = _model_transform(fft_cuda.EVALUATE, x, b, 1 << blowup, table, SMALL)
+        want = t_fft.evaluate_plain(t_fft.extend(_t(x), b + blowup)).numpy()
+        assert np.array_equal(got, want), blowup
+
+
+@pytest.mark.parametrize("T,b,t0,t1", [(6, 1, 0, 32), (9, 3, 5, 12), (9, 5, 2, 6), (10, 7, 1, 4), (12, 8, 3, 5),
+                                       (12, 9, 0, 1), (8, 2, 0, 64), (4, 0, 0, 7)])
+def test_fft_model_holds_the_tile_evaluation(T, b, t0, t1):
+    """The tile kernel's table (fft_tile_twiddle_kernel, modelled) and the
+    pass kernel's mapping over it, on tiles of several column blocks, against
+    the plain `_eval_tiles` with `_tile_twiddles`; tiles of one point copy
+    the coefficient."""
+    rng = _rng(10 * T + b)
+    blocks = [_small_src(rng, w, b) for w in (2, 1, 3)]
+    if b == 0:
+        got = _model_transform(fft_cuda.TILES, np.concatenate(blocks), 0, t1 - t0, np.zeros(1, np.int64), SMALL)
+        assert np.array_equal(got, np.repeat(np.concatenate(blocks), t1 - t0, axis=1))
+        return
+    tiles = t_tiles.circle_tiles(T, b, t0, t1, CPU)
+    bx, by, tx, ty = (a.numpy() for a in (tiles.bx, tiles.by, tiles.tx, tiles.ty))
+    tw = _model_tile_twiddles(bx, by, tx, ty, b) if b else np.zeros(1, np.int64)
+    got = _model_transform(fft_cuda.TILES, np.concatenate(blocks), b, t1 - t0, tw, SMALL)
+    assert np.array_equal(got, t_stream.eval_tiles([_t(blk) for blk in blocks], tiles).numpy())
+
+
+@pytest.mark.parametrize("b,G", [(14, 1), (16, 2), (17, 1), (18, 1), (19, 1)])
+def test_fft_model_at_the_hopper_plan(b, G):
+    """The same model on the card's plan (fft_cuda.HOPPER: blocks of 2**13-2**14
+    words, 128-256 threads, clusters of 2-16, two passes from b = 19) for
+    one column, against the plain versions."""
+    x = _small_src(_rng(b), 1, b)
+    if G == 1:
+        table = fft_cuda._table(b, True, CPU).numpy().astype(np.int64)
+        got = _model_transform(fft_cuda.INTERPOLATE, x, b, 1, table, fft_cuda.HOPPER, pow(1 << b, P - 2, P))
+        assert np.array_equal(got, t_fft.interpolate_plain(_t(x)).numpy())
+    log = b + G.bit_length() - 1
+    table = fft_cuda._table(log, False, CPU).numpy().astype(np.int64)
+    got = _model_transform(fft_cuda.EVALUATE, x, b, G, table, fft_cuda.HOPPER)
+    assert np.array_equal(got, t_fft.evaluate_plain(t_fft.extend(_t(x), log)).numpy())
