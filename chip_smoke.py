@@ -6,10 +6,11 @@
 Phases; any failure ends the run with a non-zero exit and no result line:
   1. card: the GPU's name and power limit, as nvidia-smi prints them;
   2. build: nvcc builds the Poseidon2-16, SHA-256, composition, fold,
-     transcript, circle FFT and quotient kernels and the latency probe from
-     csrc/ (one nvcc a source, all at once, then a link; seconds); ptxas'
-     report (registers, stack frame, spills) of the transcript, check,
-     domain, fold, FFT pass and quotient kernels on lines of their own;
+     transcript, circle FFT, quotient, sampling and interaction kernels and
+     the latency probe from csrc/ (one nvcc a source, all at once, then a
+     link; seconds); ptxas' report (registers, stack frame, spills) of the
+     transcript, check, domain, fold, FFT pass, quotient, sampling and
+     interaction kernels on lines of their own;
   3. kernels vs plain: K1 and K2 against their plain PyTorch versions on
      the card and on the host CPU, bit for bit, at 2**20 states and at the
      main path's shapes, plus the Poseidon2-16 known-answer test; each of
@@ -70,6 +71,17 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      and the last layer; their times (the FFT at level 2's largest LDE and
      interpolation, the tiles at the last layer's chunk, the quotients at
      level 2's three groups) beside their bounds and the plain versions';
+     the sampling kernel (csrc/sample.cu) against its plain version, bit
+     for bit, on every block and point of a level-1, a level-2 and a
+     last-layer proof's OODS samples (one launch each, seeded random
+     coefficients at their shapes), on a constant polynomial, on a block of
+     2**27 coefficients and on every coefficient and factor at p - 1; the
+     interaction kernel (csrc/interaction.cu) against its plain version,
+     bit for bit, on the plonk and poseidon tables of levels 1 and 2 and
+     the last layer's without-Poseidon table, each plonk and
+     without-Poseidon table also with a zero denominator planted (inv(0) =
+     0); their times at level 1 (a proof's samples; both tables) beside
+     their bounds and the plain versions';
   4. main path, small_proof at B=1024: the port's verify_batch on CUDA over
      a batch with a flipped sibling hash and a flipped nonce, and again with
      a wrong public input; every named check of every slot must equal the
@@ -90,7 +102,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      digest in docs/chain_artifacts.txt (a51ea3f3...), the port's
      verify_batch on CUDA must accept it, K1 must have launched while
      proving, the composition domain kernel once an AIR table (twice), the
-     circle FFT, and the quotient kernel once a first-layer group; the
+     circle FFT, the quotient kernel once a first-layer group, the sampling
+     kernel once and the interaction kernel once an AIR table; the
      proof runs under a device-only torch.profiler trace; prints the wall
      time (traced), each stage's time, the kernels' launches, the CUDA
      kernels of the trace (eager torch's and the hand-written ones) and the
@@ -126,8 +139,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      bitcoin_proof.bin's 71da12a3..., and verify_sha256np on CUDA must
      accept it; its 22 SHA-256 trees are hashed on the card by the SHA-256
      kernel (which must launch), its one AIR table by one launch of the
-     domain kernel, its transforms by the circle FFT, its two first-layer
-     groups by two launches of the quotient kernel, under the trace;
+     domain kernel and one of the interaction kernel, its transforms by the
+     circle FFT, its OODS samples by one launch of the sampling kernel, its
+     two first-layer groups by two launches of the quotient kernel, under
+     the trace;
      prints the wall, each stage, the eager and hand-written kernels, the peak
      device memory, the kernels' launches and the trees' hashing and digest
      copy-back time;
@@ -158,9 +173,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      Sha256MerkleChannel flavour (largest domain 2**27), its "bytes32" bytes
      hashing to bitcoin_proof.bin's 71da12a3..., accepted by
      verify_sha256np on CUDA, the SHA-256 kernel launched; each streamed
-     proof launches the domain kernel once an AIR table, the circle FFT,
-     the tile kernel, and the quotient kernel once a streamed chunk of
-     2**20 points.  (b) and (c) run
+     proof launches the domain kernel and the interaction kernel once an
+     AIR table, the sampling kernel once, the circle FFT, the tile kernel,
+     and the quotient kernel once a streamed chunk of 2**20 points.  (b) and (c) run
      under a device-only torch.profiler trace, which counts every kernel
      the card ran; each prints its wall (traced), stages, the kernels'
      launches and the eager launches, and its peak device memory beside
@@ -177,7 +192,8 @@ levels 2 and 3 and phase 12's last layer; streamed_launches: phase 15's
 phase 10's launches and shapes, and the kernel's times there;
 mesh_launches: each rank's launches in phase 14 (c); launches is each
 kernel's count in its main path: phase 4's verify_batch, phase 7's level 1
-for K1, the domain kernel, the circle FFT and the quotients, phase 15 (c)
+for K1, the domain kernel, the circle FFT, the quotients, the sampling and
+the interaction kernel, phase 15 (c)
 for the SHA-256 and tile kernels; K1's
 times are at 2**20 rows, a block of a prover level, with step_* at (1024,
 16); floor_ms the latency floors of the transcript and check kernels),
@@ -224,6 +240,9 @@ GRIND_BITS = 24
 NP_BATCH = 512  # bench.py:187-188
 SHA_BATCH = 128  # bench.py:248
 SAMPLE_SLOT = 7
+SAMPLE_LEVELS = ("level1-5", "level2-1", "bitcoin_proof")  # the proofs whose OODS samples phase 3 holds
+SAMPLE_BIG_LOG = 27  # the sampling kernel's largest block: one column of 2**27 coefficients
+ZERO_ROW = 12345  # the row of a planted zero denominator in phase 3's interaction tables
 # the scan kernel is held to scan_plain at these slots (tails of a warp and
 # of a block of 128 threads) with 1-4 lanes
 SCAN_SLOTS_CHECKED = (1, 7, 127, 129, 16384)
@@ -778,6 +797,20 @@ def check_transcript_kernel(torch, dev, lat: dict) -> dict:
     return out
 
 
+def timed_kernel(torch, kind, label, run, plain, name, per_call, bound, reps) -> dict:
+    """Phase 3: a kernel's device time under torch.profiler (the kernels
+    whose name holds `name`, `per_call` of them a call), its time back to
+    back under CUDA events and its plain version's time, beside its bound."""
+    from recursive_stwo_tpu_torch.tools.kernel_times import cuda_ms, profiled_ms
+
+    ms = profiled_ms(torch, run, reps, name, per_call)
+    events_ms = cuda_ms(torch, run, reps)
+    plain_ms = cuda_ms(torch, plain, 1)
+    print(f"{kind} {label}: kernel {ms:.4f} ms device, {events_ms:.4f} ms per call back to back (bound "
+          f"{bound[0]:.4f} ms by {bound[1]}, {bound[0] / ms:.1%}), plain {plain_ms:.4f} ms")
+    return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
+
+
 def check_prover_kernels(torch, dev) -> tuple:
     """Phase 3, the provers' circle FFT and quotient kernels against their
     plain versions on the card, bit for bit.  The whole-column transforms
@@ -798,7 +831,6 @@ def check_prover_kernels(torch, dev) -> tuple:
     from recursive_stwo_tpu_torch.ops import fft_cuda, quotients_cuda
     from recursive_stwo_tpu_torch.prover import circle_fft, tiles
     from recursive_stwo_tpu_torch.tools import prover_cases as cases
-    from recursive_stwo_tpu_torch.tools.kernel_times import cuda_ms, profiled_ms
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     errs = dict(fft=0, tiles=0, quotients=0)
@@ -867,14 +899,6 @@ def check_prover_kernels(torch, dev) -> tuple:
     print("quotients: bit-exact vs plain on every first-layer group of levels 1 and 2 over its domain (and with the "
           "OODS point on the domain), and on a streamed chunk of every group of level 14 and the last layer")
 
-    def timed(kind, label, run, plain, name, per_call, bound, reps):
-        ms = profiled_ms(torch, run, reps, name, per_call)
-        events_ms = cuda_ms(torch, run, reps)
-        plain_ms = cuda_ms(torch, plain, 1)
-        print(f"{kind} {label}: kernel {ms:.4f} ms device, {events_ms:.4f} ms per call back to back (bound "
-              f"{bound[0]:.4f} ms by {bound[1]}, {bound[0] / ms:.1%}), plain {plain_ms:.4f} ms")
-        return dict(ms=ms, events_ms=events_ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
-
     out = {}
     fft = {}
     for key, case in (("", max((c for c in level_cases["level2-1"] if c.log_out),
@@ -884,7 +908,7 @@ def check_prover_kernels(torch, dev) -> tuple:
         rows, n = case.x.shape
         b = n.bit_length() - 1
         segments = 1 << ((case.log_out or b) - b)
-        r = timed("circle_fft", f"level 2's {case.label}", lambda: cases.run_fft(case),
+        r = timed_kernel(torch, "circle_fft", f"level 2's {case.label}", lambda: cases.run_fft(case),
                   lambda: cases.run_fft(case, plain=True), "fft_", fft_cuda.kernels_per_call(b),
                   fft_cuda.bound_ms(rows, b, segments, n, interpolate=not case.log_out), 10)
         fft.update({f"{key}{k}": v for k, v in r.items() if not (key and k == "bound_by")})
@@ -895,7 +919,7 @@ def check_prover_kernels(torch, dev) -> tuple:
     g = max(range(len(spec.all_log_sizes)), key=lambda g: sum(quotients_cuda.group_tables(spec, g).widths))
     case = cases.tile_case(spec, g, dev, SEED)
     rows, b, G = sum(c.shape[0] for c in case.blocks), case.tiles.b, case.tiles.bx.shape[0]
-    out["eval_tiles"] = dict(timed("eval_tiles", f"the last layer's {case.label}", lambda: cases.run_tiles(case),
+    out["eval_tiles"] = dict(timed_kernel(torch, "eval_tiles", f"the last layer's {case.label}", lambda: cases.run_tiles(case),
                                    lambda: cases.run_tiles(case, plain=True), "fft_",
                                    fft_cuda.kernels_per_call(b, tiles=True),
                                    fft_cuda.bound_ms(rows, b, G, 1 << b, tiles=True), 10),
@@ -905,7 +929,7 @@ def check_prover_kernels(torch, dev) -> tuple:
     groups = []
     for g in range(len(spec.all_log_sizes)):
         case = cases.quotient_case(spec, g, dev, SEED + g)
-        groups.append(timed("quotients", f"level 2's {case.label}", lambda: cases.run_quotients(case),
+        groups.append(timed_kernel(torch, "quotients", f"level 2's {case.label}", lambda: cases.run_quotients(case),
                             lambda: cases.run_quotients(case, plain=True), "quotient_",
                             quotients_cuda.KERNELS_PER_CALL, quotients_cuda.bound_ms(spec, g, 1 << spec.all_log_sizes[g]), 10))
         del case
@@ -917,6 +941,90 @@ def check_prover_kernels(torch, dev) -> tuple:
                             library_ms=None)
     torch.cuda.empty_cache()
     return out["circle_fft"], out["eval_tiles"], out["quotients"]
+
+
+def check_sample_interaction(torch, dev) -> tuple:
+    """Phase 3, the provers' sampling and interaction kernels against their
+    plain versions on the card, bit for bit: the OODS samples of every block
+    and point of SAMPLE_LEVELS' proofs (one launch each; seeded random
+    coefficients at their shapes, tools/prover_cases.sample_case), a
+    constant polynomial beside blocks of 2 and 2**13, one column of
+    2**SAMPLE_BIG_LOG coefficients at two points, and a block with every
+    coefficient and factor at p - 1; the interaction rows of each AIR table
+    of SAMPLE_LEVELS (tools/prover_cases.interaction_cases), the plonk and
+    without-Poseidon tables also with a zero denominator planted at
+    ZERO_ROW.  Returns ({max_abs_err, ms, events_ms, plain_ms, bound_ms,
+    bound_by, library_ms} of each) at level 1's shapes: a proof's samples
+    in one call, and its two interaction tables summed."""
+    from recursive_stwo_tpu_torch.ops import composition_cuda, interaction_cuda, sample_cuda
+    from recursive_stwo_tpu_torch.prover.prove_host import _factors_at_point
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    errs = dict(sample=0, interaction=0)
+
+    def hold(kind, label, got, want):
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"{kind} differs from its plain version on {label}")
+        errs[kind] = max(errs[kind], int((got - want).abs().max()) if got.numel() else 0)
+
+    specs = {name: cases.prover_spec(name) for name in SAMPLE_LEVELS}
+    sample_cases = {name: cases.sample_case(specs[name], dev, SEED) for name in SAMPLE_LEVELS}
+    for name, case in sample_cases.items():
+        hold("sample", f"{name}'s blocks ({case.label})", cases.run_sample(case), cases.run_sample(case, plain=True))
+
+    def point():
+        return tuple(tuple(int(v) for v in rng.integers(0, P, 4)) for _ in range(2))
+
+    def job(cols, log, points, fill=None):
+        c = torch.randint(0, P, (cols, 1 << log), generator=gen, device=dev, dtype=torch.int64)
+        if fill is not None:
+            return c.fill_(fill), [np.full((log, 4), fill, np.int64)] * points
+        return c, [_factors_at_point(log, point()) for _ in range(points)]
+
+    for label, jobs in (("a constant polynomial beside blocks of 2 and 2**13", [job(3, 0, 1), job(2, 1, 2),
+                                                                                job(5, 13, 1)]),
+                        (f"one column of 2**{SAMPLE_BIG_LOG} at two points", [job(1, SAMPLE_BIG_LOG, 2)]),
+                        ("every coefficient and factor at p - 1", [job(4, 20, 2, fill=P - 1)])):
+        case = cases.SampleCase(label, jobs)
+        hold("sample", label, cases.run_sample(case), cases.run_sample(case, plain=True))
+        del case, jobs
+    torch.cuda.empty_cache()
+    print(f"sample: bit-exact vs plain on every block and point of {SAMPLE_LEVELS}' OODS samples (one launch "
+          f"each), a constant polynomial, one column of 2**{SAMPLE_BIG_LOG} coefficients and every value at p - 1")
+
+    inter = {}
+    for name in SAMPLE_LEVELS:
+        inter[name] = cases.interaction_cases(specs[name], dev, SEED)
+        planted = cases.interaction_cases(specs[name], dev, SEED, zero_row=ZERO_ROW)
+        for case in inter[name] + [c for c in planted if "zero" in c.label]:
+            hold("interaction", f"{name}'s {case.label}", cases.run_interaction(case),
+                 cases.run_interaction(case, plain=True))
+        del planted
+    print(f"interaction: bit-exact vs plain on every AIR table of {SAMPLE_LEVELS} (and with a zero denominator "
+          f"planted at row {ZERO_ROW} of the plonk and without-Poseidon tables)")
+
+    case = sample_cases["level1-5"]
+    out_sample = dict(timed_kernel(torch, "sample", f"level 1's OODS samples ({case.label})", lambda: cases.run_sample(case),
+                            lambda: cases.run_sample(case, plain=True), "sample_", sample_cuda.KERNELS_PER_CALL,
+                            sample_cuda.bound_ms(sample_cuda.job_shapes(case.jobs)), 20),
+                      max_abs_err=errs["sample"], library_ms=None)
+    tables = []
+    for case in inter["level1-5"]:
+        air = composition_cuda.air_id(case.evaluate_fn)
+        tables.append(timed_kernel(torch, "interaction", f"level 1's {case.label}", lambda: cases.run_interaction(case),
+                            lambda: cases.run_interaction(case, plain=True), "interaction_kernel", 1,
+                            interaction_cuda.bound_ms(air, case.pre.shape[1]), 20))
+    total = {k: sum(r[k] for r in tables) for k in ("ms", "events_ms", "plain_ms", "bound_ms")}
+    print(f"interaction, level 1's {len(tables)} tables together: kernel {total['ms']:.4f} ms device (bound "
+          f"{total['bound_ms']:.4f} ms, {total['bound_ms'] / total['ms']:.1%}), plain {total['plain_ms']:.4f} ms")
+    out_inter = dict(total, bound_by=tables[0]["bound_by"], tables_ms=[r["ms"] for r in tables],
+                     tables_bound_ms=[r["bound_ms"] for r in tables], max_abs_err=errs["interaction"],
+                     library_ms=None)
+    del sample_cases, inter
+    torch.cuda.empty_cache()
+    return out_sample, out_inter
 
 
 def _failing(checks: dict, slot: int) -> list:
@@ -1127,6 +1235,8 @@ def prove_level(dev, level: int, seen: set, proof_in=None, streamed: bool = Fals
             f"{label}: expected circle_fft launches, {quotient_calls} quotient launches (one a "
             f"{'streamed chunk' if streamed else 'first-layer group'}) and eval_tiles launches "
             f"{'' if streamed else 'none '}while proving, got {got}")
+    require(got["sample"] == 1 and got["interaction"] == tables,
+            f"{label}: expected 1 sample launch and {tables} interaction launches (one an AIR table), got {got}")
     del proof
     print(f"{label}: proof equals {name}.bin byte for byte ({r['bytes']} bytes, sha256 {r['sha256']}); "
           f"the port's verifier on CUDA accepts it ({r['verify_s']:.2f} s)")
@@ -1482,11 +1592,15 @@ def main() -> int:
     with open(lib_path + ".log") as f:
         print(f.read().strip())
     for name in ("transcript_kernel", "composition_check_kernel", "composition_domain_kernel", "fold_kernel",
-                 "fft_pass_kernel", "fft_tile_twiddle_kernel", "quotient_coeffs_kernel", "quotient_points_kernel"):
+                 "fft_pass_kernel", "fft_tile_twiddle_kernel", "quotient_coeffs_kernel", "quotient_points_kernel",
+                 "sample_kernel", "sample_finish_kernel", "interaction_kernel"):
         for r in build.ptxas_report(name):
             print(f"ptxas {name} ({r['kernel']}): {r['registers']} registers, {r['smem_bytes']} bytes static smem, "
                   f"{r['stack_bytes']} bytes stack frame, "
                   f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads")
+    for name in ("composition_domain_kernel", "interaction_kernel", "sample_kernel"):
+        for r in build.sass_instructions(name):
+            print(f"sass {name} ({r['kernel']}): {r['instructions']} instructions")
     phase_done("1-2 (card, build)")
 
     from recursive_stwo_tpu_torch.tools.scan_cases import fixture_programs
@@ -1512,6 +1626,7 @@ def main() -> int:
     kernels["fold_phase"] = check_fold_kernel(torch, dev)
     kernels["transcript"] = check_transcript_kernel(torch, dev, lat)
     kernels["circle_fft"], kernels["eval_tiles"], kernels["quotients"] = check_prover_kernels(torch, dev)
+    kernels["sample"], kernels["interaction"] = check_sample_interaction(torch, dev)
     torch.cuda.synchronize()
     phase_done("3 (kernels vs plain)")
 
@@ -1586,6 +1701,10 @@ def main() -> int:
         "eval_tiles": "recursive_stwo_tpu/prover/stream.py:164,176 (_tile_twiddles, _eval_tiles)",
         "quotients": "recursive_stwo_tpu/prover/device_prove.py:543 (_stage_quotients_jit) and "
                      "recursive_stwo_tpu/prover/stream.py:585 (_quot_chunk_jit)",
+        "sample": "recursive_stwo_tpu/prover/device.py:244 (_sample_jit), called at "
+                  "recursive_stwo_tpu/prover/device_prove.py:789-804",
+        "interaction": "recursive_stwo_tpu/prover/device_prove.py:342 (_interaction_traced, _InteractionEval :277), "
+                       "jitted by _interaction_cols_jit :373 and _stage_interaction_jit :390",
     }
     sources = {k: "recursive_stwo_tpu_torch/csrc/poseidon2.cu" for k in replaces}
     sources["sha256_level"] = "recursive_stwo_tpu_torch/csrc/sha256.cu"
@@ -1594,14 +1713,17 @@ def main() -> int:
     sources["transcript"] = "recursive_stwo_tpu_torch/csrc/transcript.cu"
     sources["circle_fft"] = sources["eval_tiles"] = "recursive_stwo_tpu_torch/csrc/circle_fft.cu"
     sources["quotients"] = "recursive_stwo_tpu_torch/csrc/quotients.cu"
+    sources["sample"] = "recursive_stwo_tpu_torch/csrc/sample.cu"
+    sources["interaction"] = "recursive_stwo_tpu_torch/csrc/interaction.cu"
     # the main path of each: phase 4's verify_batch for the transcript, K2,
     # scan, check and fold kernels, phase 15 (c)'s streamed last layer for
     # the SHA-256 and tile kernels, phase 7's level-1 proof for K1, the
-    # domain kernel, the circle FFT and the quotients
+    # domain kernel, the circle FFT, the quotients, the sampling and the
+    # interaction kernel
     main_launches = {k: launches[FIXTURES[0]][k] for k in replaces}
     for k in ("sha256_level", "eval_tiles"):
         main_launches[k] = streamed[LAST_LAYER][k]
-    for k in ("permute_rows", "composition_domain", "circle_fft", "quotients"):
+    for k in ("permute_rows", "composition_domain", "circle_fft", "quotients", "sample", "interaction"):
         main_launches[k] = levels[1]["prove_launches"][k]
     report = [
         dict(name=k, route="cuda", source=sources[k],

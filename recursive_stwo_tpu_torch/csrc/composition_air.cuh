@@ -22,10 +22,16 @@
 //
 // A source supplies a component's masks (ops below): the verifier's reads one
 // proof's samples at the OODS point through an index table, the prover's one
-// point of the evaluation domain from LDE rows.  A sink takes each
-// constraint: `PowerSum` (the domain kernel) weights it by the launch's
-// power table and sums; `Capture` (the check kernel) keeps it, for the check
-// weights every constraint by its power of rc on the lane that computes it.
+// point of the evaluation domain from LDE rows, or one row of the base trace.
+// A sink takes each constraint: `PowerSum` (the domain kernel) weights it by
+// the launch's power table and sums; `Capture` (the check kernel) keeps it,
+// for the check weights every constraint by its power of rc on the lane that
+// computes it.  A sink whose `kGenerate` is true (interaction.cu's, the
+// generation mode of the JAX package's `_InteractionEval`) takes each logup
+// batch's fraction p / q instead, and no constraint: `Component::emit` does
+// nothing for it, so the constraints' arithmetic is dead code the compiler
+// drops, and the poseidon AIR skips its rounds outright.  The other sinks'
+// code is unchanged by the mode (`if constexpr`).
 //
 // kPlonkConstraints, kPoseidonConstraints and kNpConstraints below list each
 // AIR's constraints in emission order as (kind, count) blocks: the order the
@@ -143,6 +149,7 @@ __host__ __device__ constexpr LaneBlock lane_block(const LaneBlock (&t)[K], int 
 // overflow 64 bits.
 template <class Pw, int N>
 struct PowerSum {
+  static constexpr bool kGenerate = false;
   const Pw& pw;
   uint64_t s0 = 0, s1 = 0, s2 = 0, s3 = 0;
   int i = 0;
@@ -187,6 +194,7 @@ struct PowerSum {
 // The first K constraints emitted, unscaled (the check kernel).
 template <int K>
 struct Capture {
+  static constexpr bool kGenerate = false;
   Q v[K];
   int n = 0;
 
@@ -209,6 +217,9 @@ __host__ __device__ constexpr int interaction_reads(int n, int bs) { return 4 * 
 // batch's constraint, each batch but the last against one interaction row
 // (the running column sums), the last against its previous and current row.
 // The AIRs emit no constraint between relations, so the order is finalize's.
+// In generation mode (Sink::kGenerate) a batch's end hands the sink its
+// fraction instead, `h.batch(b, p, q)`, and reads no interaction
+// mask.
 template <class Src, class Sink, int N, int BS>
 struct Component {
   static constexpr int kBatches = (N + BS - 1) / BS;
@@ -222,7 +233,9 @@ struct Component {
       : src(s), h(hh), z(z_), alpha(alpha_), alpha2(q_mul(alpha_, alpha_)), shift(shift_), prev_cum(q_zero()),
         n(0) {}
 
-  __device__ __forceinline__ void emit(Q v) { h.emit(src, v); }
+  __device__ __forceinline__ void emit(Q v) {
+    if constexpr (!Sink::kGenerate) h.emit(src, v);
+  }
 
   // add_to_relation: values[0] + alpha values[1] (+ alpha^2 values[2]) - z
   __device__ __forceinline__ void relation(Q mult, Q v0, Q v1) {
@@ -244,7 +257,9 @@ struct Component {
     ++n;
     if (n % BS != 0 && n != N) return;
     const int b = (n - 1) / BS;
-    if (b < kBatches - 1) {
+    if constexpr (Sink::kGenerate) {
+      h.batch(b, p, q);
+    } else if (b < kBatches - 1) {
       const Q cur = src.ext(b);
       const Q diff = q_sub(cur, prev_cum);
       prev_cum = cur;
@@ -454,7 +469,7 @@ __device__ __forceinline__ void poseidon_logup(const Src& s, Ev& ev) {
 template <class Src, class Sink>
 __device__ __forceinline__ void evaluate_poseidon(const Src& s, Sink& h, Q z, Q alpha, Q shift) {
   Component<Src, Sink, kPoseidonFracs, kPoseidonBatch> ev(s, h, z, alpha, shift);
-  poseidon_rounds(s, ev);
+  if constexpr (!Sink::kGenerate) poseidon_rounds(s, ev);
   poseidon_logup(s, ev);
 }
 

@@ -62,6 +62,23 @@ def ptxas_report(name: str) -> list:
             for k, st, ss, sl, r, rest in entries if name in k]
 
 
+def sass_instructions(name: str) -> list:
+    """The SASS instruction count of every compiled kernel whose mangled
+    name holds `name`, from cuobjdump (beside nvcc) on the built library:
+    [{"kernel", "instructions"}]."""
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", library_path()], capture_output=True, text=True, check=True).stdout
+    counts, kernel = {}, None
+    for line in out.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            kernel = head.group(1)
+            counts[kernel] = 0
+        elif kernel is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            counts[kernel] += 1
+    return [dict(kernel=k, instructions=n) for k, n in counts.items() if name in k]
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -139,6 +156,10 @@ def load() -> ctypes.CDLL:
             lib.circle_fft.restype = ctypes.c_int
             lib.quotients_group.argtypes = [i64p, i64p, vp]
             lib.quotients_group.restype = ctypes.c_int
+            lib.sample_columns.argtypes = [i64p, i64, i64p, i64, vp, i64, vp]
+            lib.sample_columns.restype = ctypes.c_int
+            lib.interaction_columns.argtypes = [i32, vp, i64, vp, i64, vp, i64, i64, i64p, vp]
+            lib.interaction_columns.restype = ctypes.c_int
             lib.latency_probe.argtypes = [i32, i64, vp, vp, vp]
             lib.latency_probe.restype = ctypes.c_int
             _lib = lib

@@ -535,6 +535,17 @@ def _poseidon(c: _Component):
         state = o.internal16([m] + state[1:])
     for v in state:
         c.emit(o.q_mul(is_partial, o.q_sub(m, v)))
+    _poseidon_logup(c, is_not_first, is_not_last)
+
+
+def _poseidon_logup(c: _Component, is_not_first=None, is_not_last=None):
+    """The poseidon AIR's relations (composition_air.cuh `poseidon_logup`);
+    1 - is_first and 1 - is_last computed here unless the rounds have (the
+    compiler computes each once)."""
+    o, m = c.o, c.mask
+    is_first = is_last = m
+    if is_not_first is None:
+        is_not_first, is_not_last = o.q_sub(_M, is_first), o.q_sub(_M, is_last)
     in_left = o.q_add(m, m)
     in_right = o.q_add(in_left, _M)
     out_left = o.q_add(in_right, _M)

@@ -17,7 +17,7 @@ Each takes CUDA int64 tensors of canonical residues and raises on anything
 else; the plain versions are prover/circle_fft.py `interpolate_plain` /
 `evaluate_plain` and prover/stream.py `_eval_tiles`.  A transform of b
 layers is one pass over device memory up to b = 18 (a block's tile of up to
-2**15 words, a cluster of up to eight blocks) and two above (`plan`,
+2**14 words, a cluster of up to 16 blocks) and two above (`plan`,
 `passes`); a tile evaluation launches a twiddle kernel first.  Each runs on
 the current stream of its tensors' device, without synchronising; the
 output is a new tensor and the input is only read.
@@ -87,7 +87,8 @@ def _table(log_size: int, inverse: bool, device: torch.device) -> torch.Tensor:
 
 class Limits(NamedTuple):
     block_min: int = 13  # a block's tile where a pass's layers fit in it: 2**13 words, 128 threads
-    block_max: int = 14  # at most 2**14 words (72 KB of dynamic shared memory, 256 threads): two blocks an SM
+    block_max: int = 14  # at most 2**14 words (72 KB of dynamic shared memory, 256 threads); fft_pass_kernel
+    # is held to three blocks an SM (csrc/circle_fft.cu, __launch_bounds__)
     cluster_pref: int = 3  # clusters of up to 8 blocks (the portable size) while a block's tile can grow
     cluster_max: int = 4  # then up to 16
     split: int = 17  # past one pass's reach: the contiguous pass's layers

@@ -7,9 +7,12 @@ the JAX package's fused-stage programs and its per-table split for large
 domains (`RSTPU_DEVICE_BIG_LOG`, :668-675) exist to fit a TPU's HBM or XLA's
 fusion and have no counterpart here.  Every Poseidon2 permutation (Merkle
 commits, the PoW grind at 22 bits or more) runs on kernel K1 on CUDA, every
-interpolation and LDE on the circle FFT kernel (prover/circle_fft.py) and
-each first-layer group's quotients on one call of the quotient kernel
-(prover/quotients.py), its columns read in place from the trees.
+interpolation and LDE on the circle FFT kernel (prover/circle_fft.py),
+each table's interaction columns on one launch of the interaction kernel
+(prover/interaction.py), the OODS samples of every block and point on one
+launch of the sampling kernel (prover/sample.py) and each first-layer
+group's quotients on one call of the quotient kernel (prover/quotients.py),
+its columns read in place from the trees.
 
 The channel and the tree class are parameters, as they are in the JAX
 package's host flow (prove.py:164-208, `_fri_tail(tree_cls=)`): the
@@ -28,15 +31,14 @@ from ..core import circle_host as ccircle
 from ..proof.containers import PcsConfig, PlonkWithPoseidonProof
 from ..verifier import composition as vcomp
 from ..verifier.spec import PLONK_LOG_EXPAND, POSEIDON_LOG_EXPAND, VerifierSpec
-from . import air, circle_fft
+from . import air, circle_fft, sample
 from .arrays import to_device, trace_to_torch
 from .commit import merge_by_log
 from .composition import composition_stage, qm31_scalar
 from .fri import _mix_felts, fri_tail
 from .interaction import interaction_columns
-from .prove_host import _add_const, _assemble_samples, _factors_at_point, _oods_point
+from .prove_host import _add_const, _assemble_samples, _oods_point
 from .quotients import quotients_stage
-from .sample import sample
 
 
 def _domain_order(rows: torch.Tensor, log_size: int) -> torch.Tensor:
@@ -126,7 +128,7 @@ def prove_device(trace: dict, config: PcsConfig, progress, device, channel, tree
 
     oods = _oods_point(channel.draw_felt())
 
-    # ---- OODS samples (device sums, host factors) ----
+    # ---- OODS samples (device sums, host factors), one sampling call ----
     col_coeffs = {
         (0, "p"): coeffs["p_pre"],
         (0, "q"): coeffs["q_pre"],
@@ -137,14 +139,7 @@ def prove_device(trace: dict, config: PcsConfig, progress, device, channel, tree
         (3, "c"): split_coeffs,
     }
     shifted = {log: _add_const(oods, ccircle.point_neg(ccircle.CanonicCoset(log).step())) for log in (lp, lq)}
-    samples_at = {}
-    for key, cfs in col_coeffs.items():
-        t, tag = key
-        deg_log = cfs.shape[1].bit_length() - 1
-        samples_at[(key, 0)] = sample(cfs, _factors_at_point(deg_log, oods))
-        if t == 2:
-            point = shifted[lp if tag == "p" else lq]
-            samples_at[(key, -1)] = sample(cfs, _factors_at_point(deg_log, point))
+    samples_at = sample.samples_at(col_coeffs, oods, {(2, "p"): shifted[lp], (2, "q"): shifted[lq]})
     del coeffs, col_coeffs, c_int_p, c_int_q, split_coeffs
     sampled_values = _assemble_samples(spec, lp, lq, bound, samples_at)
     plog("OODS samples computed")

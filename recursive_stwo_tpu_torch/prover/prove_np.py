@@ -9,7 +9,8 @@ map onto the stages the PlonkWithPoseidon prover already runs on tensors:
 - interaction: `interaction.interaction_columns` with the verifier's
   `evaluate_plonk_np`;
 - composition (`_composition_evals_np`): `composition_stage` with one table;
-- samples: `sample`, laid out by `_assemble_samples_np` (copied);
+- samples: `sample.samples_at` (one sampling call), laid out by
+  `_assemble_samples_np` (copied);
 - quotients (`_group_quotients_np`): `quotients_stage` on
   `NoPoseidonVerifierSpec`'s groups (on CUDA the quotient kernel, once a
   group; the transforms on the circle FFT kernel);
@@ -34,16 +35,15 @@ from ..proof.containers import PcsConfig, PlonkWithoutPoseidonProof
 from ..verifier import composition as vcomp
 from ..verifier.arrays import require_device
 from ..verifier.spec import NoPoseidonVerifierSpec
-from . import air, circle_fft
+from . import air, circle_fft, sample
 from .arrays import to_device
 from .composition import composition_stage, qm31_scalar
 from .device_prove import _domain_order
 from .fri import _mix_felts, fri_tail
 from .interaction import interaction_columns
 from .prove import flavour
-from .prove_host import _add_const, _factors_at_point, _oods_point
+from .prove_host import _add_const, _oods_point
 from .quotients import quotients_stage
-from .sample import sample
 
 
 def _assemble_samples_np(spec, bound, samples_at):
@@ -127,12 +127,7 @@ def prove_np(
 
     oods = _oods_point(channel.draw_felt())
     shifted = _add_const(oods, ccircle.point_neg(ccircle.CanonicCoset(L).step()))
-    samples_at = {}
-    for t, cfs in enumerate((c_pre, c_tr, c_int, split_coeffs)):
-        deg_log = cfs.shape[1].bit_length() - 1
-        samples_at[(t, 0)] = sample(cfs, _factors_at_point(deg_log, oods))
-        if t == 2:
-            samples_at[(t, -1)] = sample(cfs, _factors_at_point(deg_log, shifted))
+    samples_at = sample.samples_at(dict(enumerate((c_pre, c_tr, c_int, split_coeffs))), oods, {2: shifted})
     del c_pre, c_tr, c_int, split_coeffs
     sampled_values = _assemble_samples_np(spec, bound, samples_at)
     plog("OODS samples computed")

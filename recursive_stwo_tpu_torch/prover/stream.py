@@ -54,7 +54,7 @@ from ..verifier import composition as vcomp
 from ..verifier import sha256_merkle
 from ..verifier.arrays import require_device
 from ..verifier.spec import PLONK_LOG_EXPAND, POSEIDON_LOG_EXPAND, NoPoseidonVerifierSpec, VerifierSpec
-from . import air, circle_fft, commit
+from . import air, circle_fft, commit, sample
 from .arrays import to_device, to_numpy, trace_to_torch
 from .commit import DeviceTree, Sha256DeviceTree
 from .commit_host import CommittedTree, _hash_node_level
@@ -63,10 +63,9 @@ from .device_prove import _domain_order
 from .fri import _mix_felts, fri_tail
 from .interaction import interaction_columns
 from .prove import flavour
-from .prove_host import _add_const, _assemble_samples, _factors_at_point, _oods_point
+from .prove_host import _add_const, _assemble_samples, _oods_point
 from .prove_np import _assemble_samples_np
 from .quotients import answer_inputs, group_answers
-from .sample import sample
 from .tiles import TilePoints, circle_tiles
 
 # the JAX package's defaults (stream.py:64-70): chunks of 2**20 leaf rows,
@@ -345,19 +344,6 @@ def _streamed_tail(spec, config, channel, trees, group_evals, sampled_values, pl
     )
 
 
-def _samples_at(col_coeffs: dict, oods, shifted: dict) -> dict:
-    """OODS samples of each coefficient block at the OODS point, keyed
-    (key, 0), and of the interaction blocks (the keys of `shifted`) at
-    their point shifted back one step, keyed (key, -1)."""
-    out = {}
-    for key, cfs in col_coeffs.items():
-        deg_log = cfs.shape[1].bit_length() - 1
-        out[(key, 0)] = sample(cfs, _factors_at_point(deg_log, oods))
-        if key in shifted:
-            out[(key, -1)] = sample(cfs, _factors_at_point(deg_log, shifted[key]))
-    return out
-
-
 def _blocks_by_log(blocks, blowup: int) -> Dict[int, List[torch.Tensor]]:
     """Coefficient blocks in tree-major order, keyed by their LDE log."""
     out: Dict[int, List[torch.Tensor]] = {}
@@ -472,7 +458,7 @@ def prove_streamed(
     order = ((0, "p", "p_pre"), (0, "q", "q_pre"), (1, "p", "p_tr"), (1, "q", "q_tr"),
              (2, "p", "p_int"), (2, "q", "q_int"), (3, "c", "split"))
     shifted = {log: _add_const(oods, ccircle.point_neg(ccircle.CanonicCoset(log).step())) for log in (lp, lq)}
-    samples_at = _samples_at(
+    samples_at = sample.samples_at(
         {(t, tag): c[name] for t, tag, name in order}, oods,
         {(2, "p"): shifted[lp], (2, "q"): shifted[lq]},
     )
@@ -570,7 +556,7 @@ def prove_np_streamed(
     oods = _oods_point(channel.draw_felt())
     shifted = _add_const(oods, ccircle.point_neg(ccircle.CanonicCoset(L).step()))
     blocks = (c_pre, c_tr, c_int, split)
-    samples_at = _samples_at(dict(enumerate(blocks)), oods, {2: shifted})
+    samples_at = sample.samples_at(dict(enumerate(blocks)), oods, {2: shifted})
     sampled_values = _assemble_samples_np(spec, bound, samples_at)
     plog("OODS samples computed")
     _mix_felts(channel, [s for tree_ in sampled_values for col in tree_ for s in col])

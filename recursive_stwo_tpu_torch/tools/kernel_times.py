@@ -38,14 +38,20 @@ times, at the shapes the port calls them with:
   The quotient kernel (quotients), where the checkout has it: every
      first-layer group of levels 1 and 2 over its domain, and a streamed
      chunk of each group of level 14 and the last layer.
-  Both beside the plain version's time on the card and their bounds, on
-  seeded random columns.
+  The sampling kernel (sample), where the checkout has it: every block and
+     point a proof samples, in one launch, at the shapes of chain levels 1
+     and 2 and of the last layer.
+  The interaction kernel (interaction), where the checkout has it: each AIR
+     table of chain levels 1 and 2 and the last layer's without-Poseidon
+     table, one launch a table.
+  All beside the plain version's time on the card and their bounds, on
+  seeded random columns (tools/prover_cases.py).
 `--kernels poseidon`, `--kernels composition`, `--kernels fold`,
-`--kernels transcript`, `--kernels fft` or `--kernels quotients` times only
-those.
+`--kernels transcript`, `--kernels fft`, `--kernels quotients`,
+`--kernels sample` or `--kernels interaction` times only those.
 Before timing, every kernel output is held to the plain version bit for bit.
-Prints ptxas' report of the transcript, check, domain, fold, FFT pass and
-quotient kernels first.
+Prints ptxas' report of the transcript, check, domain, fold, FFT pass,
+quotient, sampling and interaction kernels first.
 Two times per shape: CUDA events around `reps` back-to-back calls (what a
 caller's loop pays, the wrapper's host cost included once it exceeds the
 kernel) and the kernels' mean device duration under torch.profiler.  Prints
@@ -418,6 +424,61 @@ def quotient_lines(torch, dev) -> list:
     return lines
 
 
+# the shapes of these committed chain proofs (levels 1 and 2 sample and
+# generate the same shapes; the last layer is the without-Poseidon AIR)
+PROVER_LEVELS = ("level1-5", "level2-1", "bitcoin_proof")
+
+
+def sample_lines(torch, dev) -> list:
+    """One dict a proof's OODS samples (every block and point in one
+    launch) at PROVER_LEVELS' shapes, held bit for bit to the plain version
+    first: events and device ms (both kernels of a call summed), the plain
+    version's ms, the bound."""
+    from recursive_stwo_tpu_torch.ops import sample_cuda
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    lines = []
+    for name in PROVER_LEVELS:
+        case = cases.sample_case(cases.prover_spec(name), dev, SEED)
+        if not torch.equal(cases.run_sample(case), cases.run_sample(case, plain=True)):
+            raise RuntimeError(f"sample differs from the plain version on {name}")
+        shapes = sample_cuda.job_shapes(case.jobs)
+        bound, by = sample_cuda.bound_ms(shapes)
+        lines.append(dict(kernel="sample", shape=f"{name} {case.label}", jobs=shapes,
+                          bytes=sample_cuda.sample_bytes(shapes), int_ops=sample_cuda.sample_ops(shapes),
+                          events_ms=cuda_ms(torch, lambda: cases.run_sample(case), 20),
+                          device_ms=profiled_ms(torch, lambda: cases.run_sample(case), 20, "sample_",
+                                                sample_cuda.KERNELS_PER_CALL),
+                          plain_ms=cuda_ms(torch, lambda: cases.run_sample(case, plain=True), 1),
+                          bound_ms=bound, bound_by=by))
+        del case
+    return lines
+
+
+def interaction_lines(torch, dev) -> list:
+    """One dict an AIR table of PROVER_LEVELS, held bit for bit to the plain
+    version first: events and device ms, the plain version's ms, the bound."""
+    from recursive_stwo_tpu_torch.ops import composition_cuda, interaction_cuda
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    lines = []
+    for name in PROVER_LEVELS:
+        for case in cases.interaction_cases(cases.prover_spec(name), dev, SEED):
+            if not torch.equal(cases.run_interaction(case), cases.run_interaction(case, plain=True)):
+                raise RuntimeError(f"interaction differs from the plain version on {name}'s {case.label}")
+            air = composition_cuda.air_id(case.evaluate_fn)
+            n = case.pre.shape[1]
+            bound, by = interaction_cuda.bound_ms(air, n)
+            lines.append(dict(kernel="interaction", shape=f"{name} {case.label}", rows=n,
+                              bytes=n * interaction_cuda.row_bytes(air), int_ops=n * interaction_cuda.row_ops(air),
+                              events_ms=cuda_ms(torch, lambda: cases.run_interaction(case), 20),
+                              device_ms=profiled_ms(torch, lambda: cases.run_interaction(case), 20,
+                                                    "interaction_kernel"),
+                              plain_ms=cuda_ms(torch, lambda: cases.run_interaction(case, plain=True), 1),
+                              bound_ms=bound, bound_by=by))
+    return lines
+
+
 def _latencies(dev):
     """The latency probe's cycles a dependent step (and the clock), where
     the checkout has the probe; else None."""
@@ -434,8 +495,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
     ap.add_argument("--label", default=None, help="name printed with every line (default: the root)")
-    ap.add_argument("--kernels", choices=("all", "poseidon", "composition", "fold", "transcript", "fft", "quotients"),
-                    default="all")
+    ap.add_argument("--kernels", choices=("all", "poseidon", "composition", "fold", "transcript", "fft", "quotients",
+                                          "sample", "interaction"), default="all")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -456,9 +517,14 @@ def main() -> int:
     print(f"[{label}] library {os.path.basename(build.library_path())} from {lib._name}")
     if hasattr(build, "ptxas_report"):
         for name in ("transcript_kernel", "composition_check_kernel", "composition_domain_kernel", "fold_kernel",
-                     "fft_pass_kernel", "fft_tile_twiddle_kernel", "quotient_coeffs_kernel", "quotient_points_kernel"):
+                     "fft_pass_kernel", "fft_tile_twiddle_kernel", "quotient_coeffs_kernel", "quotient_points_kernel",
+                     "sample_kernel", "sample_finish_kernel", "interaction_kernel"):
             for r in build.ptxas_report(name):
                 print(json.dumps(dict(label=label, ptxas=name, **r)), flush=True)
+    if hasattr(build, "sass_instructions"):
+        for name in ("composition_domain_kernel", "interaction_kernel", "sample_kernel"):
+            for r in build.sass_instructions(name):
+                print(json.dumps(dict(label=label, sass=name, **r)), flush=True)
 
     dev = torch.device("cuda")
 
@@ -469,7 +535,9 @@ def main() -> int:
                                  ("fold", "fold_cuda.py", fold_lines),
                                  ("transcript", "transcript_cuda.py", transcript_lines),
                                  ("fft", "fft_cuda.py", fft_lines),
-                                 ("quotients", "quotients_cuda.py", quotient_lines)):
+                                 ("quotients", "quotients_cuda.py", quotient_lines),
+                                 ("sample", "sample_cuda.py", sample_lines),
+                                 ("interaction", "interaction_cuda.py", interaction_lines)):
         if args.kernels in ("all", kind) and has(wrapper):
             for line in lines(torch, dev):
                 line.update(label=label, share_of_bound=line["bound_ms"] / line["device_ms"])

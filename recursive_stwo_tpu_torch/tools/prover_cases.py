@@ -1,5 +1,6 @@
-"""Cases that hold the provers' circle FFT and quotient kernels to their plain
-versions at the chain's shapes, on seeded random canonical inputs.
+"""Cases that hold the provers' circle FFT, quotient, sampling and interaction
+kernels to their plain versions at the chain's shapes, on seeded random
+canonical inputs.
 
 The shapes are those of a committed chain proof (examples/data/<name>.pkl):
 its spec gives every tree's column count at every LDE log size, so
@@ -7,7 +8,10 @@ its spec gives every tree's column count at every LDE log size, so
 interpolation that proof's prover ran, `tile_cases` a streamed chunk of
 each first-layer group (the group's coefficient blocks, one a tree, on the
 tiles of chunk 0) and `quotient_case` a group's columns over its whole domain
-(resident) or over a chunk (streamed, tile points).  The values are random:
+(resident) or over a chunk (streamed, tile points), `sample_case` every
+coefficient block a proof samples and its points (one launch of the sampling
+kernel), and `interaction_cases` each AIR table's base-trace rows (one launch
+of the interaction kernel a table).  The values are random:
 the kernels compute field operations whatever the values, and the plain
 versions are what they are held to.  Used by chip_smoke.py phase 3,
 tools/kernel_times.py and tests/test_torch_cuda.py.
@@ -21,9 +25,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core import circle_host as ccircle
+from ..core.qm31 import QM31
+from ..cs import scalar
 from ..models import flagship
-from ..prover import circle_fft, quotients, stream
+from ..ops import composition_cuda
+from ..prover import circle_fft, interaction, quotients, sample, stream
+from ..prover.prove_host import _add_const, _factors_at_point, _oods_point
 from ..prover.tiles import circle_tiles
+from ..verifier import composition as vcomp
 from ..verifier.spec import NoPoseidonVerifierSpec, VerifierSpec
 
 P = 2**31 - 1
@@ -162,6 +172,96 @@ def run_quotients(case: QuotientCase, plain: bool = False) -> torch.Tensor:
         return quotients.group_answers_plain(case.spec, case.g, case.inputs, case.blocks, *points)
     i = case.inputs
     return quotients_cuda.quotients(case.spec, case.g, i.samples, i.oods, i.rc, case.blocks, case.points)
+
+
+class SampleCase(NamedTuple):
+    label: str
+    jobs: list  # (coefficients (C, 2**n), [factors (n, 4), ...]) of each block
+
+
+def sample_case(spec, device, seed: int = 0) -> SampleCase:
+    """Every block a proof of `spec` samples, as its prover hands them to
+    `sample.samples_at`: each component's preprocessed, trace and
+    interaction coefficients (the interaction blocks at the OODS point and
+    at it shifted back one step of their trace domain) and the composition's
+    8 split columns, random, at a random OODS point."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    oods = _oods_point(tuple(int(v) for v in rng.integers(0, P, 4)))
+    if isinstance(spec, NoPoseidonVerifierSpec):
+        logs = {"": (spec.log_size, 8, 12)}
+    else:
+        logs = {"plonk ": (spec.log_size_plonk, 10, 12), "poseidon ": (spec.log_size_poseidon, 40, 48)}
+    jobs, labels = [], []
+    for t in range(3):
+        for name, (log, n_pre, n_tr) in logs.items():
+            width = (n_pre, n_tr, 8)[t]
+            points = [oods]
+            if t == 2:
+                points.append(_add_const(oods, ccircle.point_neg(ccircle.CanonicCoset(log).step())))
+            jobs.append((_rand(gen, (width, 1 << log), device), [_factors_at_point(log, p) for p in points]))
+            labels.append(f"{name}tree {t} ({width}, 2**{log}) at {len(points)} point{'s' * (len(points) > 1)}")
+    log = spec.composition_log_degree_bound - 1
+    jobs.append((_rand(gen, (8, 1 << log), device), [_factors_at_point(log, oods)]))
+    labels.append(f"composition (8, 2**{log})")
+    return SampleCase("; ".join(labels), jobs)
+
+
+def run_sample(case: SampleCase, plain: bool = False) -> torch.Tensor:
+    """The case's samples as the kernel lays them out, (rows, 4) int64: each
+    job's columns at its first point, then at its second."""
+    from ..ops import sample_cuda
+
+    if not plain:
+        return sample_cuda.sample_columns(case.jobs)[0]
+    dev = case.jobs[0][0].device
+    return torch.cat([torch.from_numpy(sample.sample(c, f).astype(np.int64)).to(dev)
+                      for c, points in case.jobs for f in points])
+
+
+class InteractionCase(NamedTuple):
+    label: str
+    evaluate_fn: object
+    pre: torch.Tensor
+    tr: torch.Tensor
+    lookup: tuple  # (z, alpha), QM31s of python ints
+
+
+def interaction_cases(spec, device, seed: int = 0, zero_row=None) -> list:
+    """Each AIR table of a proof of `spec`, random rows at its log size,
+    random z and alpha; `zero_row` plants a zero denominator there in the
+    plonk or without-Poseidon table: z is its first relation's a_val +
+    alpha a_wire, so its first batch's q is 0 (inv(0) = 0)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    if isinstance(spec, NoPoseidonVerifierSpec):
+        tables = (("without-Poseidon", vcomp.evaluate_plonk_np, spec.log_size),)
+    else:
+        tables = (("plonk", vcomp.evaluate_plonk, spec.log_size_plonk),
+                  ("poseidon", vcomp.evaluate_poseidon, spec.log_size_poseidon))
+    out = []
+    for name, fn, log in tables:
+        n_pre, n_tr, _, _ = composition_cuda.AIR_SHAPES[composition_cuda.air_id(fn)]
+        pre, tr = _rand(gen, (n_pre, 1 << log), device), _rand(gen, (n_tr, 1 << log), device)
+        z, alpha = (tuple(int(v) for v in rng.integers(0, P, 4)) for _ in range(2))
+        label = f"{name} table ({n_pre} + {n_tr} rows x 2**{log})"
+        if zero_row is not None and fn is not vcomp.evaluate_poseidon:
+            a_val = tuple(int(v) for v in tr[:4, zero_row].tolist())
+            z = scalar.q_add(a_val, scalar.q_mul_m31(alpha, int(pre[0, zero_row])))
+            label += f", a zero denominator at row {zero_row}"
+        out.append(InteractionCase(label, fn, pre, tr, (QM31(*z), QM31(*alpha))))
+    return out
+
+
+def run_interaction(case: InteractionCase, plain: bool = False) -> torch.Tensor:
+    """The case's batch rows (before the last column is closed): the kernel
+    or its plain version."""
+    from ..ops import interaction_cuda
+
+    if plain:
+        return interaction.interaction_rows_plain(case.pre, case.tr, case.lookup, case.evaluate_fn)
+    return interaction_cuda.interaction_rows(composition_cuda.air_id(case.evaluate_fn), case.pre, case.tr,
+                                             case.lookup)
 
 
 def n_chunks(spec, chunk_log: int = STREAM_CHUNK_LOG) -> int:

@@ -20,10 +20,18 @@ ones are warm.  The first-layer quotients are the stage that ends with "FRI
 first-layer quotients computed"; the transforms run inside the tree stages.
 `--profile` adds one more proof under `torch.profiler` and prints its device
 time: all kernels, K1 (`permute_rows`), the circle FFT's passes and tile
-twiddles (`fft_`), the quotient kernels (`quotient_`), the `% p`
+twiddles (`fft_`), the quotient kernels (`quotient_`), the sampling kernels
+(`sample_`), the interaction kernel (`interaction_kernel`), the `% p`
 (`remainder`) kernels, copies, and the launch counts, the hand-written
-kernels' (csrc/) apart from eager torch's.  It needs a GPU; an
-out-of-memory error ends it with that error.
+kernels' (csrc/) apart from eager torch's; and `by_stage`, the same proof's
+CUDA kernels by prover stage, hand-written and eager apart, with their
+device time.  A stage is what runs between two `progress` messages (named
+by the message that ends it); each runs inside a `record_function` range,
+and a kernel belongs to the range its start on the card falls in (the
+trace puts the card's times on the host's clock): a kernel starts after its
+stage's range opens, and the range closes after a synchronize(), so no
+kernel runs past its stage.  It needs a GPU; an out-of-memory error
+ends it with that error.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import os
 import time
 
 import torch
+from torch.profiler import record_function
 
 from ..cs.system import PlonkWithPoseidonCS
 from ..gadgets.fields import QM31Var
@@ -79,7 +88,7 @@ def _device_time(prof) -> dict:
     CPU op's own device total would count its kernels a second time)."""
     from torch.autograd import DeviceType
 
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.key.startswith(STAGE)]
 
     def ms(es) -> float:
         return round(sum(e.self_device_time_total for e in es) / 1e3, 3)
@@ -89,6 +98,8 @@ def _device_time(prof) -> dict:
     k1 = [e for e in kernels if "permute_rows" in e.key]
     fft = [e for e in kernels if "fft_" in e.key]
     quot = [e for e in kernels if "quotient_" in e.key]
+    smp = [e for e in kernels if "sample_" in e.key]
+    inter = [e for e in kernels if "interaction_kernel" in e.key]
     own = [e for e in kernels if any(k in e.key for k in hand_written_kernels())]
     rem = [e for e in kernels if "remainder" in e.key.lower()]
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
@@ -97,11 +108,75 @@ def _device_time(prof) -> dict:
         hand_written_launches=sum(e.count for e in own), eager_launches=sum(e.count for e in kernels if e not in own),
         k1_ms=ms(k1), k1_launches=sum(e.count for e in k1),
         fft_ms=ms(fft), fft_launches=sum(e.count for e in fft), quotients_ms=ms(quot),
-        quotient_launches=sum(e.count for e in quot),
+        quotient_launches=sum(e.count for e in quot), sample_ms=ms(smp), sample_launches=sum(e.count for e in smp),
+        interaction_ms=ms(inter), interaction_launches=sum(e.count for e in inter),
         remainder_ms=ms(rem), remainder_launches=sum(e.count for e in rem),
         copy_ms=ms(copies), copies=sum(e.count for e in copies),
         top=[dict(kernel=e.key[:100], ms=ms([e]), launches=e.count) for e in top],
     )
+
+
+STAGE = "stage#"  # the record_function ranges of a staged proof
+
+
+class StageRanges:
+    """`progress` for a proof under torch.profiler: each stage runs inside
+    its own record_function range, STAGE + its index; `messages[i]` names
+    stage i (the message that ended it; the last, after the last message,
+    is the proof's tail)."""
+
+    def __init__(self):
+        self.messages = []
+        self._range = None
+
+    def start(self) -> None:
+        self._range = record_function(f"{STAGE}{len(self.messages)}")
+        self._range.__enter__()
+
+    def __call__(self, msg: str) -> None:
+        torch.cuda.synchronize()
+        self._range.__exit__(None, None, None)
+        self.messages.append(msg)
+        self.start()
+
+    def finish(self) -> None:
+        torch.cuda.synchronize()
+        self._range.__exit__(None, None, None)
+        self.messages.append("after the last stage message")
+
+
+def by_stage(events, messages: list) -> list:
+    """The CUDA kernels of a staged proof's trace by stage (see the module
+    docstring), from the trace's raw events (prof.profiler.kineto_results
+    .events()) and the stages' messages: [{stage, kernels, hand_written,
+    eager, busy_ms}]."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.start_ns(), e.end_ns(), int(e.name()[len(STAGE):])) for e in events
+                   if e.device_type() == DeviceType.CPU and e.name().startswith(STAGE))
+    mine = hand_written_kernels()
+    out = [dict(stage=m, kernels=0, hand_written=0, eager=0, busy_ms=0.0) for m in messages]
+    unplaced = 0
+    for e in events:
+        name = e.name()
+        if e.device_type() != DeviceType.CUDA or name.startswith((STAGE, "Memcpy", "Memset")):
+            continue
+        t = e.start_ns()
+        k = next((i for s, end, i in spans if s <= t < end), None)
+        if k is None:
+            unplaced += 1
+            continue
+        row = out[k]
+        row["kernels"] += 1
+        own = any(m in name for m in mine)
+        row["hand_written"] += own
+        row["eager"] += not own
+        row["busy_ms"] += e.duration_ns() / 1e6
+    for row in out:
+        row["busy_ms"] = round(row["busy_ms"], 3)
+    if unplaced:
+        out.append(dict(stage="outside every stage", kernels=unplaced))
+    return out
 
 
 def main() -> None:
@@ -151,14 +226,17 @@ def main() -> None:
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 
+        stages = StageRanges()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             start = time.perf_counter()
-            proof = prove(trace, config, device="cuda")
-            torch.cuda.synchronize()
+            stages.start()
+            proof = prove(trace, config, progress=stages, device="cuda")
+            stages.finish()
             traced = time.perf_counter() - start
         check(proof)
         print(json.dumps(dict(**label, profiled=True, traced_wall_s=round(traced, 4), device=device,
-                              **_device_time(prof))), flush=True)
+                              **_device_time(prof),
+                              by_stage=by_stage(prof.profiler.kineto_results.events(), stages.messages))), flush=True)
 
 
 if __name__ == "__main__":

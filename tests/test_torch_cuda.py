@@ -800,3 +800,148 @@ def test_fft_and_quotient_kernels_keep_every_value_in_registers_or_shared_memory
         assert len(report) == instances, (name, report)
         for r in report:
             assert (r["stack_bytes"], r["spill_stores"], r["spill_loads"]) == (0, 0, 0), r
+
+
+# ---- the provers' sampling and interaction kernels ----------------------------
+# (csrc/sample.cu, csrc/interaction.cu)
+
+
+@pytest.mark.parametrize("name", ["level1-5", "level2-1", "level14-1", "bitcoin_proof"])
+def test_sample_bit_exact_at_prover_shapes(cuda, name):
+    """Every block and point a proof of the committed chain proof's shape
+    samples, in one launch, against the plain version block by block."""
+    from recursive_stwo_tpu_torch.ops import sample_cuda
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    case = cases.sample_case(cases.prover_spec(name), cuda, seed=3)
+    before = sample_cuda.LAUNCHES["sample"]
+    got = cases.run_sample(case)
+    torch.cuda.synchronize()
+    assert sample_cuda.LAUNCHES["sample"] == before + 1
+    assert torch.equal(got, cases.run_sample(case, plain=True))
+
+
+@pytest.mark.parametrize("logs,points", [((0,), 1), ((0, 1, 2), 2), ((5, 9, 10, 11), 1), ((13, 16, 17), 2),
+                                         ((20,), 2), ((22,), 1)])
+def test_sample_bit_exact_at_every_split(cuda, logs, points):
+    """Blocks whose log sizes cross each split of csrc/sample.cu (a run of
+    2**L below 2**10, a block's Hi table below 2**6, chunks above), one of
+    them a view of every other row, the constant polynomial, and every
+    coefficient and factor at p - 1 (the lazy sums' largest products)."""
+    from recursive_stwo_tpu_torch.ops import sample_cuda
+    from recursive_stwo_tpu_torch.prover import sample
+
+    gen = torch.Generator(device=cuda).manual_seed(sum(logs))
+    rng = np.random.default_rng(sum(logs))
+    for extreme in (False, True):
+        jobs = []
+        for k, n in enumerate(logs):
+            c = torch.randint(0, P, (6, 1 << n), generator=gen, device=cuda, dtype=torch.int64)
+            c = c[::2] if k == 0 else c
+            facs = [rng.integers(0, P, (n, 4)) for _ in range(points)]
+            if extreme:
+                c = torch.full_like(c, P - 1)
+                facs = [np.full((n, 4), P - 1, np.int64) for _ in range(points)]
+            jobs.append((c, facs))
+        out, firsts = sample_cuda.sample_columns(jobs)
+        torch.cuda.synchronize()
+        for (c, facs), r in zip(jobs, firsts):
+            for p, f in enumerate(facs):
+                want = sample.sample(c, f)
+                assert np.array_equal(out[r + p * c.shape[0]: r + (p + 1) * c.shape[0]].cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["level1-5", "level2-1", "bitcoin_proof"])
+def test_interaction_bit_exact(cuda, name):
+    """Each AIR table of the chain proof's shape, one launch a table, against
+    the plain version, and with a zero denominator planted (inv(0) = 0)."""
+    from recursive_stwo_tpu_torch.ops import interaction_cuda
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    spec = cases.prover_spec(name)
+    for zero_row in (None, 12345):
+        for case in cases.interaction_cases(spec, cuda, seed=5, zero_row=zero_row):
+            before = interaction_cuda.LAUNCHES["interaction"]
+            got = cases.run_interaction(case)
+            torch.cuda.synchronize()
+            assert interaction_cuda.LAUNCHES["interaction"] == before + 1
+            assert torch.equal(got, cases.run_interaction(case, plain=True)), case.label
+
+
+def _no_eager_sample_or_interaction_on_cuda(monkeypatch):
+    """Make the plain sampling and the plain interaction rows raise when
+    handed a CUDA tensor."""
+    from recursive_stwo_tpu_torch.prover import interaction, sample
+
+    for module, name in ((sample, "sample"), (interaction, "interaction_rows_plain")):
+        real = getattr(module, name)
+
+        def guard(x, *args, real=real, name=name, **kw):
+            if x.is_cuda:
+                raise AssertionError(f"{name} ran on a CUDA tensor")
+            return real(x, *args, **kw)
+
+        monkeypatch.setattr(module, name, guard)
+
+
+@pytest.mark.parametrize("prover", ["prove", "prove_sha256p31", "prove_np", "prove_streamed", "prove_np_streamed"])
+def test_provers_run_sample_and_interaction_on_the_kernels(cuda, monkeypatch, prover):
+    """On CUDA every prover samples every block and point in one launch of
+    the sampling kernel and generates each table's interaction columns in
+    one launch of the interaction kernel, never the plain versions; the
+    proof equals the CPU run's."""
+    from test_torch_chain import T_NP_CONFIG, _np_trace
+
+    from recursive_stwo_tpu_torch.prover.commit import Sha256DeviceTree
+    from recursive_stwo_tpu_torch.prover.prove import prove
+    from recursive_stwo_tpu_torch.prover.prove_np import prove_np
+    from recursive_stwo_tpu_torch.prover.prove_sha256 import Sha256ProverChannel
+    from recursive_stwo_tpu_torch.prover.stream import prove_np_streamed, prove_streamed
+
+    stream_args = dict(chunk_log=6, cutoff=4)
+    run = {
+        "prove": lambda d: prove(flagship.demo_trace(), flagship.DEMO_CONFIG, device=d),
+        "prove_sha256p31": lambda d: prove(flagship.demo_trace(), flagship.DEMO_CONFIG, device=d,
+                                           channel=Sha256ProverChannel(), tree_cls=Sha256DeviceTree),
+        "prove_np": lambda d: prove_np(_np_trace(), T_NP_CONFIG, device=d),
+        "prove_streamed": lambda d: prove_streamed(flagship.demo_trace(), flagship.DEMO_CONFIG, device=d, **stream_args),
+        "prove_np_streamed": lambda d: prove_np_streamed(_np_trace(), T_NP_CONFIG, device=d, **stream_args),
+    }[prover]
+    want = run("cpu")
+    _no_eager_sample_or_interaction_on_cuda(monkeypatch)
+    launches.reset()
+    got = run(cuda)
+    torch.cuda.synchronize()
+    counts = launches.counts()
+    assert flagship.proof_bytes(got) == flagship.proof_bytes(want)
+    assert counts["sample"] == 1, counts
+    assert counts["interaction"] == (1 if prover.startswith("prove_np") else 2), counts
+
+
+def test_sample_and_interaction_kernels_keep_every_value_in_registers_or_shared_memory(cuda):
+    """ptxas' report of the build: the sampling kernel, its finishing kernel
+    and the interaction kernel's three instances have no stack frame and
+    spill nothing; the interaction kernel's poseidon instance uses fewer
+    registers than the domain kernel's (its rounds are not compiled in)."""
+    from recursive_stwo_tpu_torch.ops import build
+
+    build.load()
+    for name, instances in (("sample_kernel", 1), ("sample_finish_kernel", 1), ("interaction_kernel", 3)):
+        report = build.ptxas_report(name)
+        assert len(report) == instances, (name, report)
+        for r in report:
+            assert (r["stack_bytes"], r["spill_stores"], r["spill_loads"]) == (0, 0, 0), r
+    gen = max(r["registers"] for r in build.ptxas_report("interaction_kernel"))
+    assert gen < max(r["registers"] for r in build.ptxas_report("composition_domain_kernel"))
+
+
+def test_interaction_poseidon_instance_is_shorter_than_the_domain_kernels(cuda):
+    """cuobjdump's SASS of the build: the interaction kernel's poseidon
+    instance (generation mode, no rounds) has fewer than half the
+    instructions of the domain kernel's poseidon instance."""
+    from recursive_stwo_tpu_torch.ops import build
+
+    build.load()
+    gen = [r["instructions"] for r in build.sass_instructions("interaction_kernelILi1E")]
+    dom = [r["instructions"] for r in build.sass_instructions("composition_domain_kernelILi1E")]
+    assert len(gen) == len(dom) == 1 and 0 < 2 * gen[0] < dom[0], (gen, dom)
