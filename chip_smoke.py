@@ -6,11 +6,12 @@
 Phases; any failure ends the run with a non-zero exit and no result line:
   1. card: the GPU's name and power limit, as nvidia-smi prints them;
   2. build: nvcc builds the Poseidon2-16, SHA-256, composition, fold,
-     transcript, circle FFT, quotient, sampling and interaction kernels and
-     the latency probe from csrc/ (one nvcc a source, all at once, then a
-     link; seconds); ptxas' report (registers, stack frame, spills) of the
-     transcript, check, domain, fold, FFT pass, quotient, sampling and
-     interaction kernels on lines of their own;
+     transcript, circle FFT, quotient, sampling, interaction, FRI fold-layer
+     and Merkle level kernels and the latency probe from csrc/ (one nvcc a
+     source, all at once, then a link; seconds); ptxas' report (registers,
+     stack frame, spills) of the transcript, check, domain, fold, FFT pass,
+     quotient, sampling, interaction, fold-layer and Merkle level kernels on
+     lines of their own;
   3. kernels vs plain: K1 and K2 against their plain PyTorch versions on
      the card and on the host CPU, bit for bit, at 2**20 states and at the
      main path's shapes, plus the Poseidon2-16 known-answer test; each of
@@ -81,7 +82,17 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      the last layer's without-Poseidon table, each plonk and
      without-Poseidon table also with a zero denominator planted (inv(0) =
      0); their times at level 1 (a proof's samples; both tables) beside
-     their bounds and the plain versions';
+     their bounds and the plain versions'; the FRI fold-layer kernel
+     (csrc/fri_fold.cu) against its plain version, bit for bit, at logs 1,
+     2, 3 and 17 (a line fold, a join alone, both) and at every fold launch
+     of a level-1, level-2, level-14 and last-layer proof (seeded random
+     layers at their shapes, up to the last layer's circle fold of (4,
+     2**27)); the Merkle level kernel (csrc/merkle.cu) against its plain
+     version, bit for bit, on leaf and node levels of 0, 1, 8, 9 and 134
+     columns at 1, 7 and 2**20 + 3 nodes, a strided column view and a
+     2**27-leaf level of 4 columns; their times at level 1 (a proof's fold
+     launches; tree 1's leaf level, with level 2's and a streamed chunk's
+     beside it) beside their bounds and the plain versions';
   4. main path, small_proof at B=1024: the port's verify_batch on CUDA over
      a batch with a flipped sibling hash and a flipped nonce, and again with
      a wrong public input; every named check of every slot must equal the
@@ -100,10 +111,13 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      built on the host and proved on CUDA with the port's `prove`
      (tools/chain.run_level); its m31x8 bytes must hash to level1-5.bin's
      digest in docs/chain_artifacts.txt (a51ea3f3...), the port's
-     verify_batch on CUDA must accept it, K1 must have launched while
-     proving, the composition domain kernel once an AIR table (twice), the
-     circle FFT, the quotient kernel once a first-layer group, the sampling
-     kernel once and the interaction kernel once an AIR table; the
+     verify_batch on CUDA must accept it, the Merkle level kernel must have
+     launched while proving and K1 never (the 20-bit PoW is the host
+     scan's), the fold-layer kernel once a FRI layer and once for the first
+     (spec.n_inner_layers + 1), the composition domain kernel once an AIR
+     table (twice), the circle FFT, the quotient kernel once a first-layer
+     group, the sampling kernel once and the interaction kernel once an
+     AIR table; the
      proof runs under a device-only torch.profiler trace; prints the wall
      time (traced), each stage's time, the kernels' launches, the CUDA
      kernels of the trace (eager torch's and the hand-written ones) and the
@@ -113,7 +127,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      level 3 (the committed level2-1.pkl verified once, preset standard,
      2**23; level3-1.bin, 642d38ee...; the repo holds no level-3 proof);
   9. grind: the port's grind_device on CUDA at 24 bits on a seeded digest
-     must find the host native scan's nonce; prints both times;
+     must find the host native scan's nonce, K1 launched (its main path
+     since the trees left it); prints both times;
  10. without-Poseidon on the Poseidon31 channel, np_small at B=512 (bench.py's
      batch for np_flavor_proofs_per_sec): verify_batch_np on CUDA over a
      batch with a flipped sibling hash and a flipped nonce, and again with a
@@ -138,7 +153,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      2**27; tools/chain.run_level); its "bytes32" bytes must hash to
      bitcoin_proof.bin's 71da12a3..., and verify_sha256np on CUDA must
      accept it; its 22 SHA-256 trees are hashed on the card by the SHA-256
-     kernel (which must launch), its one AIR table by one launch of the
+     kernel (which must launch), its FRI layers by spec.n_inner_layers + 1
+     fold-layer launches, its one AIR table by one launch of the
      domain kernel and one of the interaction kernel, its transforms by the
      circle FFT, its OODS samples by one launch of the sampling kernel, its
      two first-layer groups by two launches of the quotient kernel, under
@@ -147,7 +163,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      device memory, the kernels' launches and the trees' hashing and digest
      copy-back time;
  13. prove_sha256p31 of the demo circuit on CUDA equals the CPU run, byte
-     for byte ("bytes32");
+     for byte ("bytes32"), its folds spec.n_inner_layers + 1 fold-layer
+     launches and no Merkle level launch (SHA-256 trees);
  14. multi-device verification (recursive_stwo_tpu_torch/parallel): (a) the
      dry run on one NCCL rank on the card and, at the same time, (b) the
      dry run on MESH_RANKS gloo ranks sharing the card (the (2, 2) host x
@@ -166,15 +183,18 @@ Phases; any failure ends the run with a non-zero exit and no result line:
  15. the streamed provers (prover/stream.py): (a) the demo circuit proved on
      CUDA and on the CPU at chunk_log 9, cutoff 5 by prove_streamed in both
      flavours and a small PlonkWithoutPoseidon circuit by prove_np_streamed
-     in both tree flavours, the same bytes on both; (b) chain level 3
+     in both tree flavours, the same bytes on both, each CUDA run's folds
+     spec.n_inner_layers + 1 fold-layer launches, its Poseidon31 trees on
+     the Merkle level kernel and K1 never; (b) chain level 3
      streamed at the defaults (chunks of 2**20 rows), its m31x8 bytes
      hashing to level3-1.bin's 642d38ee..., accepted by verify_batch on
-     CUDA, K1 launched; (c) the last layer streamed in the
+     CUDA, the Merkle level kernel launched and K1 never; (c) the last layer streamed in the
      Sha256MerkleChannel flavour (largest domain 2**27), its "bytes32" bytes
      hashing to bitcoin_proof.bin's 71da12a3..., accepted by
      verify_sha256np on CUDA, the SHA-256 kernel launched; each streamed
      proof launches the domain kernel and the interaction kernel once an
-     AIR table, the sampling kernel once, the circle FFT, the tile kernel,
+     AIR table, the sampling kernel once, the fold-layer kernel
+     spec.n_inner_layers + 1 times, the circle FFT, the tile kernel,
      and the quotient kernel once a streamed chunk of 2**20 points.  (b) and (c) run
      under a device-only torch.profiler trace, which counts every kernel
      the card ran; each prints its wall (traced), stages, the kernels'
@@ -191,11 +211,12 @@ levels 2 and 3 and phase 12's last layer; streamed_launches: phase 15's
 (b) and (c); np_launches, np_shape, np_ms, np_plain_ms and np_bound_ms:
 phase 10's launches and shapes, and the kernel's times there;
 mesh_launches: each rank's launches in phase 14 (c); launches is each
-kernel's count in its main path: phase 4's verify_batch, phase 7's level 1
-for K1, the domain kernel, the circle FFT, the quotients, the sampling and
-the interaction kernel, phase 15 (c)
+kernel's count in its main path: phase 4's verify_batch, phase 9's device
+grind for K1, phase 7's level 1 for the domain kernel, the circle FFT, the
+quotients, the sampling, the interaction, the fold-layer and the Merkle
+level kernels, phase 15 (c)
 for the SHA-256 and tile kernels; K1's
-times are at 2**20 rows, a block of a prover level, with step_* at (1024,
+times are at 2**20 rows (the device grind hashes blocks of 2**22), with step_* at (1024,
 16); floor_ms the latency floors of the transcript and check kernels),
 and {"ok": true, "device": {...}}.
 """
@@ -232,7 +253,7 @@ LEVEL_SHA256 = {
     3: "642d38eed1f77f4dd577d8de0232a70590c09abe7154f53600d6b33fdb8c7c3f",
     LAST_LAYER: "71da12a3fa9ebcef7cfabfeac33b08712affbda758f0d31a5e7aba164c8d39e3",
 }
-PROVER_LEAF_ROWS = 1 << 23  # K1 at 2**23 rows, above the prover's largest call (2**22: prover/commit.py ROWS)
+PROVER_LEAF_ROWS = 1 << 23  # K1 at 2**23 rows, above the prover's largest call (2**22: the device grind's block)
 # K1's schedules are each held to the plain version at these row counts:
 # tails of a warp's 8 rows and a block's 32, and the prover's largest call
 ROWS_CHECKED = (1, 7, 8, 1023, 1024, (1 << 20) + 3, PROVER_LEAF_ROWS)
@@ -286,6 +307,17 @@ LDE_SEGMENTS = ((12, 1), (12, 2), (12, 512), (17, 2), (18, 8))
 TILE_SHAPES = ((6, 1, 0, 32, (3,)), (12, 9, 2, 6, (2, 1, 5)), (10, 4, 5, 61, (1,)), (16, 13, 3, 7, (4,)),
                (20, 15, 4, 12, (3, 5, 2)), (24, 17, 3, 8, (2, 3)))
 PROVER_SHAPES = ("level1-5", "level2-1", "level14-1", "bitcoin_proof")
+# the fold-layer kernel is held to its plain version at these logs (line,
+# join and both each) and at every fold launch of PROVER_SHAPES' proofs
+FOLD_LOGS = (1, 2, 3, 17)
+# the Merkle level kernel at these (columns, nodes) of leaf and node levels
+# (tails of a block of 128 threads and of a 2**20 chunk; 134 columns the
+# chain's widest group), a strided view, and a 2**27-leaf level of 4 columns
+# (the last layer's first FRI layer) checked in blocks of MERKLE_BLOCK rows
+MERKLE_COLS = (0, 1, 8, 9, 134)
+MERKLE_ROWS = (1, 7, (1 << 20) + 3)
+MERKLE_BIG_LOG = 27
+MERKLE_BLOCK = 1 << 22
 
 
 class SmokeError(RuntimeError):
@@ -1027,6 +1059,89 @@ def check_sample_interaction(torch, dev) -> tuple:
     return out_sample, out_inter
 
 
+def check_fri_merkle(torch, dev) -> tuple:
+    """Phase 3, the provers' FRI fold-layer and Merkle level kernels against
+    their plain versions on the card, bit for bit: fold layers at FOLD_LOGS
+    (line, join alone and both) and every fold launch of PROVER_SHAPES'
+    proofs (tools/prover_cases.fold_shapes: the last layer's first is a
+    circle fold of (4, 2**27)); Merkle leaf and node levels with
+    MERKLE_COLS columns at MERKLE_ROWS nodes, a streamed chunk's strided
+    column view, and a 2**MERKLE_BIG_LOG-leaf level of 4 columns (held to
+    the plain version MERKLE_BLOCK rows at a time).  Returns ({max_abs_err,
+    ms, events_ms, plain_ms, bound_ms, bound_by, library_ms} of each) at
+    level 1's shapes: a proof's fold launches summed, and its tree-1 leaf
+    level (2**20 nodes of 12 columns), with level 2's tree-1 leaf level and a
+    streamed chunk of it beside it."""
+    from recursive_stwo_tpu_torch.ops import fri_fold_cuda, merkle_cuda
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    errs = dict(fri_fold=0, merkle_level=0)
+
+    def hold(kind, label, got, want):
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"{kind} differs from its plain version on {label}")
+        errs[kind] = max(errs[kind], int((got - want).abs().max()) if got.numel() else 0)
+
+    kinds = ((True, False), (False, True), (True, True))
+    for log in FOLD_LOGS:
+        for line, circle in kinds:
+            case = cases.fold_case(log, line, circle, dev, SEED + log)
+            hold("fri_fold", case.label, cases.run_fold(case), cases.run_fold(case, plain=True))
+    specs = {name: cases.prover_spec(name) for name in PROVER_SHAPES}
+    for name, spec in specs.items():
+        for k, (log, line, circle) in enumerate(cases.fold_shapes(spec)):
+            case = cases.fold_case(log, line, circle, dev, SEED + k)
+            hold("fri_fold", f"{name}'s layer {k}, {case.label}", cases.run_fold(case),
+                 cases.run_fold(case, plain=True))
+            del case
+        torch.cuda.empty_cache()
+    print(f"fri_fold: bit-exact vs plain at logs {FOLD_LOGS} (line, join, both) and at every fold launch of "
+          f"{PROVER_SHAPES}' proofs (their first layers up to a circle fold of (4, 2**27))")
+
+    def hold_level(label, case, block=None):
+        hold("merkle_level", label, cases.run_merkle(case), cases.run_merkle(case, plain=True, block=block))
+
+    for n_cols in MERKLE_COLS:
+        for rows in MERKLE_ROWS:
+            log = (rows - 1).bit_length()
+            for node in (False, True):
+                if n_cols or node:
+                    case = cases.merkle_case(n_cols, log, dev, SEED + rows, node=node, rows=rows)
+                    hold_level(case.label, case)
+    case = cases.merkle_tree_case(specs["level2-1"], 1, dev, SEED, rows=(1 << 20) + 3)
+    hold_level(case.label + " (a strided view)", case)
+    case = cases.merkle_case(4, MERKLE_BIG_LOG, dev, SEED)
+    hold_level(case.label, case, MERKLE_BLOCK)
+    del case
+    torch.cuda.empty_cache()
+    print(f"merkle_level: bit-exact vs plain with {MERKLE_COLS} columns at {MERKLE_ROWS} nodes (leaf and node "
+          f"levels), on a strided column view, and on a 2**{MERKLE_BIG_LOG}-leaf level of 4 columns")
+
+    spec = specs["level1-5"]
+    folds = [cases.fold_case(log, line, circle, dev, SEED + k)
+             for k, (log, line, circle) in enumerate(cases.fold_shapes(spec))]
+    bound = sum(fri_fold_cuda.bound_ms(c.log_size, c.g is not None, c.join is not None)[0] for c in folds)
+    out_fold = dict(timed_kernel(torch, "fri_fold", f"level 1's {len(folds)} fold launches",
+                                 lambda: [cases.run_fold(c) for c in folds],
+                                 lambda: [cases.run_fold(c, plain=True) for c in folds], "fri_layer_kernel",
+                                 len(folds), (bound, "bytes"), 20),
+                    max_abs_err=errs["fri_fold"], library_ms=None)
+    del folds
+    merkle = {}
+    for key, label, case in (("", "level 1's", cases.merkle_tree_case(spec, 1, dev, SEED)),
+                             ("level2_", "level 2's", cases.merkle_tree_case(specs["level2-1"], 1, dev, SEED)),
+                             ("chunk_", "a streamed chunk of level 2's",
+                              cases.merkle_tree_case(specs["level2-1"], 1, dev, SEED, rows=1 << 20))):
+        r = timed_kernel(torch, "merkle_level", f"{label} {case.label}", lambda: cases.run_merkle(case),
+                         lambda: cases.run_merkle(case, plain=True), "merkle_level_kernel", 1,
+                         merkle_cuda.bound_ms(int(case.cols.shape[0]), False, case.n), 10)
+        merkle.update({f"{key}{k}": v for k, v in r.items() if not (key and k == "bound_by")})
+        del case
+    out_merkle = dict(merkle, max_abs_err=errs["merkle_level"], library_ms=None)
+    torch.cuda.empty_cache()
+    return out_fold, out_merkle
+
+
 def _failing(checks: dict, slot: int) -> list:
     return sorted(k for k, v in checks.items() if not bool(v[slot]))
 
@@ -1206,8 +1321,10 @@ def prove_level(dev, level: int, seen: set, proof_in=None, streamed: bool = Fals
     """Phases 7, 8, 12 and 15: chain level `level` (tools/chain.LAST: the
     last layer) built, proved and verified on CUDA by tools/chain.run_level,
     which holds its bytes to the digest docs/chain_artifacts.txt lists for
-    its .bin; that digest must be LEVEL_SHA256's.  K1 must launch at levels
-    1-13, the SHA-256 kernel at the last layer.  Streamed proofs run under
+    its .bin; that digest must be LEVEL_SHA256's.  The Merkle level kernel
+    must launch at levels 1-3 and K1 never (their PoW is the host scan's),
+    the SHA-256 kernel at the last layer, and the fold-layer kernel
+    spec.n_inner_layers + 1 times in every flavour.  Streamed proofs run under
     a device-only trace that counts the card's kernels.  Returns the
     level's record (tools/chain.run_level)."""
     from recursive_stwo_tpu_torch.models import flagship
@@ -1222,14 +1339,21 @@ def prove_level(dev, level: int, seen: set, proof_in=None, streamed: bool = Fals
     print(f"{label}: circuit of {r['rows']} rows and {r['public_inputs']} public inputs built on the host in "
           f"{r['circuit_s']:.2f} s; pow {r['pow_bits']}, FRI {r['fri']}")
     print_timing(label, r)
-    kernel = "sha256_level" if level == chain.LAST else "permute_rows"
-    require(r["prove_launches"][kernel] > 0, f"{label}: {kernel} never launched while proving")
+    got = r["prove_launches"]
+    if level == chain.LAST:
+        require(got["sha256_level"] > 0, f"{label}: sha256_level never launched while proving")
+    elif level <= 3:
+        # the Merkle level kernel hashes every Poseidon31 tree; the PoW of
+        # levels 1-3 (20 bits) is the host scan's, so K1 never runs
+        require(got["merkle_level"] > 0 and got["permute_rows"] == 0,
+                f"{label}: expected merkle_level launches and no permute_rows launch while proving, got {got}")
     tables = 1 if level == chain.LAST else 2
     require(r["prove_launches"]["composition_domain"] == tables,
             f"{label}: expected {tables} composition_domain launches (one an AIR table), got {r['prove_launches']}")
     spec = (NoPoseidonVerifierSpec.for_rows(proof.log_size, proof.config) if level == chain.LAST
             else VerifierSpec.from_proof(proof))
-    got = r["prove_launches"]
+    require(got["fri_fold"] == spec.n_inner_layers + 1,
+            f"{label}: expected {spec.n_inner_layers + 1} fri_fold launches (one a FRI layer and the first), got {got}")
     quotient_calls = prover_cases.n_chunks(spec) if streamed else len(spec.all_log_sizes)
     require(got["circle_fft"] > 0 and got["quotients"] == quotient_calls and (got["eval_tiles"] > 0) == streamed,
             f"{label}: expected circle_fft launches, {quotient_calls} quotient launches (one a "
@@ -1249,6 +1373,7 @@ def check_demo_sha_proof(dev) -> None:
     from recursive_stwo_tpu_torch.models import flagship
     from recursive_stwo_tpu_torch.prover.prove_sha256 import prove_sha256p31
     from recursive_stwo_tpu_torch.tools.chain import timed_proof
+    from recursive_stwo_tpu_torch.verifier.spec import VerifierSpec
 
     trace = flagship.demo_trace()
     config = flagship.DEMO_CONFIG
@@ -1256,6 +1381,11 @@ def check_demo_sha_proof(dev) -> None:
     print_timing("demo circuit, prove_sha256p31", timing)
     require(timing["prove_launches"]["composition_domain"] == 2,
             f"demo prove_sha256p31: expected 2 composition_domain launches, got {timing['prove_launches']}")
+    spec = VerifierSpec.from_proof(proof)
+    require(timing["prove_launches"]["fri_fold"] == spec.n_inner_layers + 1
+            and timing["prove_launches"]["merkle_level"] == 0,
+            f"demo prove_sha256p31: expected {spec.n_inner_layers + 1} fri_fold launches and no merkle_level "
+            f"launch (SHA-256 trees), got {timing['prove_launches']}")
     on_card = flagship.proof_bytes(proof)
     t = time.perf_counter()
     on_cpu = flagship.proof_bytes(prove_sha256p31(trace, config, device="cpu"))
@@ -1283,9 +1413,11 @@ def _np_demo_trace():
 def check_streamed_demo(torch, dev) -> None:
     """Phase 15 (a): the four streamed demo proofs on CUDA against the CPU."""
     from recursive_stwo_tpu_torch.models import flagship
+    from recursive_stwo_tpu_torch.ops import launches
     from recursive_stwo_tpu_torch.prover.commit import Sha256DeviceTree
     from recursive_stwo_tpu_torch.prover.prove_sha256 import Sha256ProverChannel
     from recursive_stwo_tpu_torch.prover.stream import prove_np_streamed, prove_streamed
+    from recursive_stwo_tpu_torch.verifier.spec import NoPoseidonVerifierSpec, VerifierSpec
 
     demo, np_demo = flagship.demo_trace(), _np_demo_trace()
     cases = (
@@ -1301,9 +1433,19 @@ def check_streamed_demo(torch, dev) -> None:
     )
     for label, fn in cases:
         t = time.perf_counter()
-        on_card = flagship.proof_bytes(fn(dev))
+        launches.reset()
+        proof = fn(dev)
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t
+        got = launches.counts()
+        spec = (NoPoseidonVerifierSpec.for_rows(proof.log_size, proof.config) if hasattr(proof, "log_size")
+                else VerifierSpec.from_proof(proof))
+        sha = "Sha256" in label
+        require(got["fri_fold"] == spec.n_inner_layers + 1 and (got["merkle_level"] > 0) != sha
+                and got["permute_rows"] == 0,
+                f"demo {label}: expected {spec.n_inner_layers + 1} fri_fold launches, merkle_level launches "
+                f"{'none' if sha else 'some'} and no permute_rows launch, got {got}")
+        on_card = flagship.proof_bytes(proof)
         t = time.perf_counter()
         on_cpu = flagship.proof_bytes(fn("cpu"))
         require(on_card == on_cpu, f"demo {label} on CUDA differs from the CPU run")
@@ -1333,23 +1475,29 @@ def check_streamed(torch, dev, seen: set, resident: dict) -> dict:
     return out
 
 
-def check_grind(torch, dev) -> None:
-    """Phase 9: grind_device on CUDA against the host native scan."""
-    from recursive_stwo_tpu_torch.ops import poseidon_cuda
+def check_grind(torch, dev) -> dict:
+    """Phase 9: grind_device on CUDA against the host native scan; K1's main
+    path since the provers' trees left it (the device grind of levels 8-9
+    and 12-13).  Returns the grind's launches."""
+    from recursive_stwo_tpu_torch.ops import launches
     from recursive_stwo_tpu_torch.prover import channel
 
     digest = np.random.default_rng(SEED).integers(0, P, 8).astype(np.uint32)
-    before = poseidon_cuda.LAUNCHES["permute_rows"]
+    launches.reset()
     t = time.perf_counter()
     nonce = channel.grind_device(digest, GRIND_BITS, device=dev)
+    torch.cuda.synchronize()
     card_s = time.perf_counter() - t
-    blocks = poseidon_cuda.LAUNCHES["permute_rows"] - before
+    got = launches.counts()
+    blocks = got["permute_rows"]
+    require(blocks > 0, f"the device grind never launched permute_rows: {got}")
     t = time.perf_counter()
     host = channel.grind_host(digest, GRIND_BITS)
     host_s = time.perf_counter() - t
     require(nonce == host, f"grind_device found {nonce}, the host scan {host}")
     print(f"grind at {GRIND_BITS} bits: nonce {nonce} on CUDA in {card_s:.3f} s ({blocks} blocks of 2**22), "
           f"host native scan {host_s:.3f} s")
+    return got
 
 
 def np_rate(torch, dev) -> float:
@@ -1593,7 +1741,8 @@ def main() -> int:
         print(f.read().strip())
     for name in ("transcript_kernel", "composition_check_kernel", "composition_domain_kernel", "fold_kernel",
                  "fft_pass_kernel", "fft_tile_twiddle_kernel", "quotient_coeffs_kernel", "quotient_points_kernel",
-                 "sample_kernel", "sample_finish_kernel", "interaction_kernel"):
+                 "sample_kernel", "sample_finish_kernel", "interaction_kernel", "fri_layer_kernel",
+                 "merkle_level_kernel"):
         for r in build.ptxas_report(name):
             print(f"ptxas {name} ({r['kernel']}): {r['registers']} registers, {r['smem_bytes']} bytes static smem, "
                   f"{r['stack_bytes']} bytes stack frame, "
@@ -1627,6 +1776,7 @@ def main() -> int:
     kernels["transcript"] = check_transcript_kernel(torch, dev, lat)
     kernels["circle_fft"], kernels["eval_tiles"], kernels["quotients"] = check_prover_kernels(torch, dev)
     kernels["sample"], kernels["interaction"] = check_sample_interaction(torch, dev)
+    kernels["fri_fold"], kernels["merkle_level"] = check_fri_merkle(torch, dev)
     torch.cuda.synchronize()
     phase_done("3 (kernels vs plain)")
 
@@ -1648,7 +1798,7 @@ def main() -> int:
     seen = set()  # shapes proved so far (tools/chain.run_level's `cold`)
     levels = {level: prove_level(dev, level, seen) for level in (1, 2, 3)}
     phase_done("7-8 (chain levels 1-3)")
-    check_grind(torch, dev)
+    grind_launches = check_grind(torch, dev)
     phase_done("9 (grind)")
 
     np_launches, _ = check_np_path(torch, dev)
@@ -1705,6 +1855,10 @@ def main() -> int:
                   "recursive_stwo_tpu/prover/device_prove.py:789-804",
         "interaction": "recursive_stwo_tpu/prover/device_prove.py:342 (_interaction_traced, _InteractionEval :277), "
                        "jitted by _interaction_cols_jit :373 and _stage_interaction_jit :390",
+        "fri_fold": "recursive_stwo_tpu/prover/device_prove.py:572 (_fold_line_jit) and :593 (_join_commit_jit's "
+                    "fold), recursive_stwo_tpu/prover/stream.py:667 (_join_fold_jit) and :704 (_line_fold_jit)",
+        "merkle_level": "recursive_stwo_tpu/prover/device_prove.py:49 (_absorb_columns) and :66 (_commit_levels), "
+                        "recursive_stwo_tpu/prover/stream.py:252 (_commit_chunk_jit, p31)",
     }
     sources = {k: "recursive_stwo_tpu_torch/csrc/poseidon2.cu" for k in replaces}
     sources["sha256_level"] = "recursive_stwo_tpu_torch/csrc/sha256.cu"
@@ -1715,15 +1869,18 @@ def main() -> int:
     sources["quotients"] = "recursive_stwo_tpu_torch/csrc/quotients.cu"
     sources["sample"] = "recursive_stwo_tpu_torch/csrc/sample.cu"
     sources["interaction"] = "recursive_stwo_tpu_torch/csrc/interaction.cu"
+    sources["fri_fold"] = "recursive_stwo_tpu_torch/csrc/fri_fold.cu"
+    sources["merkle_level"] = "recursive_stwo_tpu_torch/csrc/merkle.cu"
     # the main path of each: phase 4's verify_batch for the transcript, K2,
     # scan, check and fold kernels, phase 15 (c)'s streamed last layer for
-    # the SHA-256 and tile kernels, phase 7's level-1 proof for K1, the
-    # domain kernel, the circle FFT, the quotients, the sampling and the
-    # interaction kernel
+    # the SHA-256 and tile kernels, phase 9's device grind for K1, phase 7's
+    # level-1 proof for the domain kernel, the circle FFT, the quotients, the
+    # sampling, the interaction, the fold-layer and the Merkle level kernels
     main_launches = {k: launches[FIXTURES[0]][k] for k in replaces}
     for k in ("sha256_level", "eval_tiles"):
         main_launches[k] = streamed[LAST_LAYER][k]
-    for k in ("permute_rows", "composition_domain", "circle_fft", "quotients", "sample", "interaction"):
+    main_launches["permute_rows"] = grind_launches["permute_rows"]
+    for k in ("composition_domain", "circle_fft", "quotients", "sample", "interaction", "fri_fold", "merkle_level"):
         main_launches[k] = levels[1]["prove_launches"][k]
     report = [
         dict(name=k, route="cuda", source=sources[k],

@@ -160,6 +160,10 @@ def load() -> ctypes.CDLL:
             lib.sample_columns.restype = ctypes.c_int
             lib.interaction_columns.argtypes = [i32, vp, i64, vp, i64, vp, i64, i64, i64p, vp]
             lib.interaction_columns.restype = ctypes.c_int
+            lib.fri_fold_layer.argtypes = [vp, vp, vp, i64, vp, vp, i64, i64p, vp]
+            lib.fri_fold_layer.restype = ctypes.c_int
+            lib.merkle_level.argtypes = [vp, vp, i64, i64, vp, i64, vp]
+            lib.merkle_level.restype = ctypes.c_int
             lib.latency_probe.argtypes = [i32, i64, vp, vp, vp]
             lib.latency_probe.restype = ctypes.c_int
             _lib = lib

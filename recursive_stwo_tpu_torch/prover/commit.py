@@ -1,11 +1,13 @@
 """Merkle commitment over mixed-size columns, on the device.
 
 Twin of device_prove.py:49-146 (`_absorb_columns`, `_commit_levels`,
-`_merge_t`, `DeviceTree`).  Every permutation is on (n, 16) rows, 8 column
-words beside 8 digest words or two child digests side by side: kernel K1's
-own layout (`core/poseidon2.permute`, which takes the plain version on the
-CPU).  Hash semantics are commit._hash_leaf_level / _hash_node_level's.
-Each level is hashed in blocks of ROWS rows.
+`_merge_t`, `DeviceTree`).  Hash semantics are commit._hash_leaf_level /
+_hash_node_level's.  A level is one call of `_level`: on CUDA one launch of
+the Merkle level kernel (ops/merkle_cuda.py), which reads the columns in
+place and keeps each node's state in registers across every 8-column chunk;
+on the CPU the plain version, `level_plain`, which permutes (n, 16) rows of
+8 column words beside 8 digest words, or two child digests side by side
+(`core/poseidon2.permute`).
 
 `Sha256DeviceTree` is the twin of commit.py:178-188 `Sha256CommittedTree`:
 its columns stay on the device, as the quotient stage reads them there, and
@@ -24,13 +26,10 @@ import torch
 
 from ..core import poseidon2
 from ..core.sha256 import sha256_level
+from ..ops import merkle_cuda
 from .arrays import to_numpy
 from .commit_host import CommittedTree
 
-# rows hashed per K1 call: bounds a level's temporaries to a few hundred MB
-# (a 2**26-leaf level hashed at once needs three (2**26, 16) int64 tensors,
-# 24 GiB)
-ROWS = 1 << 22
 # leaf rows of a SHA-256 tree hashed as one block, down through every level
 # the block covers: a block's digests on the device are (SHA_ROWS, 8) int64
 # (256 MiB), where a whole 2**27-leaf level would be 8 GiB
@@ -52,24 +51,25 @@ def absorb_columns(cols: torch.Tensor) -> torch.Tensor:
     return digest
 
 
-def _level(children, cols, n: int) -> torch.Tensor:
+def level_plain(children, cols, n: int) -> torch.Tensor:
     """One tree level of n nodes: the leaf level (children None) absorbs its
     columns and hashes [0; digest]; a node level hashes its child pairs,
-    then [h; digest] if columns of this size are merged in.  Rows are hashed
-    ROWS at a time, so the (rows, 16) temporaries stay small."""
-    ref = cols if children is None else children
-    out = torch.empty((n, 8), dtype=torch.int64, device=ref.device)
-    for s in range(0, n, ROWS):
-        e = min(n, s + ROWS)
-        if children is None:
-            digest = absorb_columns(cols[:, s:e])
-            h = poseidon2.permute(torch.cat([torch.zeros_like(digest), digest], dim=1))[:, :8]
-        else:
-            h = poseidon2.permute(children[2 * s : 2 * e].reshape(e - s, 16))[:, :8]
-            if cols is not None and cols.shape[0]:
-                h = poseidon2.permute(torch.cat([h, absorb_columns(cols[:, s:e])], dim=1))[:, :8]
-        out[s:e] = h
-    return out
+    then [h; digest] if columns of this size are merged in."""
+    if children is None:
+        digest = absorb_columns(cols)
+        return poseidon2.permute(torch.cat([torch.zeros_like(digest), digest], dim=1))[:, :8]
+    h = poseidon2.permute(children.reshape(n, 16))[:, :8]
+    if cols is not None and cols.shape[0]:
+        h = poseidon2.permute(torch.cat([h, absorb_columns(cols)], dim=1))[:, :8]
+    return h
+
+
+def _level(children, cols, n: int) -> torch.Tensor:
+    """`level_plain`'s level: on CUDA one launch of the Merkle level kernel,
+    on the CPU the plain version."""
+    if (cols if children is None else children).device.type == "cpu":
+        return level_plain(children, cols, n)
+    return merkle_cuda.level(children, cols, n)
 
 
 def commit_levels(cols_by_log: Dict[int, torch.Tensor]) -> List[torch.Tensor]:

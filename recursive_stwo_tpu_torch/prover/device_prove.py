@@ -5,8 +5,10 @@ the same stages in the same order with the same channel mixing, so the
 proof is byte-identical to the JAX package's.  One code path at every size:
 the JAX package's fused-stage programs and its per-table split for large
 domains (`RSTPU_DEVICE_BIG_LOG`, :668-675) exist to fit a TPU's HBM or XLA's
-fusion and have no counterpart here.  Every Poseidon2 permutation (Merkle
-commits, the PoW grind at 22 bits or more) runs on kernel K1 on CUDA, every
+fusion and have no counterpart here.  On CUDA every Merkle level of a
+Poseidon31 tree runs on one launch of the Merkle level kernel
+(prover/commit.py), each FRI layer's folds on one launch of the fold-layer
+kernel (prover/fri.py), the PoW grind at 22 bits or more on kernel K1, every
 interpolation and LDE on the circle FFT kernel (prover/circle_fft.py),
 each table's interaction columns on one launch of the interaction kernel
 (prover/interaction.py), the OODS samples of every block and point on one

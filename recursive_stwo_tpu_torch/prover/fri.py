@@ -1,10 +1,15 @@
 """FRI commit phase with device-resident layers, and the proof's tail.
 
 Twins of device_prove.py:572-623 (`_fold_line_jit`, `_join_commit_jit`) and
-of `_fri_tail_device` (:864-980).  The folds and commits run on the device,
-the folds' 1/y and 1/x computed there from tile points (prover/tiles.py, as
-the JAX package's streamed folds do, stream.py:667-729);
-the last-layer interpolation, the query draws, the decommit plans and the
+of `_fri_tail_device` (:864-980).  The folds and commits run on the device.
+A layer's line fold and the next layer's join share their alpha, so
+`fri_tail` folds a proof in spec.n_inner_layers + 1 calls of `fold_layer`,
+each the next layer's whole accumulator: on CUDA one launch of the
+fold-layer kernel (ops/fri_fold_cuda.py), which derives each point and its
+inverse in registers; on the CPU the plain version, `fold_layer_plain`
+(eager QM31 on 1/y and 1/x from tile points, prover/tiles.py, as the JAX
+package's streamed folds take them, stream.py:667-729).
+The last-layer interpolation, the query draws, the decommit plans and the
 witness plans are the JAX package's host code.  A witness plan names the
 positions it gathers; here the plan runs on the identity evaluation
 (`_plan_positions`) and only those rows are gathered on the device.
@@ -21,6 +26,7 @@ from ..core import m31
 from ..core import qm31 as q
 from ..core.qm31 import QM31
 from ..cs import scalar
+from ..ops import fri_fold_cuda
 from ..proof.containers import FriLayerProof, FriProof, StarkProof
 from . import fri_host as host_fri
 from . import tiles
@@ -61,6 +67,28 @@ def fold_line(g: torch.Tensor, alpha: QM31, log_size: int) -> torch.Tensor:
 def fold_circle(g: torch.Tensor, alpha: QM31, log_size: int) -> torch.Tensor:
     """(4, 2**n) circle-domain evaluations -> (4, 2**(n-1)) line evaluations."""
     return torch.stack(list(_fold(*_halves(g), _fold_inverses(log_size, False, g.device), alpha)))
+
+
+def fold_layer_plain(g, join, alpha: QM31, log_size: int) -> torch.Tensor:
+    """The plain version of `fold_layer`: fold_line(g), fold_circle(join),
+    or alpha**2 fold_line(g) + fold_circle(join), each input (4, 2**n)."""
+    if join is None:
+        return fold_line(g, alpha, log_size)
+    fold_in = fold_circle(join, alpha, log_size)
+    if g is None:
+        return fold_in
+    a2 = qm31_scalar(scalar.q_mul(alpha, alpha))
+    return torch.stack(list(q.q_add(q.q_mul(QM31(*fold_line(g, alpha, log_size)), a2), QM31(*fold_in))))
+
+
+def fold_layer(g, join, alpha: QM31, log_size: int) -> torch.Tensor:
+    """The next FRI layer's (4, 2**(n-1)) accumulator from a layer of 2**n
+    points: the line fold of g, the circle fold of the joining first-layer
+    group, or alpha**2 times the one plus the other.  On CUDA one launch of
+    the fold-layer kernel; on the CPU the plain version."""
+    if (g if g is not None else join).device.type == "cpu":
+        return fold_layer_plain(g, join, alpha, log_size)
+    return fri_fold_cuda.fold_layer(g, join, alpha, log_size)
 
 
 def _plan_positions(witness_fn, n: int, *args) -> np.ndarray:
@@ -115,24 +143,18 @@ def fri_tail(
 
     inner_trees = []
     inner_evals: List[torch.Tensor] = []
-    g = None
+    # layer 0 is the largest group's circle fold; the group of log L joins
+    # layer M - L with alphas[M - L], the alpha of the line fold before it
+    g = fold_layer(None, first_cols[M], alphas[0], M)
     level = M - 1
     for i in range(spec.n_inner_layers):
-        L = M - i
-        if L in first_cols:
-            # the group joining here folds with alphas[M - L] = alphas[i]
-            fold_in = fold_circle(first_cols[L], alphas[i], L)
-            if g is None:
-                g = fold_in
-            else:
-                a2 = qm31_scalar(scalar.q_mul(alphas[i], alphas[i]))
-                g = torch.stack(list(q.q_add(q.q_mul(QM31(*g), a2), QM31(*fold_in))))
         tree_i = tree_cls({level: g})
         inner_trees.append(tree_i)
         inner_evals.append(g)
         channel.mix_root(tree_i.root)
         alphas.append(qm31_scalar(channel.draw_felt()))
-        g = fold_line(g, alphas[i + 1], level)
+        join = first_cols.get(level) if i + 1 < spec.n_inner_layers else None
+        g = fold_layer(g, join, alphas[i + 1], level)
         level -= 1
 
     # ---- last layer (host: the folded evaluations are small by now) ----

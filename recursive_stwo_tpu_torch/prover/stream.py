@@ -25,10 +25,12 @@ of the card's 79.  Here the device holds the base-domain coefficients only:
   tile launch and one quotient-kernel call a chunk (prover/quotients.py).
 
 The hashes are the resident trees': Poseidon31 through `commit._level`
-(kernel K1 on CUDA), SHA-256 through `core/sha256.sha256_level` (the SHA-256
-tree-level kernel on CUDA); on the CPU both take their plain versions.
-Everything else but the tile evaluation and the quotients is eager torch on
-core/m31.py and core/qm31.py.  Nothing falls back: a tile is evaluated on its source's device and an error
+(the Merkle level kernel on CUDA, one launch a level of a chunk, the
+columns read in place as `rows` views), SHA-256 through
+`core/sha256.sha256_level` (the SHA-256 tree-level kernel on CUDA); on the
+CPU both take their plain versions.  The FRI folds are the resident
+provers' (`fri.fold_layer`, one fold-layer launch a layer on CUDA).
+Nothing falls back: a tile is evaluated on its source's device and an error
 propagates.  The proofs are byte-identical to the JAX package's
 (tests/test_torch_stream.py).  `chunk_log` and `cutoff` are keyword
 arguments with the JAX defaults (its RSTPU_STREAM_CHUNK_LOG and

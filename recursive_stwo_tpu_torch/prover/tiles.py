@@ -12,7 +12,8 @@ and 2**(T-b) long, so a domain of 2**27 needs no host table of its size;
 The streamed prover evaluates its columns on these tiles (prover/stream.py;
 on CUDA the tile kernel and the quotient kernel take a chunk's tiles as a
 `TilePoints` and rotate the table themselves) and the FRI folds take their
-1/y and 1/x from them (prover/fri.py).
+1/y and 1/x from them (prover/fri.py; on CUDA the fold-layer kernel reads a
+domain's bases and even table points, ops/fri_fold_cuda.point_table).
 """
 
 from __future__ import annotations

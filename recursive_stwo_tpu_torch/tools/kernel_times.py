@@ -5,8 +5,10 @@
 Imports recursive_stwo_tpu_torch from DIR (default: the checkout holding this
 script), so that two checkouts can be timed in one process on one card, and
 times, at the shapes the port calls them with:
-  K1 (permute_rows): (1024, 16), a transcript step; 2**12 to 2**23 rows,
-     the sizes of the prover's Merkle levels.  Each of K1's schedules
+  K1 (permute_rows): (1024, 16), a transcript step; 2**12 to 2**23 rows
+     (the device grind permutes blocks of 2**22; the provers' Merkle
+     levels ran on K1 at these sizes before the Merkle level kernel, and
+     still do in a parent checkout).  Each of K1's schedules
      separately where the checkout has more than one, and the one
      permute_rows picks ("auto").
   K2 (permute_wordmajor): (4, 16, 16384), a hash step; (4, 16, 2**18).
@@ -44,14 +46,24 @@ times, at the shapes the port calls them with:
   The interaction kernel (interaction), where the checkout has it: each AIR
      table of chain levels 1 and 2 and the last layer's without-Poseidon
      table, one launch a table.
+  The FRI fold-layer kernel (fri_fold), where the checkout has it: every
+     fold launch of a level-1, a level-2 and a last-layer proof (the first
+     layer's circle fold, each layer's line fold with its join), and the
+     three summed a proof.
+  The Merkle level kernel (merkle_level), where the checkout has it: level
+     2's four trees' leaf levels, tree 1's node level with its 48 merged
+     columns, a node level without columns, the first FRI layer's leaf level
+     (4 columns of 2**23), and a streamed chunk (the first 2**20 rows of
+     tree 1's leaf level, the columns a view).
   All beside the plain version's time on the card and their bounds, on
   seeded random columns (tools/prover_cases.py).
 `--kernels poseidon`, `--kernels composition`, `--kernels fold`,
 `--kernels transcript`, `--kernels fft`, `--kernels quotients`,
-`--kernels sample` or `--kernels interaction` times only those.
+`--kernels sample`, `--kernels interaction`, `--kernels fri_fold` or
+`--kernels merkle` times only those.
 Before timing, every kernel output is held to the plain version bit for bit.
 Prints ptxas' report of the transcript, check, domain, fold, FFT pass,
-quotient, sampling and interaction kernels first.
+quotient, sampling, interaction, fold-layer and Merkle level kernels first.
 Two times per shape: CUDA events around `reps` back-to-back calls (what a
 caller's loop pays, the wrapper's host cost included once it exceeds the
 kernel) and the kernels' mean device duration under torch.profiler.  Prints
@@ -479,6 +491,73 @@ def interaction_lines(torch, dev) -> list:
     return lines
 
 
+FOLD_LEVELS = ("level1-5", "level2-1", "bitcoin_proof")
+
+
+def fri_fold_lines(torch, dev) -> list:
+    """One dict a fold launch of FOLD_LEVELS' proofs (tools/prover_cases.
+    fold_shapes), then one a proof with the launches summed, each launch held
+    bit for bit to the plain version first: events and device ms, the plain
+    version's ms, the bound."""
+    from recursive_stwo_tpu_torch.ops import fri_fold_cuda
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    lines = []
+    for name in FOLD_LEVELS:
+        proof = []
+        for k, (log, line, circle) in enumerate(cases.fold_shapes(cases.prover_spec(name))):
+            case = cases.fold_case(log, line, circle, dev, SEED + k)
+            if not torch.equal(cases.run_fold(case), cases.run_fold(case, plain=True)):
+                raise RuntimeError(f"fri_fold differs from the plain version on {name}'s {case.label}")
+            bound, by = fri_fold_cuda.bound_ms(log, line, circle)
+            proof.append(dict(kernel="fri_fold", shape=f"{name} layer {k}: {case.label}", log_size=log,
+                              bytes=fri_fold_cuda.layer_bytes(log, line, circle),
+                              int_ops=fri_fold_cuda.layer_ops(log, line, circle),
+                              events_ms=cuda_ms(torch, lambda: cases.run_fold(case), 20),
+                              device_ms=profiled_ms(torch, lambda: cases.run_fold(case), 20, "fri_layer_kernel"),
+                              plain_ms=cuda_ms(torch, lambda: cases.run_fold(case, plain=True), 1),
+                              bound_ms=bound, bound_by=by))
+            del case
+            torch.cuda.empty_cache()
+        lines += proof
+        lines.append(dict(kernel="fri_fold", shape=f"{name}: a proof's {len(proof)} launches",
+                          **{k: sum(r[k] for r in proof) for k in ("bytes", "int_ops", "events_ms", "device_ms",
+                                                                    "plain_ms", "bound_ms")},
+                          bound_by="bytes" if all(r["bound_by"] == "bytes" for r in proof) else "mixed"))
+    return lines
+
+
+def merkle_lines(torch, dev) -> list:
+    """One dict a Merkle level (see the module docstring), each held bit for
+    bit to the plain version first (the 2**23 leaf level in blocks of 2**21
+    rows): events and device ms, the plain version's ms, the bound."""
+    from recursive_stwo_tpu_torch.ops import merkle_cuda
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    spec = cases.prover_spec("level2-1")
+    tree1 = spec.n_columns_per_log_size[1]
+    todo = [cases.merkle_tree_case(spec, t, dev, SEED + t) for t in range(4)]
+    todo += [cases.merkle_case(tree1[min(tree1)], min(tree1), dev, SEED, node=True),
+             cases.merkle_case(0, 20, dev, SEED, node=True),
+             cases.merkle_case(4, 23, dev, SEED),
+             cases.merkle_tree_case(spec, 1, dev, SEED, rows=1 << 20)]
+    lines = []
+    for case in todo:
+        if not torch.equal(cases.run_merkle(case), cases.run_merkle(case, plain=True, block=1 << 21)):
+            raise RuntimeError(f"merkle_level differs from the plain version on {case.label}")
+        n_cols, node = int(case.cols.shape[0]), case.children is not None
+        bound, by = merkle_cuda.bound_ms(n_cols, node, case.n)
+        lines.append(dict(kernel="merkle_level", shape=f"level 2 {case.label}", nodes=case.n,
+                          permutations=case.n * merkle_cuda.permutations(n_cols, node),
+                          bytes=merkle_cuda.level_bytes(n_cols, node, case.n),
+                          events_ms=cuda_ms(torch, lambda: cases.run_merkle(case), 10),
+                          device_ms=profiled_ms(torch, lambda: cases.run_merkle(case), 10, "merkle_level_kernel"),
+                          plain_ms=cuda_ms(torch, lambda: cases.run_merkle(case, plain=True), 1),
+                          bound_ms=bound, bound_by=by))
+        torch.cuda.empty_cache()
+    return lines
+
+
 def _latencies(dev):
     """The latency probe's cycles a dependent step (and the clock), where
     the checkout has the probe; else None."""
@@ -496,7 +575,7 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
     ap.add_argument("--label", default=None, help="name printed with every line (default: the root)")
     ap.add_argument("--kernels", choices=("all", "poseidon", "composition", "fold", "transcript", "fft", "quotients",
-                                          "sample", "interaction"), default="all")
+                                          "sample", "interaction", "fri_fold", "merkle"), default="all")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -518,7 +597,8 @@ def main() -> int:
     if hasattr(build, "ptxas_report"):
         for name in ("transcript_kernel", "composition_check_kernel", "composition_domain_kernel", "fold_kernel",
                      "fft_pass_kernel", "fft_tile_twiddle_kernel", "quotient_coeffs_kernel", "quotient_points_kernel",
-                     "sample_kernel", "sample_finish_kernel", "interaction_kernel"):
+                     "sample_kernel", "sample_finish_kernel", "interaction_kernel", "fri_layer_kernel",
+                     "merkle_level_kernel"):
             for r in build.ptxas_report(name):
                 print(json.dumps(dict(label=label, ptxas=name, **r)), flush=True)
     if hasattr(build, "sass_instructions"):
@@ -537,7 +617,9 @@ def main() -> int:
                                  ("fft", "fft_cuda.py", fft_lines),
                                  ("quotients", "quotients_cuda.py", quotient_lines),
                                  ("sample", "sample_cuda.py", sample_lines),
-                                 ("interaction", "interaction_cuda.py", interaction_lines)):
+                                 ("interaction", "interaction_cuda.py", interaction_lines),
+                                 ("fri_fold", "fri_fold_cuda.py", fri_fold_lines),
+                                 ("merkle", "merkle_cuda.py", merkle_lines)):
         if args.kernels in ("all", kind) and has(wrapper):
             for line in lines(torch, dev):
                 line.update(label=label, share_of_bound=line["bound_ms"] / line["device_ms"])

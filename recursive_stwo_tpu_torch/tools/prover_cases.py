@@ -1,6 +1,6 @@
-"""Cases that hold the provers' circle FFT, quotient, sampling and interaction
-kernels to their plain versions at the chain's shapes, on seeded random
-canonical inputs.
+"""Cases that hold the provers' circle FFT, quotient, sampling, interaction,
+FRI fold-layer and Merkle level kernels to their plain versions at the
+chain's shapes, on seeded random canonical inputs.
 
 The shapes are those of a committed chain proof (examples/data/<name>.pkl):
 its spec gives every tree's column count at every LDE log size, so
@@ -10,8 +10,10 @@ each first-layer group (the group's coefficient blocks, one a tree, on the
 tiles of chunk 0) and `quotient_case` a group's columns over its whole domain
 (resident) or over a chunk (streamed, tile points), `sample_case` every
 coefficient block a proof samples and its points (one launch of the sampling
-kernel), and `interaction_cases` each AIR table's base-trace rows (one launch
-of the interaction kernel a table).  The values are random:
+kernel), `interaction_cases` each AIR table's base-trace rows (one launch
+of the interaction kernel a table), `fold_shapes` / `fold_case` each FRI
+layer a proof folds (one fold-layer launch each) and `merkle_case` a tree's
+leaf level, whole or a streamed chunk of it as a view.  The values are random:
 the kernels compute field operations whatever the values, and the plain
 versions are what they are held to.  Used by chip_smoke.py phase 3,
 tools/kernel_times.py and tests/test_torch_cuda.py.
@@ -30,7 +32,7 @@ from ..core.qm31 import QM31
 from ..cs import scalar
 from ..models import flagship
 from ..ops import composition_cuda
-from ..prover import circle_fft, interaction, quotients, sample, stream
+from ..prover import circle_fft, commit, fri, interaction, quotients, sample, stream
 from ..prover.prove_host import _add_const, _factors_at_point, _oods_point
 from ..prover.tiles import circle_tiles
 from ..verifier import composition as vcomp
@@ -271,3 +273,90 @@ def n_chunks(spec, chunk_log: int = STREAM_CHUNK_LOG) -> int:
         b = L - spec.log_blowup_factor
         out += 1 << (L - min(L, max(b, chunk_log)))
     return out
+
+
+class FoldCase(NamedTuple):
+    label: str
+    g: object  # (4, 2**n) int64, or None
+    join: object  # (4, 2**n) int64, or None
+    alpha: QM31  # of python ints
+    log_size: int
+
+
+def fold_shapes(spec) -> list:
+    """(log n, line, circle) of each fold-layer launch of a proof of `spec`,
+    in prover/fri.py fri_tail's order: the largest group's circle fold, then
+    each inner layer's line fold, with the next layer's joining group where
+    there is one; spec.n_inner_layers + 1 in all."""
+    M = spec.max_first_layer_log
+    shapes = [(M, False, True)]
+    for i in range(spec.n_inner_layers):
+        level = M - 1 - i
+        shapes.append((level, True, i + 1 < spec.n_inner_layers and level in spec.all_log_sizes))
+    return shapes
+
+
+def fold_case(log_size: int, line: bool, circle: bool, device, seed: int = 0) -> FoldCase:
+    """A fold layer of 2**log_size random points: g (line), the join
+    (circle), or both, and a random alpha."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    g = _rand(gen, (4, 1 << log_size), device) if line else None
+    join = _rand(gen, (4, 1 << log_size), device) if circle else None
+    alpha = QM31(*(int(v) for v in rng.integers(0, P, 4)))
+    parts = [name for name, on in (("line", line), ("join", circle)) if on]
+    return FoldCase(f"{' + '.join(parts)} of (4, 2**{log_size})", g, join, alpha, log_size)
+
+
+def run_fold(case: FoldCase, plain: bool = False) -> torch.Tensor:
+    """The case's next-layer accumulator: the kernel or its plain version."""
+    from ..ops import fri_fold_cuda
+
+    if plain:
+        return fri.fold_layer_plain(case.g, case.join, case.alpha, case.log_size)
+    return fri_fold_cuda.fold_layer(case.g, case.join, case.alpha, case.log_size)
+
+
+class MerkleCase(NamedTuple):
+    label: str
+    children: object  # (2n, 8) int64, or None at a leaf level
+    cols: object  # (n_cols, n) int64 (a view where a chunk), or None
+    n: int
+
+
+def merkle_case(n_cols: int, log_size: int, device, seed: int = 0, node: bool = False, rows=None) -> MerkleCase:
+    """A level of 2**log_size nodes with n_cols random columns (a leaf level,
+    or a node level with random children); `rows` takes the level's first
+    `rows` nodes only, the columns as a view of the whole level's, as a
+    streamed tree hands a chunk."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = 1 << log_size
+    cols = _rand(gen, (n_cols, n), device)
+    if rows is not None:
+        cols, n = cols[:, :rows], rows
+    children = _rand(gen, (2 * n, 8), device) if node else None
+    where = f"the first {rows} rows of " if rows is not None else ""
+    kind = "node" if node else "leaf"
+    return MerkleCase(f"{kind} level, {where}{n_cols} columns of 2**{log_size}", children, cols, n)
+
+
+def merkle_tree_case(spec, tree: int, device, seed: int = 0, rows=None) -> MerkleCase:
+    """Tree `tree`'s leaf level of a proof of `spec`: its widest log size's
+    columns (`merkle_case`)."""
+    L = max(spec.n_columns_per_log_size[tree])
+    case = merkle_case(spec.n_columns_per_log_size[tree][L], L, device, seed, rows=rows)
+    return case._replace(label=f"tree {tree} {case.label}")
+
+
+def run_merkle(case: MerkleCase, plain: bool = False, block=None) -> torch.Tensor:
+    """The case's (n, 8) digests: the kernel or its plain version; the plain
+    version `block` nodes at a time where given (a node depends on its own
+    children and column entries only), so its (rows, 16) states stay small."""
+    from ..ops import merkle_cuda
+
+    if not plain:
+        return merkle_cuda.level(case.children, case.cols, case.n)
+    step = block or case.n
+    return torch.cat([commit.level_plain(None if case.children is None else case.children[2 * s:2 * (s + step)],
+                                         case.cols[:, s:s + step], min(step, case.n - s))
+                      for s in range(0, case.n, step)])

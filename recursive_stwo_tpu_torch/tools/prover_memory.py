@@ -21,7 +21,8 @@ first-layer quotients computed"; the transforms run inside the tree stages.
 `--profile` adds one more proof under `torch.profiler` and prints its device
 time: all kernels, K1 (`permute_rows`), the circle FFT's passes and tile
 twiddles (`fft_`), the quotient kernels (`quotient_`), the sampling kernels
-(`sample_`), the interaction kernel (`interaction_kernel`), the `% p`
+(`sample_`), the interaction kernel (`interaction_kernel`), the fold-layer
+and Merkle level kernels (`fri_layer_kernel`, `merkle_level_kernel`), the `% p`
 (`remainder`) kernels, copies, and the launch counts, the hand-written
 kernels' (csrc/) apart from eager torch's; and `by_stage`, the same proof's
 CUDA kernels by prover stage, hand-written and eager apart, with their
@@ -100,6 +101,8 @@ def _device_time(prof) -> dict:
     quot = [e for e in kernels if "quotient_" in e.key]
     smp = [e for e in kernels if "sample_" in e.key]
     inter = [e for e in kernels if "interaction_kernel" in e.key]
+    fold = [e for e in kernels if "fri_layer_kernel" in e.key]
+    merkle = [e for e in kernels if "merkle_level_kernel" in e.key]
     own = [e for e in kernels if any(k in e.key for k in hand_written_kernels())]
     rem = [e for e in kernels if "remainder" in e.key.lower()]
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
@@ -110,6 +113,8 @@ def _device_time(prof) -> dict:
         fft_ms=ms(fft), fft_launches=sum(e.count for e in fft), quotients_ms=ms(quot),
         quotient_launches=sum(e.count for e in quot), sample_ms=ms(smp), sample_launches=sum(e.count for e in smp),
         interaction_ms=ms(inter), interaction_launches=sum(e.count for e in inter),
+        fri_fold_ms=ms(fold), fri_fold_launches=sum(e.count for e in fold),
+        merkle_ms=ms(merkle), merkle_launches=sum(e.count for e in merkle),
         remainder_ms=ms(rem), remainder_launches=sum(e.count for e in rem),
         copy_ms=ms(copies), copies=sum(e.count for e in copies),
         top=[dict(kernel=e.key[:100], ms=ms([e]), launches=e.count) for e in top],

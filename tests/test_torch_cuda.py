@@ -147,10 +147,12 @@ def test_prove_on_cuda_matches_host(cuda, monkeypatch):
     from recursive_stwo_tpu_torch.prover.prove import prove as t_prove
 
     trace = flagship.demo_trace()
-    poseidon_cuda.reset_launches()
+    launches.reset()
     got = t_prove(trace, flagship.DEMO_CONFIG, device=cuda)
     torch.cuda.synchronize()
-    assert poseidon_cuda.LAUNCHES["permute_rows"] > 0
+    counts = launches.counts()
+    # the Merkle level kernel commits the trees; the demo's PoW is the host's
+    assert counts["merkle_level"] > 0 and counts["permute_rows"] == 0, counts
     # the JAX package's host flow (its device flow would take jax to the GPU)
     monkeypatch.setenv("RSTPU_DEVICE_PROVER", "0")
     assert flagship.proof_bytes(got) == flagship.proof_bytes(r_prove(trace, flagship.DEMO_CONFIG))
@@ -261,18 +263,20 @@ def test_gloo_ranks_sharing_the_card_match_the_cpu_run(cuda):
 
 @pytest.mark.parametrize("name", ["poseidon31", "sha256"])
 def test_prove_np_on_cuda_matches_host(cuda, monkeypatch, name):
-    """prove_np on CUDA against the JAX host prove_np in both flavours; K1
-    runs the Poseidon31 flavour's commits and none of the SHA-256 one's."""
+    """prove_np on CUDA against the JAX host prove_np in both flavours; the
+    Merkle level kernel runs the Poseidon31 flavour's commits and none of
+    the SHA-256 one's, K1 neither."""
     from recursive_stwo_tpu.proof.serialize import serialize_plonk_without_poseidon_proof as r_ser_np
     from recursive_stwo_tpu.prover.prove_np import prove_np as r_prove_np
     from recursive_stwo_tpu_torch.proof.serialize import serialize_plonk_without_poseidon_proof as t_ser_np
     from recursive_stwo_tpu_torch.prover.prove_np import prove_np as t_prove_np
     from test_torch_chain import NP_CONFIG, T_NP_CONFIG, _flavour, _np_trace
 
-    poseidon_cuda.reset_launches()
+    launches.reset()
     got = t_prove_np(_np_trace(), T_NP_CONFIG, device=cuda, **_flavour(name, "port"))
     torch.cuda.synchronize()
-    assert (poseidon_cuda.LAUNCHES["permute_rows"] > 0) == (name == "poseidon31")
+    counts = launches.counts()
+    assert (counts["merkle_level"] > 0) == (name == "poseidon31") and counts["permute_rows"] == 0, counts
     monkeypatch.setenv("RSTPU_DEVICE_PROVER", "0")
     ref = r_prove_np(_np_trace(), NP_CONFIG, **_flavour(name, "reference"))
     mode = "m31x8" if name == "poseidon31" else "bytes32"
@@ -346,13 +350,14 @@ def test_streamed_tree_on_cuda_matches_cpu(cuda, flavor):
 
 def test_prove_streamed_on_cuda_matches_cpu(cuda):
     """The demo prove_streamed on CUDA against the CPU run, byte for byte;
-    K1 commits its trees."""
+    the Merkle level kernel commits its trees."""
     from recursive_stwo_tpu_torch.prover.stream import prove_streamed
 
-    poseidon_cuda.reset_launches()
+    launches.reset()
     got = prove_streamed(flagship.demo_trace(), flagship.DEMO_CONFIG, device=cuda, chunk_log=9, cutoff=5)
     torch.cuda.synchronize()
-    assert poseidon_cuda.LAUNCHES["permute_rows"] > 0
+    counts = launches.counts()
+    assert counts["merkle_level"] > 0 and counts["permute_rows"] == 0, counts
     ref = prove_streamed(flagship.demo_trace(), flagship.DEMO_CONFIG, device="cpu", chunk_log=9, cutoff=5)
     assert flagship.proof_bytes(got) == flagship.proof_bytes(ref)
 
@@ -945,3 +950,124 @@ def test_interaction_poseidon_instance_is_shorter_than_the_domain_kernels(cuda):
     gen = [r["instructions"] for r in build.sass_instructions("interaction_kernelILi1E")]
     dom = [r["instructions"] for r in build.sass_instructions("composition_domain_kernelILi1E")]
     assert len(gen) == len(dom) == 1 and 0 < 2 * gen[0] < dom[0], (gen, dom)
+
+
+# ---- the FRI fold-layer and Merkle level kernels (csrc/fri_fold.cu, csrc/merkle.cu) ----
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 17])
+@pytest.mark.parametrize("line,circle", [(True, False), (False, True), (True, True)])
+def test_fri_fold_bit_exact(cuda, n, line, circle):
+    """One fold layer (a line fold, a join alone, both) in one launch
+    against fold_layer_plain."""
+    from recursive_stwo_tpu_torch.ops import fri_fold_cuda
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    case = cases.fold_case(n, line, circle, cuda, seed=n)
+    before = fri_fold_cuda.LAUNCHES["fri_fold"]
+    got = cases.run_fold(case)
+    torch.cuda.synchronize()
+    assert fri_fold_cuda.LAUNCHES["fri_fold"] == before + 1
+    assert torch.equal(got, cases.run_fold(case, plain=True)), case.label
+
+
+@pytest.mark.parametrize("name", ["level1-5", "level2-1", "level14-1", "bitcoin_proof"])
+def test_fri_fold_bit_exact_at_prover_shapes(cuda, name):
+    """Every fold launch of the chain proof's FRI layers (the last layer's
+    first a circle fold of (4, 2**27)) against the plain version."""
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    for k, (log, line, circle) in enumerate(cases.fold_shapes(cases.prover_spec(name))):
+        case = cases.fold_case(log, line, circle, cuda, seed=k)
+        got = cases.run_fold(case)
+        assert torch.equal(got, cases.run_fold(case, plain=True)), case.label
+        del case, got
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("n_cols", [0, 1, 8, 9, 134])
+@pytest.mark.parametrize("rows", [1, 7, (1 << 20) + 3])
+def test_merkle_level_bit_exact(cuda, n_cols, rows):
+    """Leaf and node levels of n_cols columns at `rows` nodes in one launch
+    each against level_plain."""
+    from recursive_stwo_tpu_torch.ops import merkle_cuda
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    for node in (False, True):
+        if not n_cols and not node:
+            continue
+        case = cases.merkle_case(n_cols, (rows - 1).bit_length(), cuda, seed=rows, node=node, rows=rows)
+        before = merkle_cuda.LAUNCHES["merkle_level"]
+        got = cases.run_merkle(case)
+        torch.cuda.synchronize()
+        assert merkle_cuda.LAUNCHES["merkle_level"] == before + 1
+        assert torch.equal(got, cases.run_merkle(case, plain=True)), case.label
+
+
+def test_merkle_level_reads_a_strided_view(cuda):
+    """A streamed chunk's columns, a view of a wider tensor, against the
+    plain version on the same view and on its contiguous copy."""
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    case = cases.merkle_tree_case(cases.prover_spec("level2-1"), 1, cuda, seed=3, rows=(1 << 16) + 5)
+    assert not case.cols.is_contiguous()
+    got = cases.run_merkle(case)
+    assert torch.equal(got, cases.run_merkle(case, plain=True))
+    assert torch.equal(got, cases.run_merkle(case._replace(cols=case.cols.contiguous())))
+
+
+@pytest.mark.parametrize("prover", ["prove", "prove_sha256p31", "prove_np", "prove_streamed", "prove_np_streamed"])
+def test_provers_run_folds_and_merkle_levels_on_the_kernels(cuda, monkeypatch, prover):
+    """On CUDA every prover folds in spec.n_inner_layers + 1 launches of the
+    fold-layer kernel and hashes its Poseidon31 trees on the Merkle level
+    kernel, never the plain versions and never K1 (the demo PoW is the
+    host's); the proof equals the CPU run's."""
+    from test_torch_chain import T_NP_CONFIG, _np_trace
+
+    from recursive_stwo_tpu_torch.prover import commit, fri
+    from recursive_stwo_tpu_torch.prover.commit import Sha256DeviceTree
+    from recursive_stwo_tpu_torch.prover.prove import prove
+    from recursive_stwo_tpu_torch.prover.prove_np import prove_np
+    from recursive_stwo_tpu_torch.prover.prove_sha256 import Sha256ProverChannel
+    from recursive_stwo_tpu_torch.prover.stream import prove_np_streamed, prove_streamed
+    from recursive_stwo_tpu_torch.verifier.spec import NoPoseidonVerifierSpec, VerifierSpec
+
+    stream_args = dict(chunk_log=6, cutoff=4)
+    run = {
+        "prove": lambda d: prove(flagship.demo_trace(), flagship.DEMO_CONFIG, device=d),
+        "prove_sha256p31": lambda d: prove(flagship.demo_trace(), flagship.DEMO_CONFIG, device=d,
+                                           channel=Sha256ProverChannel(), tree_cls=Sha256DeviceTree),
+        "prove_np": lambda d: prove_np(_np_trace(), T_NP_CONFIG, device=d),
+        "prove_streamed": lambda d: prove_streamed(flagship.demo_trace(), flagship.DEMO_CONFIG, device=d, **stream_args),
+        "prove_np_streamed": lambda d: prove_np_streamed(_np_trace(), T_NP_CONFIG, device=d, **stream_args),
+    }[prover]
+    want = run("cpu")
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on CUDA")
+
+    monkeypatch.setattr(fri, "fold_layer_plain", refuse)
+    monkeypatch.setattr(commit, "level_plain", refuse)
+    launches.reset()
+    got = run(cuda)
+    torch.cuda.synchronize()
+    counts = launches.counts()
+    assert flagship.proof_bytes(got) == flagship.proof_bytes(want)
+    spec = (NoPoseidonVerifierSpec.for_rows(got.log_size, got.config) if prover.startswith("prove_np")
+            else VerifierSpec.from_proof(got))
+    assert counts["fri_fold"] == spec.n_inner_layers + 1, counts
+    assert (counts["merkle_level"] > 0) == (prover != "prove_sha256p31"), counts
+    assert counts["permute_rows"] == 0, counts
+
+
+def test_fri_fold_and_merkle_kernels_keep_every_value_in_registers(cuda):
+    """ptxas' report of the build: the fold-layer kernel's three instances
+    and the Merkle level kernel have no stack frame and spill nothing."""
+    from recursive_stwo_tpu_torch.ops import build
+
+    build.load()
+    for name, instances in (("fri_layer_kernel", 3), ("merkle_level_kernel", 1)):
+        report = build.ptxas_report(name)
+        assert len(report) == instances, (name, report)
+        for r in report:
+            assert (r["stack_bytes"], r["spill_stores"], r["spill_loads"]) == (0, 0, 0), r

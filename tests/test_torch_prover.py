@@ -67,16 +67,23 @@ def test_circle_fft_matches_host(log_size, cols):
 
 
 @pytest.mark.parametrize("rows", [1 << 22, 1 << 7])
-def test_commit_matches_committed_tree(rows, monkeypatch):
-    # the mixed sizes of tests/test_device_prover.py:43-51, hashed in one
-    # block per level and in blocks of 2**7 rows
-    monkeypatch.setattr(t_commit, "ROWS", rows)
+def test_commit_matches_committed_tree(rows):
+    # the mixed sizes of tests/test_device_prover.py:43-51; each level also
+    # hashed in blocks of `rows` rows, its columns as views, as a streamed
+    # tree hashes a chunk
     columns = {13: _rand(1, 5, 1 << 13), 9: _rand(2, 3, 1 << 9), 5: _rand(3, 9, 1 << 5)}
     ref = CommittedTree({L: c.astype(np.uint32) for L, c in columns.items()})
     tree = t_commit.DeviceTree({L: _t(c) for L, c in columns.items()})
     assert len(tree.levels) == len(ref.levels) == 14
     for got, want in zip(tree.levels, ref.levels):
         assert np.array_equal(got.numpy(), want)
+    for k, L in enumerate(range(13, -1, -1)):
+        cols = None if L not in columns else _t(columns[L])
+        children = None if k == 0 else tree.levels[k - 1]
+        blocks = [t_commit._level(None if children is None else children[2 * s : 2 * min(s + rows, 1 << L)],
+                                  None if cols is None else cols[:, s : s + rows], min(rows, (1 << L) - s))
+                  for s in range(0, 1 << L, rows)]
+        assert np.array_equal(torch.cat(blocks).numpy(), ref.levels[k])
     assert np.array_equal(tree.root, ref.root) and tree.root.dtype == np.uint32
     queries = [int(v) for v in np.random.default_rng(4).integers(0, 1 << 13, 11)]
     vals, dec = tree.decommit(queries)
