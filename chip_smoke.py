@@ -1298,8 +1298,9 @@ def check_demo_proof(torch, dev) -> None:
 
 
 def print_timing(label: str, r: dict) -> None:
-    """Phases 7, 8, 12, 13 and 15: a proof's wall, peak, launches, SHA-256
-    trees and stages (a record of tools/chain.timed_proof)."""
+    """Phases 7, 8, 12, 13 and 15: a proof's wall, peak, launches, the
+    SHA-256 kernel's and the copies' device time under a trace, and stages
+    (a record of tools/chain.timed_proof)."""
     print(f"{label}: proving wall {r['prove_s']:.3f} s; peak device memory {r['peak_gib']:.3f} GiB "
           f"({r['peak_bytes']} bytes; {r['start_bytes']} held at the start); kernel launches {r['prove_launches']}")
     if "cuda_kernels" in r:
@@ -1308,11 +1309,9 @@ def print_timing(label: str, r: dict) -> None:
               f"({r['hand_written_kernels']} hand-written); "
               f"{r['copies_and_fills']} copies and fills; kernels busy {r['busy_ms']:.1f} ms, "
               f"{r['busy_ms'] / 1e3 / r['prove_s']:.1%} of the traced proving wall")
-    trees = r["sha_trees"]
-    if trees:
-        print(f"{label}: {len(trees)} resident SHA-256 trees hashed on the card in {r['sha_hash_s']:.3f} s "
-              f"(synchronize()-bounded), digests copied back in {r['sha_copy_s']:.3f} s "
-              f"(largest {max(t['leaves'] for t in trees)} leaves)")
+    if r.get("sha256_ms"):
+        print(f"{label}: the SHA-256 kernel {r['sha256_ms']:.1f} ms of device time under the trace; "
+              f"copies from the card to the host {r['dtoh_ms']:.1f} ms (the SHA-256 trees' digests among them)")
     for s in r["stages"]:
         print(f"{label}:   {s['s']:8.3f} s  {s['stage']}")
 

@@ -11,7 +11,8 @@
 It takes CUDA int64 tensors of canonical residues and raises on anything
 else; the plain version is verifier/verify.fold_values_plain.  The kernel
 launches on the current stream of its tensors' device and does not
-synchronise.  `LAUNCHES` counts its launches.
+synchronise.  `LAUNCHES` counts its launches; the host work before the
+launch is one `fold.prepare` span (utils/spans.py).
 
 The kernel reads the tree column blocks in place.  Its index table, built
 here on the host and cached per spec (`spec_tables`), has an entry for
@@ -42,6 +43,7 @@ import torch
 from ..core import circle_host as circle
 from ..core.circle_host import Coset
 from ..verifier.points_host import _J
+from ..utils.spans import span
 from ..verifier.quotients_host import group_batches
 from . import build
 from .composition_cuda import _check_tensor, _Ops, _Q, _Z
@@ -240,45 +242,46 @@ def fold(spec, pa, raw_queries: torch.Tensor, oods, random_coeff, fri_alphas) ->
     coefficient and the n_inner + 1 FRI alphas, every QM31 a tuple of four
     (B,) limbs.  Returns the (G, B, Q, 4) answers, the (n_inner, B, Q, 4)
     self values and the (B,) last-layer check."""
-    _check_shape(spec)
-    t = spec_tables(spec)
-    M, n_inner = spec.max_first_layer_log, spec.n_inner_layers
-    n_groups = len(spec.all_log_sizes)
-    batch, n_queries = raw_queries.shape
-    _check_smem(spec, n_queries)
-    dev = raw_queries.device
-    _check_tensor(raw_queries, "raw_queries", (batch, n_queries))
-    _check_tensor(pa.samples_flat, "samples_flat", (batch, spec.total_samples, 4), dev)
-    _check_tensor(pa.last_poly, "last_poly", (batch, 1 << spec.log_last_layer_degree_bound, 4), dev)
-    if len(fri_alphas) != n_inner + 1:
-        raise ValueError(f"expected {n_inner + 1} FRI alphas, got {len(fri_alphas)}")
-    qms = (*oods, random_coeff, *fri_alphas)
-    params = torch.stack([torch.as_tensor(c, device=dev).expand(batch) for v in qms for c in v], dim=-1)
-    _check_tensor(params, "the QM31 parameters", (batch, 4 * len(qms)), dev)
+    with span("fold.prepare"):  # the host work before the launch
+        _check_shape(spec)
+        t = spec_tables(spec)
+        M, n_inner = spec.max_first_layer_log, spec.n_inner_layers
+        n_groups = len(spec.all_log_sizes)
+        batch, n_queries = raw_queries.shape
+        _check_smem(spec, n_queries)
+        dev = raw_queries.device
+        _check_tensor(raw_queries, "raw_queries", (batch, n_queries))
+        _check_tensor(pa.samples_flat, "samples_flat", (batch, spec.total_samples, 4), dev)
+        _check_tensor(pa.last_poly, "last_poly", (batch, 1 << spec.log_last_layer_degree_bound, 4), dev)
+        if len(fri_alphas) != n_inner + 1:
+            raise ValueError(f"expected {n_inner + 1} FRI alphas, got {len(fri_alphas)}")
+        qms = (*oods, random_coeff, *fri_alphas)
+        params = torch.stack([torch.as_tensor(c, device=dev).expand(batch) for v in qms for c in v], dim=-1)
+        _check_tensor(params, "the QM31 parameters", (batch, 4 * len(qms)), dev)
 
-    ptrs = [0] * N_PTRS
-    for k, (tree, L, width) in enumerate(t.blocks):
-        x = pa.tree_paths[tree].columns[L]
-        _check_tensor(x, f"tree {tree}'s columns at log size {L}", (batch, n_queries, width), dev)
-        ptrs[P_BLOCKS + k] = x.data_ptr()
-    for g, L in enumerate(spec.all_log_sizes):
-        x = pa.first_layer_paths.sibling_columns[L]
-        _check_tensor(x, f"the first layer's siblings at log size {L}", (batch, n_queries, 4), dev)
-        ptrs[P_FIRST_SIB + g] = x.data_ptr()
-    for i in range(n_inner):
-        x = pa.inner_layer_paths[i].sibling_columns[M - 1 - i]
-        _check_tensor(x, f"inner layer {i}'s siblings", (batch, n_queries, 4), dev)
-        ptrs[P_INNER_SIB + i] = x.data_ptr()
+        ptrs = [0] * N_PTRS
+        for k, (tree, L, width) in enumerate(t.blocks):
+            x = pa.tree_paths[tree].columns[L]
+            _check_tensor(x, f"tree {tree}'s columns at log size {L}", (batch, n_queries, width), dev)
+            ptrs[P_BLOCKS + k] = x.data_ptr()
+        for g, L in enumerate(spec.all_log_sizes):
+            x = pa.first_layer_paths.sibling_columns[L]
+            _check_tensor(x, f"the first layer's siblings at log size {L}", (batch, n_queries, 4), dev)
+            ptrs[P_FIRST_SIB + g] = x.data_ptr()
+        for i in range(n_inner):
+            x = pa.inner_layer_paths[i].sibling_columns[M - 1 - i]
+            _check_tensor(x, f"inner layer {i}'s siblings", (batch, n_queries, 4), dev)
+            ptrs[P_INNER_SIB + i] = x.data_ptr()
 
-    answers = torch.empty((n_groups, batch, n_queries, 4), dtype=torch.int64, device=dev)
-    self_vals = torch.empty((n_inner, batch, n_queries, 4), dtype=torch.int64, device=dev)
-    last_eq = torch.empty((batch, n_queries), dtype=torch.bool, device=dev)
-    table = _device_table(spec, dev)
-    ptrs[P_RAW], ptrs[P_SAMPLES], ptrs[P_PARAMS] = raw_queries.data_ptr(), pa.samples_flat.data_ptr(), params.data_ptr()
-    ptrs[P_LAST_POLY], ptrs[P_TAB] = pa.last_poly.data_ptr(), table.data_ptr()
-    ptrs[P_ANSWERS], ptrs[P_SELF_VALS], ptrs[P_LAST_EQ] = answers.data_ptr(), self_vals.data_ptr(), last_eq.data_ptr()
-    scalars = _scalars(spec, batch, n_queries, len(qms))
-    lib = build.load()
+        answers = torch.empty((n_groups, batch, n_queries, 4), dtype=torch.int64, device=dev)
+        self_vals = torch.empty((n_inner, batch, n_queries, 4), dtype=torch.int64, device=dev)
+        last_eq = torch.empty((batch, n_queries), dtype=torch.bool, device=dev)
+        table = _device_table(spec, dev)
+        ptrs[P_RAW], ptrs[P_SAMPLES], ptrs[P_PARAMS] = raw_queries.data_ptr(), pa.samples_flat.data_ptr(), params.data_ptr()
+        ptrs[P_LAST_POLY], ptrs[P_TAB] = pa.last_poly.data_ptr(), table.data_ptr()
+        ptrs[P_ANSWERS], ptrs[P_SELF_VALS], ptrs[P_LAST_EQ] = answers.data_ptr(), self_vals.data_ptr(), last_eq.data_ptr()
+        scalars = _scalars(spec, batch, n_queries, len(qms))
+        lib = build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fold_phase((ctypes.c_int64 * N_SCALARS)(*scalars), (ctypes.c_int64 * N_PTRS)(*ptrs), stream)

@@ -4,7 +4,8 @@
 `air.plonk_columns` / `air.poseidon_columns`, row order) and uploads them once
 as int64, the twin of the single upload at device_prove.py:662-666.
 `to_numpy` brings a tensor back as uint32, the dtype of the JAX package's
-proof containers, so both packages' proofs serialise with the same function.
+proof containers, so both packages' proofs serialise with the same function;
+each call is one `to_host` span (utils/spans.py).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from . import air
 
 
@@ -33,15 +35,15 @@ def to_device(x, device) -> torch.Tensor:
 
 def to_numpy(x: torch.Tensor) -> np.ndarray:
     """int64 tensor of residues -> host uint32 array."""
-    return x.cpu().numpy().astype(np.uint32)
+    with span("to_host"):
+        return x.cpu().numpy().astype(np.uint32)
 
 
 def trace_to_torch(trace: dict, device) -> TraceArrays:
-    plonk_pre, plonk_tr = air.plonk_columns(trace)
-    pos_pre, pos_tr, lq = air.poseidon_columns(trace)
+    with span("prove.air"):
+        plonk_pre, plonk_tr = air.plonk_columns(trace)
+        pos_pre, pos_tr, lq = air.poseidon_columns(trace)
     lp = plonk_pre.shape[1].bit_length() - 1
-    return TraceArrays(
-        *(to_device(a, device) for a in (plonk_pre, plonk_tr, pos_pre, pos_tr)),
-        log_plonk=lp,
-        log_poseidon=lq,
-    )
+    with span("prove.upload"):
+        cols = [to_device(a, device) for a in (plonk_pre, plonk_tr, pos_pre, pos_tr)]
+    return TraceArrays(*cols, log_plonk=lp, log_poseidon=lq)

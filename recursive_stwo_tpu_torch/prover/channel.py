@@ -21,6 +21,7 @@ import torch
 
 from ..core import poseidon2
 from ..utils import native
+from ..utils.spans import span
 from .channel_host import PoseidonChannel as HostPoseidonChannel
 
 GRIND_DEVICE_BITS = 22
@@ -46,9 +47,12 @@ def grind_device(digest, pow_bits: int, block_log: int = 22, device="cuda") -> i
         states[:, 1] = (base >> _LIMB0) & ((1 << _LIMB) - 1)
         states[:, 2] = (base >> (_LIMB0 + _LIMB)) & ((1 << _LIMB) - 1)
         states[:, 8:] = tail
-        hits = torch.nonzero((poseidon2.permute(states)[:, 8] & mask) == 0)
+        # nonzero reads the hits' count back to the host: the block's check
+        with span("to_host"):
+            hits = torch.nonzero((poseidon2.permute(states)[:, 8] & mask) == 0)
         if hits.numel():
-            return base + int(hits[0, 0])
+            with span("to_host"):
+                return base + int(hits[0, 0])
         base += n
 
 

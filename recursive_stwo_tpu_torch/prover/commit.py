@@ -14,11 +14,14 @@ its columns stay on the device, as the quotient stage reads them there, and
 its levels are hashed there too, by `core/sha256.sha256_level` (the SHA-256
 tree-level kernel on CUDA, its plain version on the CPU); only each level's
 digests are copied to the host.
+
+Every tree built is one `tree.commit` span (utils/spans.py); a SHA-256
+level of a block is one `sha256.level` span, the copy of its digests one
+`to_host` span after it.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List
 
 import numpy as np
@@ -27,6 +30,7 @@ import torch
 from ..core import poseidon2
 from ..core.sha256 import sha256_level
 from ..ops import merkle_cuda
+from ..utils.spans import span
 from .arrays import to_numpy
 from .commit_host import CommittedTree
 
@@ -34,10 +38,6 @@ from .commit_host import CommittedTree
 # the block covers: a block's digests on the device are (SHA_ROWS, 8) int64
 # (256 MiB), where a whole 2**27-leaf level would be 8 GiB
 SHA_ROWS = 1 << 22
-# one entry per SHA-256 tree built since the last clear: its leaves, the
-# seconds of hashing on the device (bounded by synchronize() on CUDA) and of
-# the digests' device-to-host copies
-SHA_TREE_TIMES: List[dict] = []
 
 
 def absorb_columns(cols: torch.Tensor) -> torch.Tensor:
@@ -92,22 +92,15 @@ def sha256_levels(cols_by_log: Dict[int, torch.Tensor]) -> List[np.ndarray]:
     (the kernel writes int64 words in [0, 2**32)), which the array reads as
     uint32."""
     max_log = max(cols_by_log)
-    dev = cols_by_log[max_log].device
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     levels = [np.empty((1 << L, 8), np.uint32) for L in range(max_log, -1, -1)]
-    hash_s = copy_s = 0.0
 
     def level(children, L: int, lo: int, hi: int) -> torch.Tensor:
-        nonlocal hash_s, copy_s
         cols = cols_by_log.get(L)
-        t = time.perf_counter()
-        h = sha256_level(children, None if cols is None else cols[:, lo:hi])
-        sync()
-        t2 = time.perf_counter()
+        with span("sha256.level"):
+            h = sha256_level(children, None if cols is None else cols[:, lo:hi])
         # straight into the level's host array: no host tensor in between
-        torch.from_numpy(levels[max_log - L][lo:hi].view(np.int32)).copy_(h.to(torch.int32))
-        hash_s += t2 - t
-        copy_s += time.perf_counter() - t2
+        with span("to_host"):
+            torch.from_numpy(levels[max_log - L][lo:hi].view(np.int32)).copy_(h.to(torch.int32))
         return h
 
     block_log = min(max_log, SHA_ROWS.bit_length() - 1)
@@ -122,7 +115,6 @@ def sha256_levels(cols_by_log: Dict[int, torch.Tensor]) -> List[np.ndarray]:
     h = torch.cat(summits) if len(summits) > 1 else summits[0]
     for L in range(top - 1, -1, -1):
         h = level(h, L, 0, 1 << L)
-    SHA_TREE_TIMES.append(dict(leaves=1 << max_log, hash_s=hash_s, copy_s=copy_s))
     return levels
 
 
@@ -142,7 +134,8 @@ class DeviceTree(CommittedTree):
     def __init__(self, columns_by_log: Dict[int, torch.Tensor]):
         self.columns_by_log = {int(L): c for L, c in columns_by_log.items()}
         self.max_log = max(self.columns_by_log)
-        self.levels = self._build_levels()
+        with span("tree.commit"):
+            self.levels = self._build_levels()
         if self.levels[-1].shape[0] != 1:
             raise ValueError("the last level must hold the root alone")
 

@@ -1,5 +1,6 @@
 """Host copy of recursive_stwo_tpu/prover/commit.py (numpy only; its jax branches are
-removed).  The torch twin is commit.py beside it.
+removed; `decommit`'s two passes are the port's `decommit.plan` and
+`decommit.gather` spans, utils/spans.py).  The torch twin is commit.py beside it.
 
 Merkle commitment over mixed-size column evaluations (stwo layout).
 
@@ -23,6 +24,7 @@ import numpy as np
 
 from ..core import poseidon2_host as poseidon2
 from ..proof.containers import MerkleDecommitment
+from ..utils.spans import span
 
 
 def _hash_leaf_level(columns: np.ndarray) -> np.ndarray:
@@ -125,43 +127,44 @@ class CommittedTree:
         Two passes: a host-side index plan (pure query math), then batched
         gathers per level (`level_rows`/`column_rows`), so the same code
         path serves numpy levels and device-resident levels."""
-        queries = sorted(set(int(q) for q in raw_queries))
+        with span("decommit.plan"):
+            queries = sorted(set(int(q) for q in raw_queries))
 
-        # -- pass 1: plan ---------------------------------------------------
-        value_plan: List[Tuple[int, List[int]]] = [(self.max_log, queries)]
-        witness_plan: List[Tuple[int, List[int]]] = []  # (level_idx, sibs)
-        computed = set(queries)  # node indices at the current level
-        positions = queries
-        for i in range(self.max_log):
-            level_log = self.max_log - 1 - i
-            has_cols = level_log in self.columns_by_log
-            parents: List[int] = []
-            sibs: List[int] = []
-            seen = set()
-            for position in positions:
-                parent = position >> 1
-                if parent in seen:
-                    continue
-                seen.add(parent)
-                sibling = position ^ 1
-                if sibling not in computed:
-                    sibs.append(sibling)
-                parents.append(parent)
-            if has_cols and parents:
-                value_plan.append((level_log, parents))
-            if sibs:
-                witness_plan.append((i, sibs))
-            computed = seen
-            positions = sorted(parents)
+            # -- pass 1: plan ---------------------------------------------------
+            value_plan: List[Tuple[int, List[int]]] = [(self.max_log, queries)]
+            witness_plan: List[Tuple[int, List[int]]] = []  # (level_idx, sibs)
+            computed = set(queries)  # node indices at the current level
+            positions = queries
+            for i in range(self.max_log):
+                level_log = self.max_log - 1 - i
+                has_cols = level_log in self.columns_by_log
+                parents: List[int] = []
+                sibs: List[int] = []
+                seen = set()
+                for position in positions:
+                    parent = position >> 1
+                    if parent in seen:
+                        continue
+                    seen.add(parent)
+                    sibling = position ^ 1
+                    if sibling not in computed:
+                        sibs.append(sibling)
+                    parents.append(parent)
+                if has_cols and parents:
+                    value_plan.append((level_log, parents))
+                if sibs:
+                    witness_plan.append((i, sibs))
+                computed = seen
+                positions = sorted(parents)
 
-        # -- pass 2: gather ---------------------------------------------------
-        values: List[np.ndarray] = []
-        for level_log, idx in value_plan:
-            gathered = self.column_rows(level_log, idx)  # (n_cols, len(idx))
-            values.append(gathered.T.reshape(-1))
-        hash_witness = [
-            self.level_rows(i, sibs) for i, sibs in witness_plan
-        ]
+        with span("decommit.gather"):
+            values: List[np.ndarray] = []
+            for level_log, idx in value_plan:
+                gathered = self.column_rows(level_log, idx)  # (n_cols, len(idx))
+                values.append(gathered.T.reshape(-1))
+            hash_witness = [
+                self.level_rows(i, sibs) for i, sibs in witness_plan
+            ]
 
         decommitment = MerkleDecommitment(
             hash_witness=(

@@ -13,6 +13,13 @@ The last-layer interpolation, the query draws, the decommit plans and the
 witness plans are the JAX package's host code.  A witness plan names the
 positions it gathers; here the plan runs on the identity evaluation
 (`_plan_positions`) and only those rows are gathered on the device.
+
+`fri_tail`'s stages are spans (utils/spans.py): `fri.layers` from the
+first-layer tree to the last layer's felts mixed (in it `fri.first_tree`,
+each layer's `fri.fold`, `fri.layer_tree`, `channel.mix_root` and
+`channel.draw`, then `fri.last_layer`), `fri.grind`, `fri.queries`, and
+`fri.decommit` (in it `decommit.plan` for the host index plans and
+`decommit.gather` for the device gathers).
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from ..core.qm31 import QM31
 from ..cs import scalar
 from ..ops import fri_fold_cuda
 from ..proof.containers import FriLayerProof, FriProof, StarkProof
+from ..utils.spans import span
 from . import fri_host as host_fri
 from . import tiles
 from .arrays import to_numpy
@@ -93,14 +101,16 @@ def fold_layer(g, join, alpha: QM31, log_size: int) -> torch.Tensor:
 
 def _plan_positions(witness_fn, n: int, *args) -> np.ndarray:
     """The evaluation positions a host witness function reads, in its order."""
-    idx = np.arange(n, dtype=np.uint32)
-    return witness_fn(QM31(idx, idx, idx, idx), *args)[:, 0].astype(np.int64)
+    with span("decommit.plan"):
+        idx = np.arange(n, dtype=np.uint32)
+        return witness_fn(QM31(idx, idx, idx, idx), *args)[:, 0].astype(np.int64)
 
 
 def _gather(g: torch.Tensor, positions: np.ndarray) -> np.ndarray:
     """(k, 4) host rows of (4, N) device limbs."""
-    idx = torch.as_tensor(positions, device=g.device)
-    return to_numpy(g[:, idx].T).reshape(-1, 4)
+    with span("decommit.gather"):
+        idx = torch.as_tensor(positions, device=g.device)
+        return to_numpy(g[:, idx].T).reshape(-1, 4)
 
 
 def first_layer_witness(first_cols: Dict[int, torch.Tensor], raw_queries: List[int], max_log: int) -> np.ndarray:
@@ -116,6 +126,16 @@ def first_layer_witness(first_cols: Dict[int, torch.Tensor], raw_queries: List[i
 
 def inner_layer_witness(g: torch.Tensor, queries: List[int]) -> np.ndarray:
     return _gather(g, _plan_positions(host_fri.inner_layer_witness, g.shape[1], queries))
+
+
+def _mix_root(channel, tree) -> None:
+    with span("channel.mix_root"):
+        channel.mix_root(tree.root)
+
+
+def _draw_alpha(channel) -> QM31:
+    with span("channel.draw"):
+        return qm31_scalar(channel.draw_felt())
 
 
 def _mix_felts(channel, felts) -> None:
@@ -136,75 +156,84 @@ def fri_tail(
     limbs.  `tree_cls` is any callable from {log: (4, 2**log) limbs} to a
     committed tree (the streamed prover's stream the large layers)."""
     plog("FRI first-layer quotients computed")
-    first_tree = tree_cls(first_cols)
-    channel.mix_root(first_tree.root)
-    alphas = [qm31_scalar(channel.draw_felt())]
     M = spec.max_first_layer_log
+    with span("fri.layers"):
+        with span("fri.first_tree"):
+            first_tree = tree_cls(first_cols)
+        _mix_root(channel, first_tree)
+        alphas = [_draw_alpha(channel)]
 
-    inner_trees = []
-    inner_evals: List[torch.Tensor] = []
-    # layer 0 is the largest group's circle fold; the group of log L joins
-    # layer M - L with alphas[M - L], the alpha of the line fold before it
-    g = fold_layer(None, first_cols[M], alphas[0], M)
-    level = M - 1
-    for i in range(spec.n_inner_layers):
-        tree_i = tree_cls({level: g})
-        inner_trees.append(tree_i)
-        inner_evals.append(g)
-        channel.mix_root(tree_i.root)
-        alphas.append(qm31_scalar(channel.draw_felt()))
-        join = first_cols.get(level) if i + 1 < spec.n_inner_layers else None
-        g = fold_layer(g, join, alphas[i + 1], level)
-        level -= 1
+        inner_trees = []
+        inner_evals: List[torch.Tensor] = []
+        # layer 0 is the largest group's circle fold; the group of log L joins
+        # layer M - L with alphas[M - L], the alpha of the line fold before it
+        with span("fri.fold"):
+            g = fold_layer(None, first_cols[M], alphas[0], M)
+        level = M - 1
+        for i in range(spec.n_inner_layers):
+            with span("fri.layer_tree"):
+                tree_i = tree_cls({level: g})
+            inner_trees.append(tree_i)
+            inner_evals.append(g)
+            _mix_root(channel, tree_i)
+            alphas.append(_draw_alpha(channel))
+            join = first_cols.get(level) if i + 1 < spec.n_inner_layers else None
+            with span("fri.fold"):
+                g = fold_layer(g, join, alphas[i + 1], level)
+            level -= 1
 
-    # ---- last layer (host: the folded evaluations are small by now) ----
-    last_bound = config.fri_config.log_last_layer_degree_bound
-    n_last = 1 << last_bound
-    g_host = to_numpy(g)
-    last_full = host_fri.line_interpolate(QM31(*g_host), level)
-    keep = np.arange(n_last) << (level - last_bound)
-    mask = np.zeros(1 << level, bool)
-    mask[keep] = True
-    if last_full[~mask].any():
-        raise ValueError("folded evaluations exceed the last-layer degree bound")
-    last_poly = last_full[keep]
-    _mix_felts(channel, last_poly)
+        # ---- last layer (host: the folded evaluations are small by now) ----
+        with span("fri.last_layer"):
+            last_bound = config.fri_config.log_last_layer_degree_bound
+            n_last = 1 << last_bound
+            g_host = to_numpy(g)
+            last_full = host_fri.line_interpolate(QM31(*g_host), level)
+            keep = np.arange(n_last) << (level - last_bound)
+            mask = np.zeros(1 << level, bool)
+            mask[keep] = True
+            if last_full[~mask].any():
+                raise ValueError("folded evaluations exceed the last-layer degree bound")
+            last_poly = last_full[keep]
+            _mix_felts(channel, last_poly)
 
     # ---- PoW + queries ----
     plog("FRI layers committed; grinding PoW")
-    nonce = channel.grind_pow(config.pow_bits)
+    with span("fri.grind"):
+        nonce = channel.grind_pow(config.pow_bits)
     plog("PoW ground")
-    channel.mix_u64(nonce)
-    raw_queries: List[int] = []
-    for _ in range(-(-config.fri_config.n_queries // 8)):
-        a, b = channel.draw_felts()
-        raw_queries.extend(int(x) for x in a)
-        raw_queries.extend(int(x) for x in b)
-    raw_queries = [v & ((1 << M) - 1) for v in raw_queries[: config.fri_config.n_queries]]
+    with span("fri.queries"):
+        channel.mix_u64(nonce)
+        raw_queries: List[int] = []
+        for _ in range(-(-config.fri_config.n_queries // 8)):
+            a, b = channel.draw_felts()
+            raw_queries.extend(int(x) for x in a)
+            raw_queries.extend(int(x) for x in b)
+        raw_queries = [v & ((1 << M) - 1) for v in raw_queries[: config.fri_config.n_queries]]
 
     # ---- decommitments (host plans, device gathers) ----
-    queried_values, decommitments = [], []
-    for tree in trees:
-        vals, dec = tree.decommit([v >> (M - tree.max_log) for v in raw_queries])
-        queried_values.append(vals)
-        decommitments.append(dec)
+    with span("fri.decommit"):
+        queried_values, decommitments = [], []
+        for tree in trees:
+            vals, dec = tree.decommit([v >> (M - tree.max_log) for v in raw_queries])
+            queried_values.append(vals)
+            decommitments.append(dec)
 
-    first_layer = FriLayerProof(
-        fri_witness=first_layer_witness(first_cols, raw_queries, M),
-        decommitment=host_fri.decommit_pair(first_tree, raw_queries),
-        commitment=first_tree.root,
-    )
-    inner_layers = []
-    cur_queries = [v >> 1 for v in raw_queries]
-    for tree_i, g_i in zip(inner_trees, inner_evals):
-        inner_layers.append(
-            FriLayerProof(
-                fri_witness=inner_layer_witness(g_i, cur_queries),
-                decommitment=host_fri.decommit_pair(tree_i, cur_queries),
-                commitment=tree_i.root,
-            )
+        first_layer = FriLayerProof(
+            fri_witness=first_layer_witness(first_cols, raw_queries, M),
+            decommitment=host_fri.decommit_pair(first_tree, raw_queries),
+            commitment=first_tree.root,
         )
-        cur_queries = [v >> 1 for v in cur_queries]
+        inner_layers = []
+        cur_queries = [v >> 1 for v in raw_queries]
+        for tree_i, g_i in zip(inner_trees, inner_evals):
+            inner_layers.append(
+                FriLayerProof(
+                    fri_witness=inner_layer_witness(g_i, cur_queries),
+                    decommitment=host_fri.decommit_pair(tree_i, cur_queries),
+                    commitment=tree_i.root,
+                )
+            )
+            cur_queries = [v >> 1 for v in cur_queries]
     plog("decommitments gathered")
 
     return StarkProof(

@@ -1,5 +1,6 @@
 """Host copy of recursive_stwo_tpu/prover/fri.py (numpy only; its jax branches are
-removed).  The torch twin is fri.py beside it.
+removed; `decommit_pair`'s plan and gathers are the port's `decommit.plan` and
+`decommit.gather` spans, utils/spans.py).  The torch twin is fri.py beside it.
 
 FRI commit + decommit (prover side).
 
@@ -22,6 +23,7 @@ from ..core import m31_host as m31
 from ..core import qm31_host as q
 from ..core.qm31_host import QM31
 from ..proof.containers import MerkleDecommitment
+from ..utils.spans import span
 from .commit_host import CommittedTree
 
 
@@ -145,42 +147,44 @@ def decommit_pair(
 
     Plan (index math) then batched gathers via `tree.level_rows`, so the
     same code serves host and device-resident trees."""
-    max_log = tree.max_log
-    data_set = set(tree.columns_by_log)
-    plan: List[Tuple[int, List[int]]] = []  # (levels index, node indices)
+    with span("decommit.plan"):
+        max_log = tree.max_log
+        data_set = set(tree.columns_by_log)
+        plan: List[Tuple[int, List[int]]] = []  # (levels index, node indices)
 
-    queries = sorted(set(int(v) for v in leaf_queries))
-    touched: set = set()  # nodes at the level below current with hashes
-    for current in range(max_log, -1, -1):
-        level_idx = max_log - current  # tree.levels index of `current`
-        wanted: List[int] = []
-        if current in data_set:
-            new_touched = set()
-            for qq in queries:
-                new_touched.add(qq)
-                new_touched.add(qq ^ 1)
-            if current != max_log:
-                for qq in sorted(new_touched):
+        queries = sorted(set(int(v) for v in leaf_queries))
+        touched: set = set()  # nodes at the level below current with hashes
+        for current in range(max_log, -1, -1):
+            level_idx = max_log - current  # tree.levels index of `current`
+            wanted: List[int] = []
+            if current in data_set:
+                new_touched = set()
+                for qq in queries:
+                    new_touched.add(qq)
+                    new_touched.add(qq ^ 1)
+                if current != max_log:
+                    for qq in sorted(new_touched):
+                        for idx in (qq << 1, (qq << 1) | 1):
+                            if idx not in touched:
+                                wanted.append(idx)
+                                touched.add(idx)
+                touched_next = new_touched
+            else:
+                assert current != max_log
+                touched_next = set()
+                for qq in queries:
+                    touched_next.add(qq)
                     for idx in (qq << 1, (qq << 1) | 1):
                         if idx not in touched:
                             wanted.append(idx)
                             touched.add(idx)
-            touched_next = new_touched
-        else:
-            assert current != max_log
-            touched_next = set()
-            for qq in queries:
-                touched_next.add(qq)
-                for idx in (qq << 1, (qq << 1) | 1):
-                    if idx not in touched:
-                        wanted.append(idx)
-                        touched.add(idx)
-        if wanted:
-            plan.append((level_idx - 1, wanted))
-        touched = touched_next
-        queries = sorted({qq >> 1 for qq in queries})
+            if wanted:
+                plan.append((level_idx - 1, wanted))
+            touched = touched_next
+            queries = sorted({qq >> 1 for qq in queries})
 
-    hash_witness = [tree.level_rows(li, idx) for li, idx in plan]
+    with span("decommit.gather"):
+        hash_witness = [tree.level_rows(li, idx) for li, idx in plan]
     return MerkleDecommitment(
         hash_witness=(
             np.concatenate(hash_witness)

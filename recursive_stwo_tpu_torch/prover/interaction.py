@@ -31,6 +31,7 @@ from ..core import qm31 as q
 from ..cs import scalar
 from ..ops import interaction_cuda
 from ..ops.composition_cuda import air_id
+from ..utils.spans import span
 from .composition import _ProverEval
 
 
@@ -82,7 +83,8 @@ def _close(rows: torch.Tensor) -> np.ndarray:
     rows, shift = total / N, then the inclusive prefix sum of S - shift."""
     n = rows.shape[1]
     S = rows[-4:]
-    total = tuple(int(v) for v in (S.sum(dim=1) % m31.P).tolist())
+    with span("to_host"):
+        total = tuple(int(v) for v in (S.sum(dim=1) % m31.P).tolist())
     shift = scalar.q_mul_m31(total, scalar.m_inv(n))
     S.sub_(torch.tensor(shift, dtype=torch.int64, device=rows.device)[:, None]).remainder_(m31.P)
     S.copy_(torch.cumsum(S, dim=1).remainder_(m31.P))

@@ -20,6 +20,9 @@ of the card's 79.  Here the device holds the base-domain coefficients only:
   its summit digests at level K; only levels K..0 leave the device.  A
   decommitment recomputes the spans it touches (2**(M-K) leaves each) and
   checks each against its stored summit, raising on a mismatch.
+  The commit is one `tree.commit` span, each chunk in it a `stream.chunk`
+  span and the top levels a `stream.host_levels` span; a span recomputed
+  for a decommitment is a `stream.recompute` span (utils/spans.py).
 * **Streamed quotients**: the first-layer quotients of a chunk are taken
   from its re-evaluated columns and never need the LDE whole: on CUDA one
   tile launch and one quotient-kernel call a chunk (prover/quotients.py).
@@ -52,6 +55,7 @@ from ..core import m31
 from ..core.sha256 import sha256_level
 from ..ops import fft_cuda
 from ..proof.containers import PcsConfig, PlonkWithoutPoseidonProof, PlonkWithPoseidonProof
+from ..utils.spans import span
 from ..verifier import composition as vcomp
 from ..verifier import sha256_merkle
 from ..verifier.arrays import require_device
@@ -206,10 +210,15 @@ class StreamedTree(CommittedTree):
         self.C, self.K = C, K
         self.columns_by_log = {L: _ColShape((s.n_cols, 1 << L)) for L, s in self.sources.items()}
 
-        level_k = to_numpy(torch.cat([self._hash_span(C, j)[0] for j in range(1 << (M - C))]))
-        tops = [level_k]
-        for _ in range(K):
-            tops.append(self._host_node_level(tops[-1]))
+        with span("tree.commit"):
+            summits = []
+            for j in range(1 << (M - C)):
+                with span("stream.chunk"):
+                    summits.append(self._hash_span(C, j)[0])
+            tops = [to_numpy(torch.cat(summits))]
+            with span("stream.host_levels"):
+                for _ in range(K):
+                    tops.append(self._host_node_level(tops[-1]))
         self._tops = tops  # index i: level K - i
         self._spans: Dict[int, Dict[int, np.ndarray]] = {}
 
@@ -255,14 +264,15 @@ class StreamedTree(CommittedTree):
         and checked against the committed summit."""
         if s not in self._spans.get(log, {}):
             K = self.K
-            top, levels = self._hash_span(self.max_log - K, s, keep=True)
-            # the summit self-check: the recomputed span must match the
-            # streamed commit (guards the chunked re-evaluation end to end)
-            if not np.array_equal(to_numpy(top), self._tops[0][s : s + 1]):
-                raise RuntimeError(f"span {s} of the streamed tree does not hash to its committed summit")
-            for L, h in levels.items():
-                if L > K:
-                    self._spans.setdefault(L, {})[s] = to_numpy(h)
+            with span("stream.recompute"):
+                top, levels = self._hash_span(self.max_log - K, s, keep=True)
+                # the summit self-check: the recomputed span must match the
+                # streamed commit (guards the chunked re-evaluation end to end)
+                if not np.array_equal(to_numpy(top), self._tops[0][s : s + 1]):
+                    raise RuntimeError(f"span {s} of the streamed tree does not hash to its committed summit")
+                for L, h in levels.items():
+                    if L > K:
+                        self._spans.setdefault(L, {})[s] = to_numpy(h)
         return self._spans[log][s]
 
     def level_rows(self, level_idx: int, indices) -> np.ndarray:

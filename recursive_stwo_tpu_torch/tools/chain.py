@@ -138,17 +138,18 @@ def shape_of(proof) -> dict:
 
 def timed_proof(prove_fn, dev, count_kernels: bool = False) -> tuple:
     """Run prove_fn(progress) on the card with the kernels' launch counts at
-    0, the peak memory reset and the SHA-256 tree times cleared.  Returns
-    (proof, record): the wall, the peak of `torch.cuda.max_memory_allocated`
-    and what the process held when the proof began (`start_bytes`: tables
-    cached by earlier proofs; the proof's own peak is the difference), the
-    launches, each resident SHA-256 tree's hashing and digest copy-back
-    seconds, the native code's OpenMP threads, and each stage (a `progress`
-    message) with its seconds, its own peak and the bytes held at its end.
-    With `count_kernels` the proof runs under a device-only torch.profiler
-    trace and the record gains `cuda_kernels`, every kernel the card ran
-    (eager torch's and the hand-written ones; copies and fills apart, as
-    `copies_and_fills`): its wall then includes the trace's cost."""
+    0 and the peak memory reset.  Returns (proof, record): the wall, the
+    peak of `torch.cuda.max_memory_allocated` and what the process held when
+    the proof began (`start_bytes`: tables cached by earlier proofs; the
+    proof's own peak is the difference), the launches, the native code's
+    OpenMP threads, and each stage (a `progress` message) with its seconds,
+    its own peak and the bytes held at its end.  With `count_kernels` the
+    proof runs under a device-only torch.profiler trace and the record gains
+    `cuda_kernels`, every kernel the card ran (eager torch's and the
+    hand-written ones; copies and fills apart, as `copies_and_fills`), and
+    of the trace's device time the SHA-256 kernel's (`sha256_ms`) and the
+    copies' from the card to the host (`dtoh_ms`, the SHA-256 trees' digests
+    among them): its wall then includes the trace's cost."""
     stages = []
     clock = [0.0]
 
@@ -165,7 +166,6 @@ def timed_proof(prove_fn, dev, count_kernels: bool = False) -> tuple:
     torch.cuda.reset_peak_memory_stats(dev)
     start_bytes = torch.cuda.memory_allocated(dev)
     launches.reset()
-    commit.SHA_TREE_TIMES.clear()
     counted = {}
     start = clock[0] = time.perf_counter()
     if count_kernels:
@@ -181,13 +181,10 @@ def timed_proof(prove_fn, dev, count_kernels: bool = False) -> tuple:
         torch.cuda.synchronize(dev)
         prove_s = time.perf_counter() - start
     peak = max([torch.cuda.max_memory_allocated(dev)] + [s["peak_bytes"] for s in stages])
-    sha_trees = list(commit.SHA_TREE_TIMES)
     return proof, dict(
         prove_s=prove_s, peak_gib=peak / 2**30, peak_bytes=peak, start_bytes=start_bytes,
         own_peak_gib=(peak - start_bytes) / 2**30, prove_launches=launches.counts(),
-        sha_trees=sha_trees, sha_copy_s=sum(s["copy_s"] for s in sha_trees),
-        sha_hash_s=sum(s["hash_s"] for s in sha_trees), omp_threads=native.omp_threads(), stages=stages,
-        **counted,
+        omp_threads=native.omp_threads(), stages=stages, **counted,
     )
 
 

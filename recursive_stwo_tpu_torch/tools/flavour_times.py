@@ -89,22 +89,27 @@ def hand_written_kernels() -> tuple:
 def count_device_events(torch, prof) -> dict:
     """Kernels (and of them the hand-written ones, csrc/'s), copies and
     fills, and the kernels' summed device time (ms) of a finished
-    device-only trace, from its raw events."""
+    device-only trace, from its raw events; of that time the SHA-256
+    tree-level kernel's (`sha256_ms`), and the device time of the copies
+    from the card to the host (`dtoh_ms`)."""
     from torch.autograd import DeviceType
 
     kernels = copies = own = 0
-    busy_us = 0.0
+    busy_ns = sha_ns = dtoh_ns = 0
     mine = hand_written_kernels()
     for device_type, name, duration_ns in raw_events(torch, prof):
         if device_type != DeviceType.CUDA:
             continue
         if name.startswith(("Memcpy", "Memset")):
             copies += 1
+            dtoh_ns += duration_ns if name.startswith("Memcpy DtoH") else 0
         else:
             kernels += 1
             own += any(k in name for k in mine)
-            busy_us += duration_ns / 1e3
-    return dict(cuda_kernels=kernels, hand_written_kernels=own, copies_and_fills=copies, busy_ms=busy_us / 1e3)
+            busy_ns += duration_ns
+            sha_ns += duration_ns if "sha256_level_kernel" in name else 0
+    return dict(cuda_kernels=kernels, hand_written_kernels=own, copies_and_fills=copies, busy_ms=busy_ns / 1e6,
+                sha256_ms=sha_ns / 1e6, dtoh_ms=dtoh_ns / 1e6)
 
 
 def device_profile(torch, fn) -> dict:

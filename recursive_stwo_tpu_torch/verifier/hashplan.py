@@ -19,6 +19,10 @@ pairs flattened in row-major order.  The reference's (row, 128) tiling and
 padding to 8-row multiples serve the TPU and are dropped: N is exact, so
 there are no padded states.
 
+Spans (utils/spans.py): `hash.absorb_lower` and `hash.walk_lower` lower a
+pass to its op table on the host, `hash.scan` runs it (the table resolved,
+uploaded and launched), `hash.leaf` is the leaves' one permutation.
+
 Op wiring (one permutation P(l || r) per step, rate half kept):
   node     l,r = bit-ordered (carry_s | in_a at walk start,
                               carry_b | in_b sibling hash)
@@ -44,6 +48,7 @@ from ..ops.poseidon_cuda import (
     A_IN, ACTIVE, B_CARRY_B, B_CARRY_S, B_IN_A, B_IN_B, B_SEL_SHIFT, F_A, F_B, F_FLAGS,
     F_OUT, F_Q, FIELDS, START, SWAP, WRITE_B,
 )
+from ..utils.spans import span
 
 LANES = 4
 
@@ -247,15 +252,19 @@ def absorb_packed(chains: List[torch.Tensor]) -> List[torch.Tensor]:
     """Capacity-absorb many (B, Q, n_i) column chains, one permutation per
     8-column chunk; returns per-chain (8, B*Q) capacity digests (zero for a
     chain with no columns)."""
-    return list(run_scan(absorb_program(chains)))
+    with span("hash.absorb_lower"):
+        prog = absorb_program(chains)
+    with span("hash.scan"):
+        return list(run_scan(prog))
 
 
 def leaf_rate_many(digests: List[torch.Tensor]) -> List[torch.Tensor]:
     """hash_node(None, cols) finalization = rate(permute([0^8 | cap])); one
     batched permutation for all leaves.  (8, N) in and out."""
-    stacked = torch.stack(digests)  # (W, 8, N)
-    state = torch.cat([torch.zeros_like(stacked), stacked], dim=1)
-    return list(permute_wordmajor(state)[:, :8])
+    with span("hash.leaf"):
+        stacked = torch.stack(digests)  # (W, 8, N)
+        state = torch.cat([torch.zeros_like(stacked), stacked], dim=1)
+        return list(permute_wordmajor(state)[:, :8])
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +352,10 @@ def walk_scan(singles: List[SingleWalk], pairs: List[PairWalk]):
     Total permutations = sum over walks of (depth + column ops), packed into
     LANES lanes.  A walk's final carry digest is compared with its root."""
     all_walks = list(singles) + list(pairs)
-    digests = run_scan(walk_program(singles, pairs))
+    with span("hash.walk_lower"):
+        prog = walk_program(singles, pairs)
+    with span("hash.scan"):
+        digests = run_scan(prog)
     oks = []
     for wi, wk in enumerate(all_walks):
         B, Q = wk.queries.shape

@@ -97,20 +97,35 @@ def test_sha_tree_matches_committed_tree(rows, monkeypatch):
     """Root, every level, a decommitment and a pair decommitment of the
     SHA-256 tree at mixed log sizes (below and above the native kernels'
     thresholds), hashed where its columns lie (the plain version here) in
-    one block and in blocks of 2**3 leaf rows; each tree records its
-    hashing and digest copy-back seconds."""
+    one block and in blocks of 2**3 leaf rows.  The tree is one
+    `tree.commit` span holding, for each level of each block (and each level
+    above the blocks), a `sha256.level` span followed by the `to_host` span
+    of its digests' copy (the spans' entries and exits recorded in order)."""
+    opened = []
+
+    class Recorded:
+        def __init__(self, name):
+            self.name = name
+
+        def __enter__(self):
+            opened.append(("enter", self.name))
+
+        def __exit__(self, *exc):
+            opened.append(("exit", self.name))
+
     monkeypatch.setattr(t_commit, "SHA_ROWS", rows)
+    monkeypatch.setattr(t_commit, "span", Recorded)
     columns = {10: _rand(1, 5, 1 << 10), 8: _rand(2, 3, 1 << 8), 5: _rand(3, 9, 1 << 5), 2: _rand(4, 2, 4)}
     ref = Sha256CommittedTree({L: c.astype(np.uint32) for L, c in columns.items()})
-    t_commit.SHA_TREE_TIMES.clear()
     tree = t_commit.Sha256DeviceTree({L: torch.from_numpy(c) for L, c in columns.items()})
     assert len(tree.levels) == len(ref.levels) == 11
     for got, want in zip(tree.levels, ref.levels):
         assert got.dtype == want.dtype == np.uint32 and np.array_equal(got, want)
     assert tree.root.dtype == np.uint32 and np.array_equal(tree.root, ref.root)
-    assert [t["leaves"] for t in t_commit.SHA_TREE_TIMES] == [1 << 10]
-    times = t_commit.SHA_TREE_TIMES[0]
-    assert set(times) == {"leaves", "hash_s", "copy_s"} and times["hash_s"] > 0 and times["copy_s"] >= 0
+    block_log = min(10, rows.bit_length() - 1)
+    n_levels = (1 << (10 - block_log)) * (block_log + 1) + 10 - block_log
+    level = [("enter", "sha256.level"), ("exit", "sha256.level"), ("enter", "to_host"), ("exit", "to_host")]
+    assert opened == [("enter", "tree.commit")] + level * n_levels + [("exit", "tree.commit")]
     queries = [int(v) for v in np.random.default_rng(5).integers(0, 1 << 10, 13)]
     vals, dec = tree.decommit(queries)
     ref_vals, ref_dec = ref.decommit(queries)

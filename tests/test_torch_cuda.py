@@ -1071,3 +1071,63 @@ def test_fri_fold_and_merkle_kernels_keep_every_value_in_registers(cuda):
         assert len(report) == instances, (name, report)
         for r in report:
             assert (r["stack_bytes"], r["spill_stores"], r["spill_loads"]) == (0, 0, 0), r
+
+
+class _NoRange:
+    """A stand-in for the spans' range: nothing recorded."""
+
+    def __init__(self, name):
+        pass
+
+    def __enter__(self):
+        pass
+
+    def __exit__(self, *exc):
+        pass
+
+
+def _traced_events(fn) -> list:
+    """(name, device type) of every event of fn traced on the host and the
+    card, taken again (up to three times) when CUPTI returns no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [(e.name(), e.device_type()) for e in prof.profiler.kineto_results.events()]
+        if any(d == DeviceType.CUDA for _, d in events):
+            return events
+    raise AssertionError("three traces recorded no device event")
+
+
+@pytest.mark.parametrize("what", ["verify_batch", "prove"])
+def test_spans_add_nothing_to_the_card_timeline(cuda, monkeypatch, what):
+    """A verify_batch at B=1024 and a proof of the demo circuit, traced: no
+    rstpu. span has a CUDA device type (a copy of it on the card's timeline
+    would count as device work), and the card runs the same kernels with
+    the spans as with them recording nothing."""
+    from torch.autograd import DeviceType
+
+    from recursive_stwo_tpu_torch.prover.prove import prove as t_prove
+    from recursive_stwo_tpu_torch.utils import spans
+
+    if what == "verify_batch":
+        step, arrays = flagship.verifier_step("recursive_proof_16_15", 1024, device=cuda)
+        run = lambda: step(arrays)  # noqa: E731
+    else:
+        trace = flagship.demo_trace()
+        run = lambda: t_prove(trace, flagship.DEMO_CONFIG, device=cuda)  # noqa: E731
+    run()  # the builds and host tables outside the traces
+
+    def kernels(events):
+        return sorted(n for n, d in events if d == DeviceType.CUDA and not n.startswith(("Memcpy", "Memset")))
+
+    with_spans = _traced_events(run)
+    ours = [(n, d) for n, d in with_spans if n.startswith(spans.PREFIX)]
+    assert ours and all(d != DeviceType.CUDA for _, d in ours)
+    monkeypatch.setattr(spans, "_RecordFunctionFast", _NoRange)
+    without = _traced_events(run)
+    assert not any(n.startswith(spans.PREFIX) for n, _ in without)
+    assert kernels(with_spans) == kernels(without)
