@@ -6,12 +6,12 @@
 Phases; any failure ends the run with a non-zero exit and no result line:
   1. card: the GPU's name and power limit, as nvidia-smi prints them;
   2. build: nvcc builds the Poseidon2-16, SHA-256, composition, fold,
-     transcript, circle FFT, quotient, sampling, interaction, FRI fold-layer
-     and Merkle level kernels and the latency probe from csrc/ (one nvcc a
-     source, all at once, then a link; seconds); ptxas' report (registers,
-     stack frame, spills) of the transcript, check, domain, fold, FFT pass,
-     quotient, sampling, interaction, fold-layer and Merkle level kernels on
-     lines of their own;
+     transcript, circle FFT, quotient, sampling, interaction, FRI fold-layer,
+     FRI last-layer and Merkle level kernels and the latency probe from
+     csrc/ (one nvcc a source, all at once, then a link; seconds); ptxas'
+     report (registers, stack frame, spills) of the transcript, check,
+     domain, fold, FFT pass, quotient, sampling, interaction, fold-layer,
+     last-layer and Merkle level kernels on lines of their own;
   3. kernels vs plain: K1 and K2 against their plain PyTorch versions on
      the card and on the host CPU, bit for bit, at 2**20 states and at the
      main path's shapes, plus the Poseidon2-16 known-answer test; each of
@@ -87,12 +87,18 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      2, 3 and 17 (a line fold, a join alone, both) and at every fold launch
      of a level-1, level-2, level-14 and last-layer proof (seeded random
      layers at their shapes, up to the last layer's circle fold of (4,
-     2**27)); the Merkle level kernel (csrc/merkle.cu) against its plain
-     version, bit for bit, on leaf and node levels of 0, 1, 8, 9 and 134
-     columns at 1, 7 and 2**20 + 3 nodes, a strided column view and a
-     2**27-leaf level of 4 columns; their times at level 1 (a proof's fold
-     launches; tree 1's leaf level, with level 2's and a streamed chunk's
-     beside it) beside their bounds and the plain versions';
+     2**27)); the FRI last-layer kernel (csrc/fri_fold.cu) against its
+     plain version, bit for bit (the kept coefficients, every count 0), at
+     LAST_SHAPES and at the last layer of every PROVER_SHAPES proof, and
+     with three coefficients planted past the bound at each, which it must
+     count in every column (and last_layer_poly refuse); the Merkle level
+     kernel (csrc/merkle.cu) against its plain version, bit for bit, on
+     leaf and node levels of 0, 1, 8, 9 and 134 columns at 1, 7 and
+     2**20 + 3 nodes, a strided column view and a 2**27-leaf level of 4
+     columns; their times at level 1 (a proof's fold launches; tree 1's
+     leaf level, with level 2's and a streamed chunk's beside it; the last
+     layer at chain_level12's (4, 2**16), bound 7) beside their bounds and
+     the plain versions';
   4. main path, small_proof at B=1024: the port's verify_batch on CUDA over
      a batch with a flipped sibling hash and a flipped nonce, and again with
      a wrong public input; every named check of every slot must equal the
@@ -106,7 +112,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      the walls of the transcript, the fold phase, the hash phase and the
      composition check per batch (each bounded by synchronize()) beside it;
   7. prover, recursion-chain level 1: the demo circuit's proof on CUDA must
-     equal the port's CPU proof byte for byte (a quick first check); then
+     equal the port's CPU proof byte for byte (a quick first check), its
+     last layer one launch of the last-layer kernel; then
      the level-1 circuit (recursive_proof_16_15 verified five times) is
      built on the host and proved on CUDA with the port's `prove`
      (tools/chain.run_level); its m31x8 bytes must hash to level1-5.bin's
@@ -114,7 +121,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      verify_batch on CUDA must accept it, the Merkle level kernel must have
      launched while proving and K1 never (the 20-bit PoW is the host
      scan's), the fold-layer kernel once a FRI layer and once for the first
-     (spec.n_inner_layers + 1), the composition domain kernel once an AIR
+     (spec.n_inner_layers + 1), the last-layer kernel once, the composition
+     domain kernel once an AIR
      table (twice), the circle FFT, the quotient kernel once a first-layer
      group, the sampling kernel once and the interaction kernel once an
      AIR table; the
@@ -154,7 +162,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      bitcoin_proof.bin's 71da12a3..., and verify_sha256np on CUDA must
      accept it; its 22 SHA-256 trees are hashed on the card by the SHA-256
      kernel (which must launch), its FRI layers by spec.n_inner_layers + 1
-     fold-layer launches, its one AIR table by one launch of the
+     fold-layer launches and one last-layer launch, its one AIR table by one launch of the
      domain kernel and one of the interaction kernel, its transforms by the
      circle FFT, its OODS samples by one launch of the sampling kernel, its
      two first-layer groups by two launches of the quotient kernel, under
@@ -164,7 +172,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      copy-back time;
  13. prove_sha256p31 of the demo circuit on CUDA equals the CPU run, byte
      for byte ("bytes32"), its folds spec.n_inner_layers + 1 fold-layer
-     launches and no Merkle level launch (SHA-256 trees);
+     launches, its last layer one last-layer launch and no Merkle level
+     launch (SHA-256 trees);
  14. multi-device verification (recursive_stwo_tpu_torch/parallel): (a) the
      dry run on one NCCL rank on the card and, at the same time, (b) the
      dry run on MESH_RANKS gloo ranks sharing the card (the (2, 2) host x
@@ -184,7 +193,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      CUDA and on the CPU at chunk_log 9, cutoff 5 by prove_streamed in both
      flavours and a small PlonkWithoutPoseidon circuit by prove_np_streamed
      in both tree flavours, the same bytes on both, each CUDA run's folds
-     spec.n_inner_layers + 1 fold-layer launches, its Poseidon31 trees on
+     spec.n_inner_layers + 1 fold-layer launches and one last-layer
+     launch, its Poseidon31 trees on
      the Merkle level kernel and K1 never; (b) chain level 3
      streamed at the defaults (chunks of 2**20 rows), its m31x8 bytes
      hashing to level3-1.bin's 642d38ee..., accepted by verify_batch on
@@ -194,7 +204,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      verify_sha256np on CUDA, the SHA-256 kernel launched; each streamed
      proof launches the domain kernel and the interaction kernel once an
      AIR table, the sampling kernel once, the fold-layer kernel
-     spec.n_inner_layers + 1 times, the circle FFT, the tile kernel,
+     spec.n_inner_layers + 1 times, the last-layer kernel once, the circle
+     FFT, the tile kernel,
      and the quotient kernel once a streamed chunk of 2**20 points.  (b) and (c) run
      under a device-only torch.profiler trace, which counts every kernel
      the card ran; each prints its wall (traced), stages, the kernels'
@@ -213,8 +224,8 @@ phase 10's launches and shapes, and the kernel's times there;
 mesh_launches: each rank's launches in phase 14 (c); launches is each
 kernel's count in its main path: phase 4's verify_batch, phase 9's device
 grind for K1, phase 7's level 1 for the domain kernel, the circle FFT, the
-quotients, the sampling, the interaction, the fold-layer and the Merkle
-level kernels, phase 15 (c)
+quotients, the sampling, the interaction, the fold-layer, the last-layer
+and the Merkle level kernels, phase 15 (c)
 for the SHA-256 and tile kernels; K1's
 times are at 2**20 rows (the device grind hashes blocks of 2**22), with step_* at (1024,
 16); floor_ms the latency floors of the transcript and check kernels),
@@ -310,6 +321,11 @@ PROVER_SHAPES = ("level1-5", "level2-1", "level14-1", "bitcoin_proof")
 # the fold-layer kernel is held to its plain version at these logs (line,
 # join and both each) and at every fold launch of PROVER_SHAPES' proofs
 FOLD_LOGS = (1, 2, 3, 17)
+# the last-layer kernel is held to its plain version at these (level, bound)
+# (chain_level12's and level 14's last layer, FRI(8, 5, 16)'s, the
+# bitcoin-facing proof's) and at the last layer of every PROVER_SHAPES proof,
+# each also with three coefficients planted past the bound
+LAST_SHAPES = ((16, 7), (13, 8), (9, 0))
 # the Merkle level kernel at these (columns, nodes) of leaf and node levels
 # (tails of a block of 128 threads and of a 2**20 chunk; 134 columns the
 # chain's widest group), a strided view, and a 2**27-leaf level of 4 columns
@@ -1098,6 +1114,7 @@ def check_fri_merkle(torch, dev) -> tuple:
     print(f"fri_fold: bit-exact vs plain at logs {FOLD_LOGS} (line, join, both) and at every fold launch of "
           f"{PROVER_SHAPES}' proofs (their first layers up to a circle fold of (4, 2**27))")
 
+
     def hold_level(label, case, block=None):
         hold("merkle_level", label, cases.run_merkle(case), cases.run_merkle(case, plain=True, block=block))
 
@@ -1140,6 +1157,63 @@ def check_fri_merkle(torch, dev) -> tuple:
     out_merkle = dict(merkle, max_abs_err=errs["merkle_level"], library_ms=None)
     torch.cuda.empty_cache()
     return out_fold, out_merkle
+
+
+def check_fri_last(torch, dev) -> dict:
+    """Phase 3, the provers' FRI last-layer kernel against its plain version
+    on the card, bit for bit (the kept coefficients in the verifier's order,
+    every count 0): last layers at LAST_SHAPES and at PROVER_SHAPES'
+    (tools/prover_cases.last_layer_case), each also with three coefficients
+    planted past the bound, which the kernel must count in every column and
+    last_layer_poly refuse.  Returns {max_abs_err, ms, events_ms, plain_ms,
+    bound_ms, bound_by, library_ms} at chain_level12's last layer ((4,
+    2**16), bound 7)."""
+    from recursive_stwo_tpu_torch.ops import fri_fold_cuda
+    from recursive_stwo_tpu_torch.prover import fri_last
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    err = 0
+
+    def hold(label, got, want):
+        nonlocal err
+        require(torch.equal(got, want), f"fri_last differs from its plain version on {label}")
+        err = max(err, int((got - want).abs().max()))
+
+    last_shapes = list(LAST_SHAPES)
+    for spec in map(cases.prover_spec, PROVER_SHAPES):
+        shape = (spec.max_first_layer_log - 1 - spec.n_inner_layers, spec.log_last_layer_degree_bound)
+        if shape not in last_shapes:
+            last_shapes.append(shape)
+    for level, bound in last_shapes:
+        case = cases.last_layer_case(level, bound, dev, SEED + level)
+        words = cases.run_last(case).cpu()
+        want = torch.as_tensor(cases.run_last(case, plain=True).astype(np.int64)).reshape(-1)
+        hold(case.label, words[: 4 << bound], want)
+        counts = words[4 << bound :].tolist()
+        require(counts == [0] * 4, f"fri_last counts {counts} on {case.label}, a layer within the bound")
+        n = 1 << level
+        planted = sorted(p for p in {1 << bound, n // 2 + 1, n - 1} if 1 << bound <= p < n)
+        if planted:
+            case = cases.last_layer_case(level, bound, dev, SEED + level, planted=planted)
+            counts = cases.run_last(case)[4 << bound :].tolist()
+            require(counts == [len(planted)] * 4, f"fri_last counts {counts} on {case.label}, expected {len(planted)}")
+            try:
+                fri_last.last_layer_poly(case.g, level, bound)
+            except ValueError as e:
+                require(str(e) == fri_last.DEGREE_ERROR, f"fri_last: {case.label} raised {e}")
+            else:
+                require(False, f"fri_last: last_layer_poly accepted {case.label}")
+    del case
+    print(f"fri_last: bit-exact vs plain at (level, bound) {last_shapes}, every count 0; coefficients planted past "
+          f"the bound counted in every column and refused by last_layer_poly")
+    case = cases.last_layer_case(*LAST_SHAPES[0], dev, SEED)
+    out = dict(timed_kernel(torch, "fri_last", case.label, lambda: cases.run_last(case),
+                            lambda: cases.run_last(case, plain=True), "fri_last_kernel", 1,
+                            fri_fold_cuda.last_bound_ms(case.level, case.bound), 50),
+               max_abs_err=err, library_ms=None)
+    del case
+    torch.cuda.empty_cache()
+    return out
 
 
 def _failing(checks: dict, slot: int) -> list:
@@ -1282,14 +1356,18 @@ def check_demo_proof(torch, dev) -> None:
     """Phase 7, first: the demo circuit proved on CUDA and on the CPU (plain
     permutations) by the port; the bytes must agree."""
     from recursive_stwo_tpu_torch.models import flagship
+    from recursive_stwo_tpu_torch.ops import launches
     from recursive_stwo_tpu_torch.prover.prove import prove
 
     trace = flagship.demo_trace()
     config = flagship.DEMO_CONFIG
     t = time.perf_counter()
+    launches.reset()
     on_card = flagship.proof_bytes(prove(trace, config, device=dev))
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t
+    got = launches.counts()
+    require(got["fri_last"] == 1, f"demo proof: expected 1 fri_last launch, got {got}")
     t = time.perf_counter()
     on_cpu = flagship.proof_bytes(prove(trace, config, device="cpu"))
     require(on_card == on_cpu, "demo proof on CUDA differs from the CPU run")
@@ -1351,8 +1429,9 @@ def prove_level(dev, level: int, seen: set, proof_in=None, streamed: bool = Fals
             f"{label}: expected {tables} composition_domain launches (one an AIR table), got {r['prove_launches']}")
     spec = (NoPoseidonVerifierSpec.for_rows(proof.log_size, proof.config) if level == chain.LAST
             else VerifierSpec.from_proof(proof))
-    require(got["fri_fold"] == spec.n_inner_layers + 1,
-            f"{label}: expected {spec.n_inner_layers + 1} fri_fold launches (one a FRI layer and the first), got {got}")
+    require(got["fri_fold"] == spec.n_inner_layers + 1 and got["fri_last"] == 1,
+            f"{label}: expected {spec.n_inner_layers + 1} fri_fold launches (one a FRI layer and the first) and 1 "
+            f"fri_last launch, got {got}")
     quotient_calls = prover_cases.n_chunks(spec) if streamed else len(spec.all_log_sizes)
     require(got["circle_fft"] > 0 and got["quotients"] == quotient_calls and (got["eval_tiles"] > 0) == streamed,
             f"{label}: expected circle_fft launches, {quotient_calls} quotient launches (one a "
@@ -1382,9 +1461,9 @@ def check_demo_sha_proof(dev) -> None:
             f"demo prove_sha256p31: expected 2 composition_domain launches, got {timing['prove_launches']}")
     spec = VerifierSpec.from_proof(proof)
     require(timing["prove_launches"]["fri_fold"] == spec.n_inner_layers + 1
-            and timing["prove_launches"]["merkle_level"] == 0,
-            f"demo prove_sha256p31: expected {spec.n_inner_layers + 1} fri_fold launches and no merkle_level "
-            f"launch (SHA-256 trees), got {timing['prove_launches']}")
+            and timing["prove_launches"]["fri_last"] == 1 and timing["prove_launches"]["merkle_level"] == 0,
+            f"demo prove_sha256p31: expected {spec.n_inner_layers + 1} fri_fold launches, 1 fri_last launch and no "
+            f"merkle_level launch (SHA-256 trees), got {timing['prove_launches']}")
     on_card = flagship.proof_bytes(proof)
     t = time.perf_counter()
     on_cpu = flagship.proof_bytes(prove_sha256p31(trace, config, device="cpu"))
@@ -1440,10 +1519,10 @@ def check_streamed_demo(torch, dev) -> None:
         spec = (NoPoseidonVerifierSpec.for_rows(proof.log_size, proof.config) if hasattr(proof, "log_size")
                 else VerifierSpec.from_proof(proof))
         sha = "Sha256" in label
-        require(got["fri_fold"] == spec.n_inner_layers + 1 and (got["merkle_level"] > 0) != sha
-                and got["permute_rows"] == 0,
-                f"demo {label}: expected {spec.n_inner_layers + 1} fri_fold launches, merkle_level launches "
-                f"{'none' if sha else 'some'} and no permute_rows launch, got {got}")
+        require(got["fri_fold"] == spec.n_inner_layers + 1 and got["fri_last"] == 1
+                and (got["merkle_level"] > 0) != sha and got["permute_rows"] == 0,
+                f"demo {label}: expected {spec.n_inner_layers + 1} fri_fold launches, 1 fri_last launch, "
+                f"merkle_level launches {'none' if sha else 'some'} and no permute_rows launch, got {got}")
         on_card = flagship.proof_bytes(proof)
         t = time.perf_counter()
         on_cpu = flagship.proof_bytes(fn("cpu"))
@@ -1741,7 +1820,7 @@ def main() -> int:
     for name in ("transcript_kernel", "composition_check_kernel", "composition_domain_kernel", "fold_kernel",
                  "fft_pass_kernel", "fft_tile_twiddle_kernel", "quotient_coeffs_kernel", "quotient_points_kernel",
                  "sample_kernel", "sample_finish_kernel", "interaction_kernel", "fri_layer_kernel",
-                 "merkle_level_kernel"):
+                 "fri_last_kernel", "merkle_level_kernel"):
         for r in build.ptxas_report(name):
             print(f"ptxas {name} ({r['kernel']}): {r['registers']} registers, {r['smem_bytes']} bytes static smem, "
                   f"{r['stack_bytes']} bytes stack frame, "
@@ -1776,6 +1855,7 @@ def main() -> int:
     kernels["circle_fft"], kernels["eval_tiles"], kernels["quotients"] = check_prover_kernels(torch, dev)
     kernels["sample"], kernels["interaction"] = check_sample_interaction(torch, dev)
     kernels["fri_fold"], kernels["merkle_level"] = check_fri_merkle(torch, dev)
+    kernels["fri_last"] = check_fri_last(torch, dev)
     torch.cuda.synchronize()
     phase_done("3 (kernels vs plain)")
 
@@ -1858,6 +1938,9 @@ def main() -> int:
                     "fold), recursive_stwo_tpu/prover/stream.py:667 (_join_fold_jit) and :704 (_line_fold_jit)",
         "merkle_level": "recursive_stwo_tpu/prover/device_prove.py:49 (_absorb_columns) and :66 (_commit_levels), "
                         "recursive_stwo_tpu/prover/stream.py:252 (_commit_chunk_jit, p31)",
+        "fri_last": "no TPU kernel: the host numpy recursive_stwo_tpu/prover/fri.py:84 (line_interpolate) after a "
+                    "copy of the folded layer, called at recursive_stwo_tpu/prover/device_prove.py:913, "
+                    "prove.py:443 and stream.py:1157",
     }
     sources = {k: "recursive_stwo_tpu_torch/csrc/poseidon2.cu" for k in replaces}
     sources["sha256_level"] = "recursive_stwo_tpu_torch/csrc/sha256.cu"
@@ -1870,16 +1953,19 @@ def main() -> int:
     sources["interaction"] = "recursive_stwo_tpu_torch/csrc/interaction.cu"
     sources["fri_fold"] = "recursive_stwo_tpu_torch/csrc/fri_fold.cu"
     sources["merkle_level"] = "recursive_stwo_tpu_torch/csrc/merkle.cu"
+    sources["fri_last"] = "recursive_stwo_tpu_torch/csrc/fri_fold.cu"
     # the main path of each: phase 4's verify_batch for the transcript, K2,
     # scan, check and fold kernels, phase 15 (c)'s streamed last layer for
     # the SHA-256 and tile kernels, phase 9's device grind for K1, phase 7's
     # level-1 proof for the domain kernel, the circle FFT, the quotients, the
-    # sampling, the interaction, the fold-layer and the Merkle level kernels
+    # sampling, the interaction, the fold-layer, the last-layer and the
+    # Merkle level kernels
     main_launches = {k: launches[FIXTURES[0]][k] for k in replaces}
     for k in ("sha256_level", "eval_tiles"):
         main_launches[k] = streamed[LAST_LAYER][k]
     main_launches["permute_rows"] = grind_launches["permute_rows"]
-    for k in ("composition_domain", "circle_fft", "quotients", "sample", "interaction", "fri_fold", "merkle_level"):
+    for k in ("composition_domain", "circle_fft", "quotients", "sample", "interaction", "fri_fold", "fri_last",
+              "merkle_level"):
         main_launches[k] = levels[1]["prove_launches"][k]
     report = [
         dict(name=k, route="cuda", source=sources[k],

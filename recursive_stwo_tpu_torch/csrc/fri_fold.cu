@@ -1,6 +1,7 @@
-// The provers' FRI fold of one layer, for Hopper (sm_90a), bound through a
-// plain C interface (ops/build.py compiles this file with nvcc;
-// ops/fri_fold_cuda.py loads it with ctypes).
+// The provers' FRI fold of one layer, and the last layer's interpolation and
+// degree check, for Hopper (sm_90a), bound through a plain C interface
+// (ops/build.py compiles this file with nvcc; ops/fri_fold_cuda.py loads it
+// with ctypes).  The last layer is at the end of the file.
 //
 // Replaces what XLA compiled on the TPU from
 // recursive_stwo_tpu/prover/device_prove.py `_fold_line_jit` (:572-589) and
@@ -38,6 +39,7 @@
 
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "qm31.cuh"
@@ -132,4 +134,155 @@ extern "C" int fri_fold_layer(const void* g, const void* join, void* out, int64_
   if (gp && jp) return launch<true, true>(gp, jp, o, half, lt, ct, (int)b, alpha, alpha2, s);
   if (gp) return launch<true, false>(gp, jp, o, half, lt, ct, (int)b, alpha, alpha2, s);
   return launch<false, true>(gp, jp, o, half, lt, ct, (int)b, alpha, alpha2, s);
+}
+
+// ---------------------------------------------------------------------------
+// The last layer.
+//
+// Replaces no TPU kernel: the JAX package interpolates the last layer on the
+// host (recursive_stwo_tpu/prover/fri.py `line_interpolate`, copied as
+// prover/fri_host.py), after copying the folded layer back.  Here it stays on
+// the card, and only the kept coefficients and a count come back.
+//
+// The layer is four M31 columns of 2^n (the twiddles are M31, so the QM31
+// limbs never mix).  Round L (0 <= L < n) takes each pair of positions
+// (p, p + 2^L) with bit L of p clear to
+//   (a + b, (a - b) t),   t = tw[2^n - 2^(n-L) + (p >> (L + 1))],
+// the round's inverse x of half_odds(n - L) (prover/fri_last.py `twiddles`,
+// inv(0) = 0 as the host's m31.inv gives it).  The copy halves both outputs
+// every round; field arithmetic is exact, so one product by 2^-n at the end
+// gives the same residues.  After round n - 1 coefficient p of the layered
+// order is coefficient br_n(p) of the verifier's basis: the kept positions
+// j << (n - bound) of the copy are p = br_bound(j) < 2^bound, and every
+// other coefficient has to be zero.
+//
+// One thread block cluster a column, of C = min(8, 2^(n - 13)) blocks, in
+// two phases a block, with the cluster's barrier between them:
+//   1. rounds 0 .. k1 - 1 (k1 = min(n, 13)) on contiguous slabs of 2^k1
+//      words in shared memory: slab s of the column read from g, written to
+//      a uint32 scratch column (the rounds pair positions within a slab);
+//   2. rounds k1 .. n - 1 on tiles of 2^k2 rows (k2 = n - k1 <= 10) of W =
+//      2^(13 - k2) scratch columns: positions h 2^k1 + w0 + w, read in runs
+//      of W >= 8 words (a 32-byte sector or more); then the product by
+//      2^-n, each kept coefficient written to its row br_bound(p) of the
+//      output, and every other nonzero counted.
+// Rank 0 zeroes the column's count word, after the output rows, before the
+// cluster's barrier; each thread adds its count to it after.
+//
+// What bounds it on an H100: nothing the card is short of.  The layer is
+// 4 x 2^n int64 read once (2 MiB at n = 16) and n 2^(n-1) butterflies a
+// column; a block's rounds in shared memory, the scratch column in L2.  The
+// time is a launch and n dependent rounds of a block barrier each.
+
+namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int kLastThreads = 512;
+constexpr int kSlabLog = 13;       // words of a block's slab or tile (32 KiB)
+constexpr int kMaxRowLog = 10;     // phase 2's rows: tiles of at least 8 columns
+constexpr int kMaxLastLog = kSlabLog + kMaxRowLog;
+constexpr int kMaxClusterLog = 3;  // blocks of a column's cluster (a portable size)
+
+// a table entry's value, a canonical residue: its int64's low word, through
+// the read-only path
+__device__ __forceinline__ uint32_t ld_twiddle(const int64_t* a) {
+  return __ldg(reinterpret_cast<const unsigned int*>(a));
+}
+
+__device__ __forceinline__ void butterfly(uint32_t* v, uint32_t lo, uint32_t hi, uint32_t t) {
+  const uint32_t a = v[lo], b = v[hi];
+  v[lo] = add(a, b);
+  v[hi] = mul(sub(a, b), t);
+}
+
+__global__ void __launch_bounds__(kLastThreads)
+fri_last_kernel(const int64_t* __restrict__ g, const int64_t* __restrict__ tw, uint32_t* __restrict__ scratch,
+                int64_t* __restrict__ out, int level, int bound, uint32_t scale) {
+  __shared__ uint32_t v[1 << kSlabLog];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k1 = min(level, kSlabLog), k2 = level - k1, logw = k1 - k2;
+  const uint32_t n = 1u << level, slab = 1u << k1, half = slab >> 1, W = 1u << logw;
+  const uint32_t col = blockIdx.y, rank = blockIdx.x, ranks = gridDim.x, units = 1u << k2;
+  const int64_t* src = g + (int64_t)col * n;
+  uint32_t* mid = scratch + (int64_t)col * n;
+  const uint32_t t = threadIdx.x;
+
+  for (uint32_t s = rank; s < units; s += ranks) {
+    const uint32_t base = s << k1;
+    for (uint32_t e = t; e < slab; e += kLastThreads) v[e] = (uint32_t)src[base + e];
+    __syncthreads();
+    for (int L = 0; L < k1; ++L) {
+      const int64_t* tl = tw + (n - (n >> L));
+      for (uint32_t u = t; u < half; u += kLastThreads) {
+        const uint32_t lo = ((u >> L) << (L + 1)) | (u & ((1u << L) - 1));
+        butterfly(v, lo, lo + (1u << L), ld_twiddle(tl + ((base + lo) >> (L + 1))));
+      }
+      __syncthreads();
+    }
+    for (uint32_t e = t; e < slab; e += kLastThreads) mid[base + e] = v[e];
+    __syncthreads();
+  }
+  if (rank == 0 && t == 0) out[((int64_t)4 << bound) + col] = 0;
+  __threadfence();
+  cluster.sync();  // every slab of the column in scratch, its count zeroed
+
+  unsigned nonzero = 0;
+  for (uint32_t s = rank; s < units; s += ranks) {
+    const uint32_t w0 = s << logw;
+    for (uint32_t e = t; e < slab; e += kLastThreads) v[e] = __ldcg(mid + ((e >> logw) << k1) + w0 + (e & (W - 1)));
+    __syncthreads();
+    for (int j = 0; j < k2; ++j) {
+      const int64_t* tl = tw + (n - (n >> (k1 + j)));
+      for (uint32_t u = t; u < half; u += kLastThreads) {
+        const uint32_t h = u >> logw, w = u & (W - 1);
+        const uint32_t hlo = ((h >> j) << (j + 1)) | (h & ((1u << j) - 1));
+        butterfly(v, (hlo << logw) + w, ((hlo + (1u << j)) << logw) + w, ld_twiddle(tl + (hlo >> (j + 1))));
+      }
+      __syncthreads();
+    }
+    for (uint32_t e = t; e < slab; e += kLastThreads) {
+      const uint32_t p = ((e >> logw) << k1) + w0 + (e & (W - 1));
+      const uint32_t c = mul(v[e], scale);
+      if ((p >> bound) == 0) {
+        out[(int64_t)(bound ? __brev(p) >> (32 - bound) : 0) * 4 + col] = c;
+      } else {
+        nonzero += c != 0;
+      }
+    }
+    __syncthreads();
+  }
+  if (nonzero) atomicAdd(reinterpret_cast<unsigned long long*>(out + ((int64_t)4 << bound) + col), nonzero);
+}
+
+}  // namespace
+
+// g: (4, 2^level) int64 limb rows, contiguous; tw: the 2^level - 1 round
+// twiddles (prover/fri_last.py `twiddles`), int64; scratch: (4, 2^level)
+// uint32, overwritten; out: 4 x 2^bound + 4 int64, written: the kept
+// coefficients as (2^bound, 4) rows in the verifier's order, then each
+// column's count of nonzero coefficients outside them.  scale = 2^-level mod
+// p.  1 <= level <= 23, 0 <= bound <= level.  Launches on `stream` and
+// returns the launch's error.
+extern "C" int fri_last_layer(const void* g, const void* tw, void* scratch, void* out, int64_t level, int64_t bound,
+                              int64_t scale, void* stream) {
+  if (level < 1 || level > kMaxLastLog || bound < 0 || bound > level) return (int)cudaErrorInvalidValue;
+  const int k2 = level > kSlabLog ? (int)level - kSlabLog : 0;
+  const unsigned ranks = 1u << (k2 < kMaxClusterLog ? k2 : kMaxClusterLog);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ranks, 4, 1);
+  cfg.blockDim = dim3(kLastThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int err = (int)cudaLaunchKernelEx(&cfg, fri_last_kernel, (const int64_t*)g, (const int64_t*)tw,
+                                          (uint32_t*)scratch, (int64_t*)out, (int)level, (int)bound,
+                                          (uint32_t)scale);
+  return err != 0 ? err : (int)cudaGetLastError();
 }

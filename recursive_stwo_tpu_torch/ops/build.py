@@ -162,6 +162,8 @@ def load() -> ctypes.CDLL:
             lib.interaction_columns.restype = ctypes.c_int
             lib.fri_fold_layer.argtypes = [vp, vp, vp, i64, vp, vp, i64, i64p, vp]
             lib.fri_fold_layer.restype = ctypes.c_int
+            lib.fri_last_layer.argtypes = [vp, vp, vp, vp, i64, i64, i64, vp]
+            lib.fri_last_layer.restype = ctypes.c_int
             lib.merkle_level.argtypes = [vp, vp, i64, i64, vp, i64, vp]
             lib.merkle_level.restype = ctypes.c_int
             lib.latency_probe.argtypes = [i32, i64, vp, vp, vp]

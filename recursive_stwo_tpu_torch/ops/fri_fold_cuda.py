@@ -1,4 +1,5 @@
-"""ctypes wrapper of the provers' FRI fold-layer kernel (csrc/fri_fold.cu).
+"""ctypes wrappers of the provers' FRI fold-layer and last-layer kernels
+(csrc/fri_fold.cu).
 
   fold_layer(g, join, alpha, log_size) -> (4, 2**(log_size - 1)) int64
       the next FRI layer's accumulator from a layer of 2**log_size points:
@@ -20,9 +21,19 @@ inverts its x or y in registers.  A call launches the kernel once on the
 current stream of its tensors' device, without synchronising, and writes a
 new contiguous output.  `LAUNCHES` counts the launches.
 
+  last_layer(g, tw, level, bound) -> (4 * 2**bound + 4,) int64
+      the last layer's interpolation and degree check in one launch: the
+      2**bound kept coefficients as (2**bound, 4) rows in the verifier's
+      order, then each column's count of nonzero coefficients outside them.
+      tw is prover/fri_last.py `twiddles(level, device)`; the plain version
+      is fri_last.py `last_layer_poly_plain`, and fri_last.last_layer_poly
+      reads the output back in one copy.
+
 Limits (ValueError past them, never a truncation): 1 <= log_size <= MAX_LOG;
 g and join (4, 2**log_size) int64, contiguous, 16-byte aligned, on one CUDA
-device; at least one of them.
+device; at least one of them.  The last layer: 1 <= level <= MAX_LAST_LOG,
+0 <= bound <= level, g (4, 2**level) int64 and contiguous, tw
+(2**level - 1,) int64 and contiguous, both on one CUDA device.
 """
 
 from __future__ import annotations
@@ -40,8 +51,9 @@ from . import build
 from .poseidon_cuda import H100_BYTES_PER_S, H100_INT_OPS_PER_S, _raise_on
 
 P = 2**31 - 1
-LAUNCHES = {"fri_fold": 0}
+LAUNCHES = {"fri_fold": 0, "fri_last": 0}
 MAX_LOG = 30  # 2**29 outputs: 4 x 2**30 int64 words a layer input, 32 GiB
+MAX_LAST_LOG = 23  # slabs of 2**13 words, then tiles of 2**10 rows of 8 columns
 
 
 def reset_launches() -> None:
@@ -117,6 +129,36 @@ def fold_layer(g, join, alpha, log_size: int) -> torch.Tensor:
     return out
 
 
+def check_last(g, tw, level: int, bound: int) -> torch.device:
+    """g's device; raises ValueError past the last-layer kernel's limits."""
+    if not 1 <= level <= MAX_LAST_LOG:
+        raise ValueError(f"the last-layer kernel takes 2**n points, 1 <= n <= {MAX_LAST_LOG}; got n = {level}")
+    if not 0 <= bound <= level:
+        raise ValueError(f"the last-layer kernel keeps 2**bound coefficients, 0 <= bound <= {level}; got {bound}")
+    for x, name, shape in ((g, "g", (4, 1 << level)), (tw, "tw", ((1 << level) - 1,))):
+        if tuple(x.shape) != shape or x.dtype != torch.int64 or not x.is_contiguous():
+            raise ValueError(f"expected {name} as a contiguous {shape} int64, got {tuple(x.shape)} {x.dtype}")
+        if x.device != g.device or x.device.type != "cuda":
+            raise ValueError(f"expected g and tw on one CUDA device, got {name} on {x.device}")
+    return g.device
+
+
+def last_layer(g: torch.Tensor, tw: torch.Tensor, level: int, bound: int) -> torch.Tensor:
+    """The kept coefficients and the counts on the card (see the module
+    docstring)."""
+    dev = check_last(g, tw, level, bound)
+    scratch = torch.empty((4, 1 << level), dtype=torch.int32, device=dev)
+    out = torch.empty((4 << bound) + 4, dtype=torch.int64, device=dev)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fri_last_layer(g.data_ptr(), tw.data_ptr(), scratch.data_ptr(), out.data_ptr(), level, bound,
+                                 pow(2, -level, P), stream)
+    _raise_on(err, "fri_last_layer")
+    LAUNCHES["fri_last"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # bound: every input word read once (g, the join, both point tables) and
 # every output word written once, against the int32 operations of an output
@@ -149,4 +191,23 @@ def bound_ms(log_size: int, line: bool, circle: bool) -> tuple:
     """(milliseconds, "operations" or "bytes") for one launch."""
     ops = layer_ops(log_size, line, circle) / H100_INT_OPS_PER_S
     mem = layer_bytes(log_size, line, circle) / H100_BYTES_PER_S
+    return (ops * 1e3, "operations") if ops >= mem else (mem * 1e3, "bytes")
+
+
+def last_ops(level: int) -> int:
+    """A last layer's int32 operations: level rounds of 2**(level-1)
+    butterflies a column (an add, a subtract, a product), then a product by
+    2**-level a coefficient."""
+    return 4 * (level * (2 * ADD + MUL) * (1 << (level - 1)) + MUL * (1 << level))
+
+
+def last_bytes(level: int, bound: int) -> int:
+    """The layer and the twiddle table read once, the output written once."""
+    return 8 * (4 * (1 << level) + (1 << level) - 1 + (4 << bound) + 4)
+
+
+def last_bound_ms(level: int, bound: int) -> tuple:
+    """(milliseconds, "operations" or "bytes") for one launch."""
+    ops = last_ops(level) / H100_INT_OPS_PER_S
+    mem = last_bytes(level, bound) / H100_BYTES_PER_S
     return (ops * 1e3, "operations") if ops >= mem else (mem * 1e3, "bytes")

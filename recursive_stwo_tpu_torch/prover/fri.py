@@ -9,10 +9,13 @@ fold-layer kernel (ops/fri_fold_cuda.py), which derives each point and its
 inverse in registers; on the CPU the plain version, `fold_layer_plain`
 (eager QM31 on 1/y and 1/x from tile points, prover/tiles.py, as the JAX
 package's streamed folds take them, stream.py:667-729).
-The last-layer interpolation, the query draws, the decommit plans and the
-witness plans are the JAX package's host code.  A witness plan names the
-positions it gathers; here the plan runs on the identity evaluation
-(`_plan_positions`) and only those rows are gathered on the device.
+The last layer's interpolation and degree check stay on the layer's
+device (prover/fri_last.py: on CUDA one launch of the last-layer kernel, and
+only the kept coefficients and a count come back).  The query draws, the
+decommit plans and the witness plans are the JAX package's host code.  A
+witness plan names the positions it gathers; here the plan runs on the
+identity evaluation (`_plan_positions`) and only those rows are gathered on
+the device.
 
 `fri_tail`'s stages are spans (utils/spans.py): `fri.layers` from the
 first-layer tree to the last layer's felts mixed (in it `fri.first_tree`,
@@ -37,7 +40,7 @@ from ..ops import fri_fold_cuda
 from ..proof.containers import FriLayerProof, FriProof, StarkProof
 from ..utils.spans import span
 from . import fri_host as host_fri
-from . import tiles
+from . import fri_last, tiles
 from .arrays import to_numpy
 from .composition import qm31_scalar
 
@@ -182,18 +185,9 @@ def fri_tail(
                 g = fold_layer(g, join, alphas[i + 1], level)
             level -= 1
 
-        # ---- last layer (host: the folded evaluations are small by now) ----
         with span("fri.last_layer"):
             last_bound = config.fri_config.log_last_layer_degree_bound
-            n_last = 1 << last_bound
-            g_host = to_numpy(g)
-            last_full = host_fri.line_interpolate(QM31(*g_host), level)
-            keep = np.arange(n_last) << (level - last_bound)
-            mask = np.zeros(1 << level, bool)
-            mask[keep] = True
-            if last_full[~mask].any():
-                raise ValueError("folded evaluations exceed the last-layer degree bound")
-            last_poly = last_full[keep]
+            last_poly = fri_last.last_layer_poly(g, level, last_bound)
             _mix_felts(channel, last_poly)
 
     # ---- PoW + queries ----

@@ -50,6 +50,10 @@ times, at the shapes the port calls them with:
      fold launch of a level-1, a level-2 and a last-layer proof (the first
      layer's circle fold, each layer's line fold with its join), and the
      three summed a proof.
+  The FRI last-layer kernel (fri_last), where the checkout has it: the
+     last layer of chain_level12's PcsConfig ((4, 2**16), bound 7), of the
+     bitcoin-facing proof ((4, 2**9), bound 0), of FRI(8, 5, 16) ((4,
+     2**13), bound 8) and at 2**20 and 2**23 points.
   The Merkle level kernel (merkle_level), where the checkout has it: level
      2's four trees' leaf levels, tree 1's node level with its 48 merged
      columns, a node level without columns, the first FRI layer's leaf level
@@ -59,11 +63,12 @@ times, at the shapes the port calls them with:
   seeded random columns (tools/prover_cases.py).
 `--kernels poseidon`, `--kernels composition`, `--kernels fold`,
 `--kernels transcript`, `--kernels fft`, `--kernels quotients`,
-`--kernels sample`, `--kernels interaction`, `--kernels fri_fold` or
-`--kernels merkle` times only those.
+`--kernels sample`, `--kernels interaction`, `--kernels fri_fold`,
+`--kernels fri_last` or `--kernels merkle` times only those.
 Before timing, every kernel output is held to the plain version bit for bit.
 Prints ptxas' report of the transcript, check, domain, fold, FFT pass,
-quotient, sampling, interaction, fold-layer and Merkle level kernels first.
+quotient, sampling, interaction, fold-layer, last-layer and Merkle level
+kernels first.
 Two times per shape: CUDA events around `reps` back-to-back calls (what a
 caller's loop pays, the wrapper's host cost included once it exceeds the
 kernel) and the kernels' mean device duration under torch.profiler.  Prints
@@ -527,6 +532,39 @@ def fri_fold_lines(torch, dev) -> list:
     return lines
 
 
+# (level, bound): chain_level12's last layer, the bitcoin-facing proof's,
+# FRI(8, 5, 16)'s, and two larger layers
+LAST_SHAPES = ((16, 7), (9, 0), (13, 8), (20, 7), (23, 7))
+
+
+def fri_last_lines(torch, dev) -> list:
+    """One dict a last layer of LAST_SHAPES, held bit for bit to the plain
+    version first: events and device ms, the plain version's ms, the bound;
+    none where the checkout has no last-layer kernel."""
+    from recursive_stwo_tpu_torch.ops import fri_fold_cuda
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    if not hasattr(fri_fold_cuda, "last_layer"):
+        return []
+    lines = []
+    for level, bound in LAST_SHAPES:
+        case = cases.last_layer_case(level, bound, dev, SEED + level)
+        got = cases.run_last(case).cpu().numpy()
+        want = cases.run_last(case, plain=True)
+        if not (got[: 4 << bound] == want.reshape(-1)).all() or got[4 << bound :].any():
+            raise RuntimeError(f"fri_last differs from the plain version on {case.label}")
+        bound_ms, by = fri_fold_cuda.last_bound_ms(level, bound)
+        lines.append(dict(kernel="fri_last", shape=case.label, log_size=level,
+                          bytes=fri_fold_cuda.last_bytes(level, bound), int_ops=fri_fold_cuda.last_ops(level),
+                          events_ms=cuda_ms(torch, lambda: cases.run_last(case), 50),
+                          device_ms=profiled_ms(torch, lambda: cases.run_last(case), 50, "fri_last_kernel"),
+                          plain_ms=cuda_ms(torch, lambda: cases.run_last(case, plain=True), 1),
+                          bound_ms=bound_ms, bound_by=by))
+        del case
+        torch.cuda.empty_cache()
+    return lines
+
+
 def merkle_lines(torch, dev) -> list:
     """One dict a Merkle level (see the module docstring), each held bit for
     bit to the plain version first (the 2**23 leaf level in blocks of 2**21
@@ -575,7 +613,8 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
     ap.add_argument("--label", default=None, help="name printed with every line (default: the root)")
     ap.add_argument("--kernels", choices=("all", "poseidon", "composition", "fold", "transcript", "fft", "quotients",
-                                          "sample", "interaction", "fri_fold", "merkle"), default="all")
+                                          "sample", "interaction", "fri_fold", "fri_last", "merkle"),
+                    default="all")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -598,7 +637,7 @@ def main() -> int:
         for name in ("transcript_kernel", "composition_check_kernel", "composition_domain_kernel", "fold_kernel",
                      "fft_pass_kernel", "fft_tile_twiddle_kernel", "quotient_coeffs_kernel", "quotient_points_kernel",
                      "sample_kernel", "sample_finish_kernel", "interaction_kernel", "fri_layer_kernel",
-                     "merkle_level_kernel"):
+                     "fri_last_kernel", "merkle_level_kernel"):
             for r in build.ptxas_report(name):
                 print(json.dumps(dict(label=label, ptxas=name, **r)), flush=True)
     if hasattr(build, "sass_instructions"):
@@ -619,6 +658,7 @@ def main() -> int:
                                  ("sample", "sample_cuda.py", sample_lines),
                                  ("interaction", "interaction_cuda.py", interaction_lines),
                                  ("fri_fold", "fri_fold_cuda.py", fri_fold_lines),
+                                 ("fri_last", "fri_fold_cuda.py", fri_last_lines),
                                  ("merkle", "merkle_cuda.py", merkle_lines)):
         if args.kernels in ("all", kind) and has(wrapper):
             for line in lines(torch, dev):

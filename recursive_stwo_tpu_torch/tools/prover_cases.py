@@ -12,11 +12,13 @@ tiles of chunk 0) and `quotient_case` a group's columns over its whole domain
 coefficient block a proof samples and its points (one launch of the sampling
 kernel), `interaction_cases` each AIR table's base-trace rows (one launch
 of the interaction kernel a table), `fold_shapes` / `fold_case` each FRI
-layer a proof folds (one fold-layer launch each) and `merkle_case` a tree's
-leaf level, whole or a streamed chunk of it as a view.  The values are random:
-the kernels compute field operations whatever the values, and the plain
-versions are what they are held to.  Used by chip_smoke.py phase 3,
-tools/kernel_times.py and tests/test_torch_cuda.py.
+layer a proof folds (one fold-layer launch each), `merkle_case` a tree's
+leaf level, whole or a streamed chunk of it as a view, and `last_layer_case`
+a folded last layer within its degree bound (random kept coefficients) or
+with planted coefficients past it.  The values are random: the kernels
+compute field operations whatever the values, and the plain versions are
+what they are held to.  Used by chip_smoke.py phase 3,
+tools/kernel_times.py and tests/test_torch_{cuda,fri_last}.py.
 """
 
 from __future__ import annotations
@@ -28,11 +30,12 @@ import numpy as np
 import torch
 
 from ..core import circle_host as ccircle
+from ..core import m31
 from ..core.qm31 import QM31
 from ..cs import scalar
 from ..models import flagship
 from ..ops import composition_cuda
-from ..prover import circle_fft, commit, fri, interaction, quotients, sample, stream
+from ..prover import circle_fft, commit, fri, fri_last, interaction, quotients, sample, stream
 from ..prover.prove_host import _add_const, _factors_at_point, _oods_point
 from ..prover.tiles import circle_tiles
 from ..verifier import composition as vcomp
@@ -315,6 +318,46 @@ def run_fold(case: FoldCase, plain: bool = False) -> torch.Tensor:
     if plain:
         return fri.fold_layer_plain(case.g, case.join, case.alpha, case.log_size)
     return fri_fold_cuda.fold_layer(case.g, case.join, case.alpha, case.log_size)
+
+
+class LastCase(NamedTuple):
+    label: str
+    g: torch.Tensor  # (4, 2**level) int64 line evaluations
+    level: int
+    bound: int
+
+
+def last_layer_case(level: int, bound: int, device, seed: int = 0, planted=()) -> LastCase:
+    """A folded last layer of 2**level points whose coefficients (fri_last's
+    layered order) are random below 2**bound, random and nonzero at each
+    position of `planted` (all >= 2**bound: past the degree bound) and zero
+    elsewhere: the copy's interpolation rounds run backwards, a = f0 + x f1
+    and b = f0 - x f1 with x the inverse of fri_last.twiddles' entry."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = 1 << level
+    v = torch.zeros((4, n), dtype=torch.int64, device=device)
+    v[:, : 1 << bound] = _rand(gen, (4, 1 << bound), device)
+    for p in planted:
+        v[:, p] = 1 + torch.randint(0, P - 1, (4,), generator=gen, device=device, dtype=torch.int64)
+    tw = fri_last.twiddles(level, v.device)
+    for L in reversed(range(level)):
+        groups = n >> (L + 1)
+        pairs = v.reshape(4, groups, 2, 1 << L)
+        x = m31.inv(tw[n - (n >> L) : n - (n >> L) + groups]).reshape(groups, 1)
+        xf1 = m31.mul(pairs[:, :, 1], x)
+        v = torch.stack([m31.add(pairs[:, :, 0], xf1), m31.sub(pairs[:, :, 0], xf1)], dim=2).reshape(4, n)
+    past = f", {len(planted)} planted past it" if planted else ""
+    return LastCase(f"last layer of (4, 2**{level}), bound {bound}{past}", v, level, bound)
+
+
+def run_last(case: LastCase, plain: bool = False):
+    """The last-layer kernel's output words (on the card), or the plain
+    version's (2**bound, 4) kept coefficients."""
+    from ..ops import fri_fold_cuda
+
+    if plain:
+        return fri_last.last_layer_poly_plain(case.g, case.level, case.bound)
+    return fri_fold_cuda.last_layer(case.g, fri_last.twiddles(case.level, case.g.device), case.level, case.bound)
 
 
 class MerkleCase(NamedTuple):

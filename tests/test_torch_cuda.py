@@ -1016,24 +1016,21 @@ def test_merkle_level_reads_a_strided_view(cuda):
     assert torch.equal(got, cases.run_merkle(case._replace(cols=case.cols.contiguous())))
 
 
-@pytest.mark.parametrize("prover", ["prove", "prove_sha256p31", "prove_np", "prove_streamed", "prove_np_streamed"])
-def test_provers_run_folds_and_merkle_levels_on_the_kernels(cuda, monkeypatch, prover):
-    """On CUDA every prover folds in spec.n_inner_layers + 1 launches of the
-    fold-layer kernel and hashes its Poseidon31 trees on the Merkle level
-    kernel, never the plain versions and never K1 (the demo PoW is the
-    host's); the proof equals the CPU run's."""
+PROVERS = ["prove", "prove_sha256p31", "prove_np", "prove_streamed", "prove_np_streamed"]
+
+
+def _demo_prover(prover):
+    """device -> the demo proof of `prover` (one of PROVERS) on that device."""
     from test_torch_chain import T_NP_CONFIG, _np_trace
 
-    from recursive_stwo_tpu_torch.prover import commit, fri
     from recursive_stwo_tpu_torch.prover.commit import Sha256DeviceTree
     from recursive_stwo_tpu_torch.prover.prove import prove
     from recursive_stwo_tpu_torch.prover.prove_np import prove_np
     from recursive_stwo_tpu_torch.prover.prove_sha256 import Sha256ProverChannel
     from recursive_stwo_tpu_torch.prover.stream import prove_np_streamed, prove_streamed
-    from recursive_stwo_tpu_torch.verifier.spec import NoPoseidonVerifierSpec, VerifierSpec
 
     stream_args = dict(chunk_log=6, cutoff=4)
-    run = {
+    return {
         "prove": lambda d: prove(flagship.demo_trace(), flagship.DEMO_CONFIG, device=d),
         "prove_sha256p31": lambda d: prove(flagship.demo_trace(), flagship.DEMO_CONFIG, device=d,
                                            channel=Sha256ProverChannel(), tree_cls=Sha256DeviceTree),
@@ -1041,6 +1038,18 @@ def test_provers_run_folds_and_merkle_levels_on_the_kernels(cuda, monkeypatch, p
         "prove_streamed": lambda d: prove_streamed(flagship.demo_trace(), flagship.DEMO_CONFIG, device=d, **stream_args),
         "prove_np_streamed": lambda d: prove_np_streamed(_np_trace(), T_NP_CONFIG, device=d, **stream_args),
     }[prover]
+
+
+@pytest.mark.parametrize("prover", PROVERS)
+def test_provers_run_folds_and_merkle_levels_on_the_kernels(cuda, monkeypatch, prover):
+    """On CUDA every prover folds in spec.n_inner_layers + 1 launches of the
+    fold-layer kernel and hashes its Poseidon31 trees on the Merkle level
+    kernel, never the plain versions and never K1 (the demo PoW is the
+    host's); the proof equals the CPU run's."""
+    from recursive_stwo_tpu_torch.prover import commit, fri
+    from recursive_stwo_tpu_torch.verifier.spec import NoPoseidonVerifierSpec, VerifierSpec
+
+    run = _demo_prover(prover)
     want = run("cpu")
 
     def refuse(*a, **k):
@@ -1060,13 +1069,78 @@ def test_provers_run_folds_and_merkle_levels_on_the_kernels(cuda, monkeypatch, p
     assert counts["permute_rows"] == 0, counts
 
 
+# ---- the FRI last-layer kernel (csrc/fri_fold.cu `fri_last_kernel`) ----
+
+
+@pytest.mark.parametrize("level,bound", [(1, 0), (2, 1), (4, 2), (5, 5), (9, 0), (12, 5), (13, 8), (14, 3), (16, 7),
+                                         (17, 7), (20, 7), (23, 7)])
+def test_fri_last_bit_exact(cuda, level, bound):
+    """One launch of the last-layer kernel against the plain version on the
+    same card tensor: the kept coefficients in the verifier's order, every
+    count 0, and last_layer_poly's rows; from one cluster block a column to
+    clusters of 8 with 128 slabs a rank."""
+    from recursive_stwo_tpu_torch.ops import fri_fold_cuda
+    from recursive_stwo_tpu_torch.prover import fri_last
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    case = cases.last_layer_case(level, bound, cuda, seed=level)
+    before = fri_fold_cuda.LAUNCHES["fri_last"]
+    got = cases.run_last(case)
+    torch.cuda.synchronize()
+    assert fri_fold_cuda.LAUNCHES["fri_last"] == before + 1
+    got = got.cpu().numpy()
+    want = cases.run_last(case, plain=True)
+    assert np.array_equal(got[: 4 << bound].reshape(-1, 4), want.astype(np.int64)), case.label
+    assert list(got[4 << bound :]) == [0] * 4, case.label
+    assert np.array_equal(fri_last.last_layer_poly(case.g, level, bound), want)
+
+
+@pytest.mark.parametrize("level,bound", [(2, 1), (9, 0), (16, 7), (20, 7)])
+def test_fri_last_counts_coefficients_past_the_bound(cuda, level, bound):
+    """Coefficients planted past the bound (the first such position, the
+    last, one in the middle) are counted in every column, and
+    last_layer_poly raises the copy's ValueError."""
+    from recursive_stwo_tpu_torch.prover import fri_last
+    from recursive_stwo_tpu_torch.tools import prover_cases as cases
+
+    n = 1 << level
+    for planted in ((1 << bound,), (n - 1,), (1 << bound, n // 2 + 1, n - 1)):
+        case = cases.last_layer_case(level, bound, cuda, seed=len(planted), planted=planted)
+        words = cases.run_last(case).cpu().numpy()
+        assert list(words[4 << bound :]) == [len(set(planted))] * 4, case.label
+        with pytest.raises(ValueError, match=fri_last.DEGREE_ERROR):
+            fri_last.last_layer_poly(case.g, level, bound)
+
+
+@pytest.mark.parametrize("prover", PROVERS)
+def test_provers_run_the_last_layer_on_the_kernel(cuda, monkeypatch, prover):
+    """On CUDA every prover, resident and streamed, takes its last layer in
+    one launch of the last-layer kernel, never the plain version; the proof's
+    bytes equal the CPU run's, which took the plain version."""
+    from recursive_stwo_tpu_torch.prover import fri_last
+
+    run = _demo_prover(prover)
+    want = run("cpu")
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain last layer ran on CUDA")
+
+    monkeypatch.setattr(fri_last, "last_layer_poly_plain", refuse)
+    launches.reset()
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert launches.counts()["fri_last"] == 1
+    assert flagship.proof_bytes(got) == flagship.proof_bytes(want)
+
+
 def test_fri_fold_and_merkle_kernels_keep_every_value_in_registers(cuda):
-    """ptxas' report of the build: the fold-layer kernel's three instances
-    and the Merkle level kernel have no stack frame and spill nothing."""
+    """ptxas' report of the build: the fold-layer kernel's three instances,
+    the Merkle level kernel and the last-layer kernel have no stack frame and
+    spill nothing."""
     from recursive_stwo_tpu_torch.ops import build
 
     build.load()
-    for name, instances in (("fri_layer_kernel", 3), ("merkle_level_kernel", 1)):
+    for name, instances in (("fri_layer_kernel", 3), ("merkle_level_kernel", 1), ("fri_last_kernel", 1)):
         report = build.ptxas_report(name)
         assert len(report) == instances, (name, report)
         for r in report:
