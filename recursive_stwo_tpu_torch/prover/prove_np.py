@@ -5,7 +5,8 @@ Twin of recursive_stwo_tpu/prover/prove_np.py::prove_np, its host flow
 FRI tail, so the proof is byte-identical to the JAX package's.  Its helpers
 map onto the stages the PlonkWithPoseidon prover already runs on tensors:
 
-- columns: `air.np_columns`, uploaded once;
+- columns: `air.np_columns`, uploaded once (the `prove.air` and
+  `prove.upload` spans, as in `arrays.trace_to_torch`);
 - interaction: `interaction.interaction_columns` with the verifier's
   `evaluate_plonk_np`;
 - composition (`_composition_evals_np`): `composition_stage` with one table;
@@ -32,6 +33,7 @@ import numpy as np
 
 from ..core import circle_host as ccircle
 from ..proof.containers import PcsConfig, PlonkWithoutPoseidonProof
+from ..utils.spans import span
 from ..verifier import composition as vcomp
 from ..verifier.arrays import require_device
 from ..verifier.spec import NoPoseidonVerifierSpec
@@ -80,14 +82,16 @@ def prove_np(
     channel, Tree = flavour(channel, tree_cls, device)
     plog = progress or logging.getLogger(__name__).debug
 
-    pre_h, tr_h = air.np_columns(trace)
+    with span("prove.air"):
+        pre_h, tr_h = air.np_columns(trace)
     L = pre_h.shape[1].bit_length() - 1
     if 1 << L != pre_h.shape[1]:
         raise ValueError(f"{pre_h.shape[1]} rows is not a power of two")
     blowup = config.fri_config.log_blowup_factor
     spec = NoPoseidonVerifierSpec.for_rows(L, config)
     bound = spec.composition_log_degree_bound
-    pre, tr = to_device(pre_h, device), to_device(tr_h, device)
+    with span("prove.upload"):
+        pre, tr = to_device(pre_h, device), to_device(tr_h, device)
     del pre_h, tr_h
     plog(f"trace uploaded (log size {L}, composition bound {bound})")
 

@@ -520,7 +520,8 @@ def prove_np_streamed(
     plog = progress or logging.getLogger(__name__).debug
     tree = partial(StreamedTree, chunk_log=chunk_log, cutoff=cutoff, flavor=flavor)
 
-    pre_h, tr_h = air.np_columns(trace)
+    with span("prove.air"):
+        pre_h, tr_h = air.np_columns(trace)
     L = pre_h.shape[1].bit_length() - 1
     if 1 << L != pre_h.shape[1]:
         raise ValueError(f"{pre_h.shape[1]} rows is not a power of two")
@@ -528,7 +529,8 @@ def prove_np_streamed(
     spec = NoPoseidonVerifierSpec.for_rows(L, config)
     bound = spec.composition_log_degree_bound
     dm1 = bound - 1
-    pre, tr = to_device(pre_h, device), to_device(tr_h, device)
+    with span("prove.upload"):
+        pre, tr = to_device(pre_h, device), to_device(tr_h, device)
     del pre_h, tr_h
 
     c_pre = circle_fft.interpolate(_domain_order(pre, L))
