@@ -5,13 +5,14 @@
 
 Phases; any failure ends the run with a non-zero exit and no result line:
   1. card: the GPU's name and power limit, as nvidia-smi prints them;
-  2. build: nvcc builds the Poseidon2-16, SHA-256, composition, fold,
-     transcript, circle FFT, quotient, sampling, interaction, FRI fold-layer,
-     FRI last-layer and Merkle level kernels and the latency probe from
-     csrc/ (one nvcc a source, all at once, then a link; seconds); ptxas'
-     report (registers, stack frame, spills) of the transcript, check,
-     domain, fold, FFT pass, quotient, sampling, interaction, fold-layer,
-     last-layer and Merkle level kernels on lines of their own;
+  2. build: nvcc builds the Poseidon2-16, SHA-256, SHA-256 grind,
+     composition, fold, transcript, circle FFT, quotient, sampling,
+     interaction, FRI fold-layer, FRI last-layer and Merkle level kernels and
+     the latency probe from csrc/ (one nvcc a source, all at once, then a
+     link; seconds); ptxas' report (registers, stack frame, spills) of the
+     transcript, check, domain, fold, FFT pass, quotient, sampling,
+     interaction, fold-layer, last-layer, Merkle level and SHA-256 grind
+     kernels on lines of their own;
   3. kernels vs plain: K1 and K2 against their plain PyTorch versions on
      the card and on the host CPU, bit for bit, at 2**20 states and at the
      main path's shapes, plus the Poseidon2-16 known-answer test; each of
@@ -134,9 +135,14 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      fast_prover2, largest domain 2**23; level2-1.bin, 7476baa5...) and
      level 3 (the committed level2-1.pkl verified once, preset standard,
      2**23; level3-1.bin, 642d38ee...; the repo holds no level-3 proof);
-  9. grind: the port's grind_device on CUDA at 24 bits on a seeded digest
+  9. grinds: the port's grind_device on CUDA at 24 bits on a seeded digest
      must find the host native scan's nonce, K1 launched (its main path
-     since the trees left it); prints both times;
+     since the trees left it); prints both times; the SHA-256 grind kernel
+     (csrc/sha256_grind.cu, one launch a grind) must find the native scan's
+     nonce on seeded digests at 16, 20, 24 and 28 bits, and one from just
+     below 2**32; its time at the 28-bit grind (device, under
+     torch.profiler, and the call's wall with its result read) beside
+     grind_bound_ms of the nonces up to the hit, and the host scan's;
  10. without-Poseidon on the Poseidon31 channel, np_small at B=512 (bench.py's
      batch for np_flavor_proofs_per_sec): verify_batch_np on CUDA over a
      batch with a flipped sibling hash and a flipped nonce, and again with a
@@ -223,7 +229,7 @@ levels 2 and 3 and phase 12's last layer; streamed_launches: phase 15's
 phase 10's launches and shapes, and the kernel's times there;
 mesh_launches: each rank's launches in phase 14 (c); launches is each
 kernel's count in its main path: phase 4's verify_batch, phase 9's device
-grind for K1, phase 7's level 1 for the domain kernel, the circle FFT, the
+grind for K1, phase 15 (c) for the SHA-256 grind, phase 7's level 1 for the domain kernel, the circle FFT, the
 quotients, the sampling, the interaction, the fold-layer, the last-layer
 and the Merkle level kernels, phase 15 (c)
 for the SHA-256 and tile kernels; K1's
@@ -269,6 +275,7 @@ PROVER_LEAF_ROWS = 1 << 23  # K1 at 2**23 rows, above the prover's largest call 
 # tails of a warp's 8 rows and a block's 32, and the prover's largest call
 ROWS_CHECKED = (1, 7, 8, 1023, 1024, (1 << 20) + 3, PROVER_LEAF_ROWS)
 GRIND_BITS = 24
+SHA_GRIND_BITS = (16, 20, 24, 28)  # phase 9's SHA-256 grinds; the timed one last
 NP_BATCH = 512  # bench.py:187-188
 SHA_BATCH = 128  # bench.py:248
 SAMPLE_SLOT = 7
@@ -1417,6 +1424,8 @@ def prove_level(dev, level: int, seen: set, proof_in=None, streamed: bool = Fals
           f"{r['circuit_s']:.2f} s; pow {r['pow_bits']}, FRI {r['fri']}")
     print_timing(label, r)
     got = r["prove_launches"]
+    require(got["sha256_grind"] == (level == chain.LAST),
+            f"{label}: expected {int(level == chain.LAST)} sha256_grind launches (the 28-bit SHA-256 grind), got {got}")
     if level == chain.LAST:
         require(got["sha256_level"] > 0, f"{label}: sha256_level never launched while proving")
     elif level <= 3:
@@ -1576,6 +1585,40 @@ def check_grind(torch, dev) -> dict:
     print(f"grind at {GRIND_BITS} bits: nonce {nonce} on CUDA in {card_s:.3f} s ({blocks} blocks of 2**22), "
           f"host native scan {host_s:.3f} s")
     return got
+
+
+def check_sha_grind(torch, dev) -> dict:
+    """Phase 9: the SHA-256 grind kernel against the native host scan at
+    SHA_GRIND_BITS on seeded digests (seed SEED + bits) and from just below
+    2**32, one launch a grind; its times at the 28-bit grind beside
+    grind_bound_ms of the nonces up to the hit (the kernel scans a little
+    more: the chunks in flight).  Returns {nonce, ms, events_ms, plain_ms,
+    bound_ms, bound_by, max_abs_err, library_ms} at 28 bits."""
+    from recursive_stwo_tpu_torch.ops import sha256_cuda
+    from recursive_stwo_tpu_torch.utils import native
+
+    def digest(seed):
+        return np.random.default_rng(seed).integers(0, 2**32, 8, dtype=np.uint64).astype(np.uint32)
+
+    cases = [(bits, SEED + bits, 0) for bits in SHA_GRIND_BITS] + [(16, SEED, 2**32 - 4096)]
+    found = {}
+    for bits, seed, start in cases:
+        before = sha256_cuda.LAUNCHES["sha256_grind"]
+        nonce = sha256_cuda.sha256_grind(digest(seed), bits, start, device=dev)
+        require(sha256_cuda.LAUNCHES["sha256_grind"] == before + 1, "sha256_grind: not one launch a grind")
+        host = native.sha256_grind(digest(seed), bits, start)
+        require(nonce == host, f"sha256_grind found {nonce} at {bits} bits from {start}, the host scan {host}")
+        found[(bits, start)] = nonce
+    require(found[(16, 2**32 - 4096)] >= 2**32, "sha256_grind: the case from below 2**32 did not cross it")
+    print(f"sha256_grind: the native scan's nonce at (bits, start) {sorted(found)}: {sorted(found.values())}")
+    bits = SHA_GRIND_BITS[-1]
+    d, nonce = digest(SEED + bits), found[(bits, 0)]
+    out = dict(timed_kernel(torch, "sha256_grind", f"{bits} bits, nonce {nonce}",
+                            lambda: sha256_cuda.sha256_grind(d, bits, device=dev),
+                            lambda: native.sha256_grind(d, bits), "sha256_grind_kernel", 1,
+                            (sha256_cuda.grind_bound_ms(nonce + 1), "operations"), 5),
+               nonce=nonce, max_abs_err=0, library_ms=None)
+    return out
 
 
 def np_rate(torch, dev) -> float:
@@ -1820,7 +1863,7 @@ def main() -> int:
     for name in ("transcript_kernel", "composition_check_kernel", "composition_domain_kernel", "fold_kernel",
                  "fft_pass_kernel", "fft_tile_twiddle_kernel", "quotient_coeffs_kernel", "quotient_points_kernel",
                  "sample_kernel", "sample_finish_kernel", "interaction_kernel", "fri_layer_kernel",
-                 "fri_last_kernel", "merkle_level_kernel"):
+                 "fri_last_kernel", "merkle_level_kernel", "sha256_grind_kernel"):
         for r in build.ptxas_report(name):
             print(f"ptxas {name} ({r['kernel']}): {r['registers']} registers, {r['smem_bytes']} bytes static smem, "
                   f"{r['stack_bytes']} bytes stack frame, "
@@ -1878,7 +1921,8 @@ def main() -> int:
     levels = {level: prove_level(dev, level, seen) for level in (1, 2, 3)}
     phase_done("7-8 (chain levels 1-3)")
     grind_launches = check_grind(torch, dev)
-    phase_done("9 (grind)")
+    kernels["sha256_grind"] = check_sha_grind(torch, dev)
+    phase_done("9 (grinds)")
 
     np_launches, _ = check_np_path(torch, dev)
     torch.cuda.synchronize()
@@ -1938,6 +1982,8 @@ def main() -> int:
                     "fold), recursive_stwo_tpu/prover/stream.py:667 (_join_fold_jit) and :704 (_line_fold_jit)",
         "merkle_level": "recursive_stwo_tpu/prover/device_prove.py:49 (_absorb_columns) and :66 (_commit_levels), "
                         "recursive_stwo_tpu/prover/stream.py:252 (_commit_chunk_jit, p31)",
+        "sha256_grind": "no TPU kernel: the host scan of recursive_stwo_tpu/prover/prove_sha256.py (grind_pow), "
+                        "on native/sha256.cpp's AVX-512 sha256_grind",
         "fri_last": "no TPU kernel: the host numpy recursive_stwo_tpu/prover/fri.py:84 (line_interpolate) after a "
                     "copy of the folded layer, called at recursive_stwo_tpu/prover/device_prove.py:913, "
                     "prove.py:443 and stream.py:1157",
@@ -1954,14 +2000,15 @@ def main() -> int:
     sources["fri_fold"] = "recursive_stwo_tpu_torch/csrc/fri_fold.cu"
     sources["merkle_level"] = "recursive_stwo_tpu_torch/csrc/merkle.cu"
     sources["fri_last"] = "recursive_stwo_tpu_torch/csrc/fri_fold.cu"
+    sources["sha256_grind"] = "recursive_stwo_tpu_torch/csrc/sha256_grind.cu"
     # the main path of each: phase 4's verify_batch for the transcript, K2,
     # scan, check and fold kernels, phase 15 (c)'s streamed last layer for
-    # the SHA-256 and tile kernels, phase 9's device grind for K1, phase 7's
+    # the SHA-256, SHA-256 grind and tile kernels, phase 9's device grind for K1, phase 7's
     # level-1 proof for the domain kernel, the circle FFT, the quotients, the
     # sampling, the interaction, the fold-layer, the last-layer and the
     # Merkle level kernels
     main_launches = {k: launches[FIXTURES[0]][k] for k in replaces}
-    for k in ("sha256_level", "eval_tiles"):
+    for k in ("sha256_level", "eval_tiles", "sha256_grind"):
         main_launches[k] = streamed[LAST_LAYER][k]
     main_launches["permute_rows"] = grind_launches["permute_rows"]
     for k in ("composition_domain", "circle_fft", "quotients", "sample", "interaction", "fri_fold", "fri_last",

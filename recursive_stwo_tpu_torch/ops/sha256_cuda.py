@@ -1,4 +1,5 @@
-"""ctypes wrapper of the SHA-256 tree-level kernel (csrc/sha256.cu).
+"""ctypes wrappers of the SHA-256 tree-level kernel (csrc/sha256.cu) and the
+SHA-256 channel's proof-of-work grind (csrc/sha256_grind.cu).
 
   sha256_level(children, cols) -> (n, 8) int64 digest words in [0, 2**32):
       one level of n nodes of a SHA-256 Merkle tree under the rules of
@@ -17,23 +18,47 @@ reads them back with `.view(numpy.uint32)`, never sign-extended.  The
 column tensor may be a column slice of a larger one (its rows any stride,
 its entries contiguous), so a span of a resident block is hashed in place.
 A kernel launches on the current stream of its tensors' device and does
-not synchronise.  `LAUNCHES` counts its launches.
+not synchronise.
+
+  sha256_grind(digest_words, pow_bits, start, device) -> int: the smallest
+      nonce n >= start whose mix leaves `pow_bits` trailing zero bits
+      (prover/prove_sha256.py `Sha256ProverChannel.grind_pow`), the nonce
+      native/sha256.cpp's host scan returns: one launch on the device's
+      current stream and one 8-byte read of the result, which waits for it.
+
+`LAUNCHES` counts each kernel's launches.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
+from ..utils.spans import span
 from . import build
 from .poseidon_cuda import H100_BYTES_PER_S, H100_INT_OPS_PER_S, _raise_on
 
-LAUNCHES = {"sha256_level": 0}
+LAUNCHES = {"sha256_level": 0, "sha256_grind": 0}
+_NO_HIT = 2**64 - 1  # the grind's result word until a nonce hits
+_grind_state = {}  # device -> (2,) int64 tensor: the grind's chunk counter and result
 
 # int32 operations of one compression as csrc/sha256.cu writes it: 48
 # schedule steps (two sigmas of two rotations, a shift and two xors, and
 # three adds: 13), 64 rounds (two Sigmas at 5, ch 4, maj 5, seven adds: 26)
 # and the 8 adds into the state
 INT_OPS_PER_COMPRESSION = 48 * 13 + 64 * 26 + 8
+
+# int32 operations of one nonce as csrc/sha256_grind.cu writes it, counted
+# as INT_OPS_PER_COMPRESSION counts them, less what folds away: the two
+# bswapped nonce words (2); the first block's 48 schedule steps and 64
+# rounds with the zero words folded and the digest-only terms hoisted (2,156)
+# and its 8 adds into the state; the padding block's 63 rounds on constant
+# K + W (25 each), and its last round's `a` with word 0's add into the state
+# (25); the hit test's bswap and mask (2).  tests/test_torch_sha256_grind.py
+# replays the kernel to count it.
+GRIND_INT_OPS_PER_NONCE = 2 + 2_156 + 8 + 63 * 25 + 25 + 2
 
 
 def reset_launches() -> None:
@@ -105,3 +130,45 @@ def sha256_level(children, cols) -> torch.Tensor:
     if n:
         LAUNCHES["sha256_level"] += 1
     return out
+
+
+def grind_bound_ms(nonces: int) -> float:
+    """The least time of `nonces` nonces of the grind at GRIND_INT_OPS_PER_NONCE,
+    at the int32 rate bound_ms uses; the grind reads and writes nothing a
+    nonce."""
+    return nonces * GRIND_INT_OPS_PER_NONCE / H100_INT_OPS_PER_S * 1e3
+
+
+def sha256_grind(digest_words, pow_bits: int, start: int = 0, device="cuda") -> int:
+    """The smallest nonce n >= start whose mix, sha256(le8(n) || 24 zero
+    bytes || digest), leaves `pow_bits` trailing zero bits in the
+    little-endian reading of the new digest's first word.  digest_words: the
+    channel digest's 8 big-endian words; 1 <= pow_bits <= 32; 0 <= start <
+    2**64; device: a CUDA device.  Nonces up to 2**64 - 2 are scanned; raises
+    if none of them hits."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the grind kernel runs on a CUDA device, got {device}")
+    if not 1 <= pow_bits <= 32:
+        raise ValueError(f"pow_bits {pow_bits} outside [1, 32]")
+    words = [int(w) for w in np.asarray(digest_words).reshape(-1)]
+    if len(words) != 8 or not all(0 <= w < 2**32 for w in words):
+        raise ValueError(f"expected a digest of 8 words in [0, 2**32), got {words}")
+    if not 0 <= start < 2**64:
+        raise ValueError(f"start {start} outside [0, 2**64)")
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    lib = build.load()
+    state = _grind_state.get(device)
+    if state is None:
+        state = _grind_state[device] = torch.empty(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.sha256_grind((ctypes.c_uint32 * 8)(*words), (1 << pow_bits) - 1, start, state.data_ptr(), stream)
+    _raise_on(err, "sha256_grind")
+    LAUNCHES["sha256_grind"] += 1
+    with span("to_host"):
+        nonce = state[1].item() % 2**64
+    if nonce == _NO_HIT:
+        raise RuntimeError(f"no nonce in [{start}, 2**64 - 1) leaves {pow_bits} zero bits")
+    return nonce

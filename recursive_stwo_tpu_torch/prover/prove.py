@@ -27,10 +27,11 @@ from .prove_sha256 import Sha256ProverChannel
 def flavour(channel, tree_cls, device):
     """(channel, tree class) of a ported flavour on `device`: the
     Poseidon31 channel and `DeviceTree` when both are None, or the SHA-256
-    pair as given."""
+    pair as given, its channel set to grind on `device`."""
     if channel is None and tree_cls is None:
         return PoseidonChannel(device), DeviceTree
     if isinstance(channel, Sha256ProverChannel) and tree_cls is Sha256DeviceTree:
+        channel.device = device
         return channel, tree_cls
     raise NotImplementedError(
         "the ported flavours are the default Poseidon31 channel and tree, and "

@@ -11,8 +11,12 @@ confirmed-prefix semantics) + tree rules (verifier/sha256_merkle.py) and
 is verified end-to-end by verifier/verify_sha256.py.
 
 Copied from recursive_stwo_tpu/prover/prove_sha256.py: `Sha256ProverChannel`,
-which the SHA-256 transcripts of the verifiers replay.  `prove_sha256p31` is
-the port's `prove` with this channel and `Sha256DeviceTree` on `device`.
+which the SHA-256 transcripts of the verifiers replay, with `grind_pow` on
+the prover's device (prove.flavour sets it): on a CUDA device one launch of
+the grind kernel (ops/sha256_cuda.py `sha256_grind`), on the host the native
+scan.  Both return the smallest nonce, so the proof is the same.
+`prove_sha256p31` is the port's `prove` with this channel and
+`Sha256DeviceTree` on `device`.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.sha256 import _H0, compress
+from ..ops import sha256_cuda
 from ..proof.containers import PcsConfig, PlonkWithPoseidonProof
 from ..verifier.sha256_channel import Sha256Channel
 
@@ -27,10 +32,12 @@ from ..verifier.sha256_channel import Sha256Channel
 class Sha256ProverChannel:
     """Adapter giving verifier/sha256_channel.Sha256Channel the prover
     channel interface (PoseidonChannel parity: mix_root takes an (8,)
-    uint32 word digest; draws return (4,) uint32 felts)."""
+    uint32 word digest; draws return (4,) uint32 felts).  `device` is where
+    the grind runs: the host until a prover sets its own (prove.flavour)."""
 
     def __init__(self):
         self.ch = Sha256Channel()
+        self.device = None
 
     # -- mixing -------------------------------------------------------------
 
@@ -65,10 +72,14 @@ class Sha256ProverChannel:
         """Find a nonce whose mix leaves `pow_bits` trailing zero bits in
         the digest (LE interpretation, Sha256Channel.trailing_zeros).
 
-        Vectorized: one mix_u64 = sha256 of a 64-byte message
-        (le8(nonce) + 24 zero bytes || digest) = 2 compressions.
-        Native AVX-512 16-way scan when available (~50M nonces/s)."""
+        One mix_u64 = sha256 of a 64-byte message (le8(nonce) + 24 zero
+        bytes || digest) = 2 compressions.  On the card when `device` is a
+        CUDA device; else the native AVX-512 16-way scan when available
+        (~50M nonces/s), else numpy in batches.  At 0 bits every nonce
+        passes and the host returns the first."""
         digest_words = np.frombuffer(self.ch.digest, ">u4").astype(np.uint32)
+        if pow_bits and self.device is not None and self.device.type == "cuda":
+            return sha256_cuda.sha256_grind(digest_words, pow_bits, device=self.device)
         from ..utils import native
 
         if native.sha_available():

@@ -34,8 +34,9 @@ prover stage's seconds (the `progress` messages), the PoW bits and seconds,
 the peak of `torch.cuda.max_memory_allocated`, K1, K2, scan and SHA-256
 tree-level launches while proving and while verifying, and each resident
 SHA-256 tree's hashing and digest copy-back seconds.  The native host code
-(the SHA grind, the streamed trees' top levels) runs on RSTPU_OMP_THREADS
-OpenMP threads, 1 unless set; each line names the count.
+(the streamed trees' top levels; the SHA grind of a proof on the host, on
+a card it runs there) runs on RSTPU_OMP_THREADS OpenMP threads, 1 unless
+set; each line names the count.
 """
 
 from __future__ import annotations

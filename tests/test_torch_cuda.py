@@ -37,7 +37,8 @@ def _verifier_launches(got: dict) -> None:
     fold kernels once each."""
     assert (got["transcript"], got["permute_rows"]) == (1, 0), got
     assert (got["wordmajor_scan"], got["permute_wordmajor"]) == (2, 1), got
-    assert (got["composition_check"], got["fold_phase"], got["composition_domain"], got["sha256_level"]) == (1, 1, 0, 0), got
+    assert (got["composition_check"], got["fold_phase"], got["composition_domain"], got["sha256_level"],
+            got["sha256_grind"]) == (1, 1, 0, 0, 0), got
 
 
 def _states(seed, n):
@@ -165,6 +166,64 @@ def test_grind_device_on_cuda_matches_native_scan(cuda, pow_bits):
 
     digest = np.random.default_rng(pow_bits).integers(0, P, 8).astype(np.uint32)
     assert grind_device(digest, pow_bits, device=cuda) == native.grind(digest, pow_bits)
+
+
+# (pow_bits, start): seeded digests (seed pow_bits, or 1000 with a start) whose
+# smallest nonces are 108, 2,545, 23,458, 117,125 and 20,994,700, the last
+# three past the first chunk of 2**13 nonces, and 2**32 + 119,627 from 4,096
+# below 2**32, where the scan crosses the high word's carry
+SHA_GRINDS = {"8": (8, 0), "12": (12, 0), "16": (16, 0), "20": (20, 0), "24": (24, 0),
+              "across 2**32": (16, 2**32 - 4096)}
+
+
+@pytest.mark.parametrize("case", list(SHA_GRINDS))
+def test_sha256_grind_matches_native_scan(cuda, case):
+    """The SHA-256 grind kernel returns the native host scan's nonce, in one
+    launch, from any start."""
+    from recursive_stwo_tpu_torch.ops import sha256_cuda
+    from recursive_stwo_tpu_torch.utils import native
+
+    pow_bits, start = SHA_GRINDS[case]
+    digest = np.random.default_rng(1000 if start else pow_bits).integers(0, 2**32, 8, dtype=np.uint64)
+    digest = digest.astype(np.uint32)
+    before = sha256_cuda.LAUNCHES["sha256_grind"]
+    nonce = sha256_cuda.sha256_grind(digest, pow_bits, start, device=cuda)
+    assert sha256_cuda.LAUNCHES["sha256_grind"] == before + 1
+    assert nonce == native.sha256_grind(digest, pow_bits, start)
+    assert nonce >= (2**32 if start else 1 << 13) or pow_bits < 16
+
+
+def test_sha256_channel_grinds_on_the_card(cuda):
+    """The Sha256ProverChannel of a prover on the card grinds 24 bits there,
+    one launch, and finds the host scan's nonce on the same transcript."""
+    from recursive_stwo_tpu_torch.ops import sha256_cuda
+    from recursive_stwo_tpu_torch.prover.commit import Sha256DeviceTree
+    from recursive_stwo_tpu_torch.prover.prove import flavour
+    from recursive_stwo_tpu_torch.prover.prove_sha256 import Sha256ProverChannel
+
+    chans = []
+    for device in (cuda, torch.device("cpu")):
+        ch, _ = flavour(Sha256ProverChannel(), Sha256DeviceTree, device)
+        ch.mix_root(np.arange(8, dtype=np.uint32) * 77_777)
+        ch.mix_one_felt([1, 2, 3, 4])
+        chans.append(ch)
+    before = sha256_cuda.LAUNCHES["sha256_grind"]
+    nonce = chans[0].grind_pow(24)
+    assert sha256_cuda.LAUNCHES["sha256_grind"] == before + 1
+    assert nonce == chans[1].grind_pow(24)
+    assert sha256_cuda.LAUNCHES["sha256_grind"] == before + 1
+    assert chans[0].ch.verify_pow_nonce(24, nonce)
+
+
+def test_sha256_grind_kernel_keeps_every_value_in_registers(cuda):
+    """ptxas' report of the build: the grind kernel has no stack frame and
+    spills nothing."""
+    from recursive_stwo_tpu_torch.ops import build
+
+    build.load()
+    report = build.ptxas_report("sha256_grind_kernel")
+    assert len(report) == 1, report
+    assert (report[0]["stack_bytes"], report[0]["spill_stores"], report[0]["spill_loads"]) == (0, 0, 0), report
 
 
 def test_verify_batch_np_on_cuda_matches_host_reference(cuda):
@@ -1044,8 +1103,9 @@ def _demo_prover(prover):
 def test_provers_run_folds_and_merkle_levels_on_the_kernels(cuda, monkeypatch, prover):
     """On CUDA every prover folds in spec.n_inner_layers + 1 launches of the
     fold-layer kernel and hashes its Poseidon31 trees on the Merkle level
-    kernel, never the plain versions and never K1 (the demo PoW is the
-    host's); the proof equals the CPU run's."""
+    kernel, never the plain versions and never K1 (the demo's 5-bit PoW is
+    the host's in the Poseidon31 flavour), the SHA-256 grind kernel once in
+    the Sha256Poseidon31 flavour; the proof equals the CPU run's."""
     from recursive_stwo_tpu_torch.prover import commit, fri
     from recursive_stwo_tpu_torch.verifier.spec import NoPoseidonVerifierSpec, VerifierSpec
 
@@ -1066,7 +1126,7 @@ def test_provers_run_folds_and_merkle_levels_on_the_kernels(cuda, monkeypatch, p
             else VerifierSpec.from_proof(got))
     assert counts["fri_fold"] == spec.n_inner_layers + 1, counts
     assert (counts["merkle_level"] > 0) == (prover != "prove_sha256p31"), counts
-    assert counts["permute_rows"] == 0, counts
+    assert counts["permute_rows"] == 0 and counts["sha256_grind"] == (prover == "prove_sha256p31"), counts
 
 
 # ---- the FRI last-layer kernel (csrc/fri_fold.cu `fri_last_kernel`) ----
