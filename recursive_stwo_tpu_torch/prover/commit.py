@@ -31,8 +31,9 @@ from ..core import poseidon2
 from ..core.sha256 import sha256_level
 from ..ops import merkle_cuda
 from ..utils.spans import span
+from ..verifier import sha256_merkle
 from .arrays import to_numpy
-from .commit_host import CommittedTree
+from .commit_host import CommittedTree, _hash_node_level
 
 # leaf rows of a SHA-256 tree hashed as one block, down through every level
 # the block covers: a block's digests on the device are (SHA_ROWS, 8) int64
@@ -129,7 +130,16 @@ def merge_by_log(pairs) -> Dict[int, torch.Tensor]:
 class DeviceTree(CommittedTree):
     """CommittedTree whose columns and levels stay on the device; the
     decommit plans are the base class's, and only the rows they name are
-    copied to the host."""
+    copied to the host.  The class decides the hash: `device_level` and
+    `host_node_level` are one level of it on the device and one node level
+    on the host, as a StreamedTree of this class hashes them."""
+
+    host_node_level = staticmethod(_hash_node_level)
+
+    @staticmethod
+    def device_level(children, cols) -> torch.Tensor:
+        """The leaf level when `children` is None, else a node level."""
+        return _level(children, cols, cols.shape[1] if children is None else children.shape[0] // 2)
 
     def __init__(self, columns_by_log: Dict[int, torch.Tensor]):
         self.columns_by_log = {int(L): c for L, c in columns_by_log.items()}
@@ -162,6 +172,9 @@ class Sha256DeviceTree(DeviceTree):
     """The SHA-256 flavour: columns on the device, hashed there, and levels
     of uint32 digest words on the host (a 2**26-leaf tree's levels take
     4 GiB there)."""
+
+    device_level = staticmethod(sha256_level)
+    host_node_level = staticmethod(sha256_merkle.hash_node_level)
 
     def _build_levels(self):
         return sha256_levels(self.columns_by_log)

@@ -1,17 +1,18 @@
-"""The port's prover entry point.
+"""The port's prover entry point, and the flavours of every prover.
 
 Twin of the routing in recursive_stwo_tpu/prover/prove.py:148-208: the
-device-resident prover at every size, with the channel and tree class the
-caller names.  Two flavours are ported: the default Poseidon31 channel with
+device-resident PlonkWithPoseidon prover at every size, with the channel
+and tree class the caller names; prover/flow.py runs its stages.  Two
+flavours are ported, in every prover: the default Poseidon31 channel with
 `DeviceTree`, and the Sha256Poseidon31 pair (`Sha256ProverChannel`,
-`Sha256DeviceTree`) of chain level 14 and the last layer.  Any other channel
-or tree raises.  `prove` is always the resident path: it does not route
-large domains to the streamed flow as the JAX package does
-(`RSTPU_STREAM_LOG`, prove.py:190-200); a caller who wants the streamed
-prover calls prover/stream.py's `prove_streamed`, which gives the same
-bytes.  The JAX package's host flow and its environment switches have no
-counterpart.  Nothing falls back to the CPU: `device="cuda"` without a CUDA
-device raises.
+`Sha256DeviceTree`) of chain level 14 and the last layer.  Any other
+channel or tree raises (`flavour`).  `prove` is always the resident path:
+it does not route large domains to the streamed flow as the JAX package
+does (`RSTPU_STREAM_LOG`, prove.py:190-200); a caller who wants the
+streamed prover calls prover/stream.py's `prove_streamed`, which gives the
+same bytes.  The JAX package's host flow and its environment switches have
+no counterpart.  Nothing falls back to the CPU: `device="cuda"` without a
+CUDA device raises.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from ..proof.containers import PcsConfig, PlonkWithPoseidonProof
 from ..verifier.arrays import require_device
 from .channel import PoseidonChannel
 from .commit import DeviceTree, Sha256DeviceTree
-from .device_prove import prove_device
+from .flow import PoseidonAir, Resident, prove_air
 from .prove_sha256 import Sha256ProverChannel
 
 
@@ -52,4 +53,4 @@ def prove(
     `progress`, if given, is called with a message after each stage."""
     device = require_device(device)
     channel, tree_cls = flavour(channel, tree_cls, device)
-    return prove_device(trace, config, progress, device, channel, tree_cls)
+    return prove_air(PoseidonAir(), Resident(tree_cls), trace, config, progress, device, channel)

@@ -1,11 +1,11 @@
-"""The host helpers of the PlonkWithPoseidon prover that the device prover
-shares: the OODS point from its draw, the squaring-ladder factors at a
-point, a constant-point shift and the sampled-values layout.
+"""The host helpers of the provers: the OODS point from its draw, the
+squaring-ladder factors at a point, a constant-point shift and each AIR's
+sampled-values layout.
 
 Copied from recursive_stwo_tpu/prover/prove.py (`_oods_point`,
-`_factors_at_point`, `_add_const`, `_assemble_samples`); the rest of that
-module is the JAX package's host and device flows, which the port replaces
-with prover/device_prove.py.
+`_factors_at_point`, `_add_const`, `_assemble_samples`) and prove_np.py
+(`_assemble_samples_np`); the rest of those modules is the JAX package's
+host and device flows, which the port replaces with prover/flow.py.
 """
 
 from __future__ import annotations
@@ -65,5 +65,24 @@ def _assemble_samples(spec, lp, lq, bound, samples_at):
                 tree_cols.append(np.stack([prev, cur]))
         sampled.append(tree_cols)
     comp = samples_at[((3, "c"), 0)]
+    sampled.append([comp[ci][None, :] for ci in range(8)])
+    return sampled
+
+
+def _assemble_samples_np(spec, bound, samples_at):
+    """Copied from prover/prove_np.py:82-96: TreeVec[tree][col] ->
+    (n_samples, 4) arrays in proof order."""
+    sampled = []
+    for t in range(3):
+        cols = samples_at[(t, 0)]
+        tree_cols = []
+        for ci in range(cols.shape[0]):
+            if spec.n_samples_per_column[t][ci] == 1:
+                tree_cols.append(cols[ci][None, :])
+            else:
+                prev = samples_at[(t, -1)][ci]
+                tree_cols.append(np.stack([prev, cols[ci]]))
+        sampled.append(tree_cols)
+    comp = samples_at[(3, 0)]
     sampled.append([comp[ci][None, :] for ci in range(8)])
     return sampled

@@ -2,9 +2,10 @@
 
 Twin of recursive_stwo_tpu/prover/stream.py (`prove_streamed`,
 `prove_np_streamed`, `StreamedTree` and their helpers).  The resident
-provers (device_prove.py, prove_np.py) hold every LDE column until the
+commitment (flow.py's `Resident`) holds every LDE column until the
 quotients are taken; at chain levels 12 and the last layer that is 54-69 GiB
-of the card's 79.  Here the device holds the base-domain coefficients only:
+of the card's 79.  `Streamed`, the commitment the streamed provers hand
+prover/flow.py's stages, holds the base-domain coefficients only:
 
 * **Chunked evaluation.**  The LDE coefficients are the base coefficients
   zero-padded into the larger FFT basis (the stwo basis is nested), and every
@@ -27,12 +28,13 @@ of the card's 79.  Here the device holds the base-domain coefficients only:
   from its re-evaluated columns and never need the LDE whole: on CUDA one
   tile launch and one quotient-kernel call a chunk (prover/quotients.py).
 
-The hashes are the resident trees': Poseidon31 through `commit._level`
-(the Merkle level kernel on CUDA, one launch a level of a chunk, the
-columns read in place as `rows` views), SHA-256 through
-`core/sha256.sha256_level` (the SHA-256 tree-level kernel on CUDA); on the
-CPU both take their plain versions.  The FRI folds are the resident
-provers' (`fri.fold_layer`, one fold-layer launch a layer on CUDA).
+The hashes are the resident trees': a StreamedTree takes its tree class's
+`device_level` and `host_node_level` (prover/commit.py), for `DeviceTree`
+the Merkle level kernel on CUDA (one launch a level of a chunk, the
+columns read in place as `rows` views), for `Sha256DeviceTree` the SHA-256
+tree-level kernel; on the CPU both take their plain versions.  The FRI
+folds are the resident provers' (`fri.fold_layer`, one fold-layer launch a
+layer on CUDA).
 Nothing falls back: a tile is evaluated on its source's device and an error
 propagates.  The proofs are byte-identical to the JAX package's
 (tests/test_torch_stream.py).  `chunk_log` and `cutoff` are keyword
@@ -42,35 +44,21 @@ RSTPU_STREAM_CUTOFF); `prove` and `prove_np` never route here by size.
 
 from __future__ import annotations
 
-import logging
-from functools import partial
 from typing import Dict, List
 
 import numpy as np
 import torch
 
 from ..core import circle
-from ..core import circle_host as ccircle
 from ..core import m31
-from ..core.sha256 import sha256_level
 from ..ops import fft_cuda
 from ..proof.containers import PcsConfig, PlonkWithoutPoseidonProof, PlonkWithPoseidonProof
 from ..utils.spans import span
-from ..verifier import composition as vcomp
-from ..verifier import sha256_merkle
 from ..verifier.arrays import require_device
-from ..verifier.spec import PLONK_LOG_EXPAND, POSEIDON_LOG_EXPAND, NoPoseidonVerifierSpec, VerifierSpec
-from . import air, circle_fft, commit, sample
-from .arrays import to_device, to_numpy, trace_to_torch
-from .commit import DeviceTree, Sha256DeviceTree
-from .commit_host import CommittedTree, _hash_node_level
-from .composition import composition_stage, qm31_scalar
-from .device_prove import _domain_order
-from .fri import _mix_felts, fri_tail
-from .interaction import interaction_columns
+from .arrays import to_numpy
+from .commit_host import CommittedTree
+from .flow import NoPoseidonAir, PoseidonAir, prove_air
 from .prove import flavour
-from .prove_host import _add_const, _assemble_samples, _oods_point
-from .prove_np import _assemble_samples_np
 from .quotients import answer_inputs, group_answers
 from .tiles import TilePoints, circle_tiles
 
@@ -192,13 +180,11 @@ class StreamedTree(CommittedTree):
     Device state after construction: the sources only (the summits are on
     the host).  `level_rows` / `column_rows` serve decommitments from the
     stored top levels (<= K) and from spans recomputed on demand (> K), each
-    span checked against its stored summit digest."""
+    span checked against its stored summit digest.  `tree_cls`, a
+    `DeviceTree` class, gives the hash."""
 
-    def __init__(self, sources: Dict[int, object], chunk_log: int = CHUNK_LOG, cutoff: int = CUTOFF,
-                 flavor: str = "p31"):
-        if flavor not in ("p31", "sha256"):
-            raise ValueError(f"unknown hash flavour {flavor!r}, expected 'p31' or 'sha256'")
-        self.flavor = flavor
+    def __init__(self, sources: Dict[int, object], tree_cls, chunk_log: int = CHUNK_LOG, cutoff: int = CUTOFF):
+        self.tree_cls = tree_cls
         self.sources = {int(L): s for L, s in sources.items()}
         M = self.max_log = max(self.sources)
         min_col = min(self.sources)
@@ -218,7 +204,7 @@ class StreamedTree(CommittedTree):
             tops = [to_numpy(torch.cat(summits))]
             with span("stream.host_levels"):
                 for _ in range(K):
-                    tops.append(self._host_node_level(tops[-1]))
+                    tops.append(tree_cls.host_node_level(tops[-1], None))
         self._tops = tops  # index i: level K - i
         self._spans: Dict[int, Dict[int, np.ndarray]] = {}
 
@@ -231,17 +217,6 @@ class StreamedTree(CommittedTree):
 
     # -- hashing ---------------------------------------------------------------
 
-    def _level(self, children, cols) -> torch.Tensor:
-        if self.flavor == "sha256":
-            return sha256_level(children, cols)
-        n = cols.shape[1] if children is None else children.shape[0] // 2
-        return commit._level(children, cols, n)
-
-    def _host_node_level(self, children: np.ndarray) -> np.ndarray:
-        if self.flavor == "sha256":
-            return sha256_merkle.hash_node_level(children, None)
-        return _hash_node_level(children, None)
-
     def _hash_span(self, span_log: int, j: int, keep: bool = False):
         """Hash leaf rows [j * 2^span_log, (j+1) * 2^span_log) down to their
         digests at level K, absorbing every column size on the way.  Returns
@@ -252,7 +227,7 @@ class StreamedTree(CommittedTree):
             src = self.sources.get(L)
             width = span_log - (M - L)
             cols = None if src is None else src.rows(j << width, (j + 1) << width)
-            h = self._level(h, cols)
+            h = self.tree_cls.device_level(h, cols)
             if keep:
                 levels[L] = h
         return h, levels
@@ -312,12 +287,12 @@ def _coeff_sources(pairs) -> Dict[int, CoeffSource]:
     return {L: CoeffSource(blocks[0] if len(blocks) == 1 else torch.cat(blocks), L) for L, blocks in by.items()}
 
 
-def _res_tree(cols_by_log: Dict[int, torch.Tensor], flavor: str, chunk_log: int, cutoff: int):
-    """Resident-column tree: streamed from _RES_STREAM_MIN up, the resident
-    DeviceTree / Sha256DeviceTree below it."""
+def _res_tree(cols_by_log: Dict[int, torch.Tensor], tree_cls, chunk_log: int, cutoff: int):
+    """Resident-column tree: streamed from _RES_STREAM_MIN up, a `tree_cls`
+    tree below it."""
     if max(cols_by_log) >= _RES_STREAM_MIN:
-        return StreamedTree({L: ResidentSource(c) for L, c in cols_by_log.items()}, chunk_log, cutoff, flavor)
-    return (Sha256DeviceTree if flavor == "sha256" else DeviceTree)(cols_by_log)
+        return StreamedTree({L: ResidentSource(c) for L, c in cols_by_log.items()}, tree_cls, chunk_log, cutoff)
+    return tree_cls(cols_by_log)
 
 
 # ---------------------------------------------------------------------------
@@ -348,32 +323,35 @@ def _streamed_group_evals(spec, blocks_by_log: Dict[int, List[torch.Tensor]], in
     return group_evals
 
 
-def _streamed_tail(spec, config, channel, trees, group_evals, sampled_values, plog, flavor, chunk_log, cutoff):
-    """The FRI phase (fri.fri_tail) with streamed layer trees."""
-    return fri_tail(
-        spec, config, channel, trees, group_evals, sampled_values, plog,
-        partial(_res_tree, flavor=flavor, chunk_log=chunk_log, cutoff=cutoff),
-    )
+class Streamed:
+    """The streamed commitment of prover/flow.py: StreamedTrees of `tree_cls`
+    over base coefficients; the first-layer quotients re-evaluate the
+    trees' coefficient blocks chunk by chunk; FRI layers from
+    _RES_STREAM_MIN up streamed too (`_res_tree`)."""
 
+    def __init__(self, tree_cls, chunk_log: int, cutoff: int):
+        self.tree_cls, self.chunk_log, self.cutoff = tree_cls, chunk_log, cutoff
 
-def _blocks_by_log(blocks, blowup: int) -> Dict[int, List[torch.Tensor]]:
-    """Coefficient blocks in tree-major order, keyed by their LDE log."""
-    out: Dict[int, List[torch.Tensor]] = {}
-    for cfs in blocks:
-        out.setdefault(cfs.shape[1].bit_length() - 1 + blowup, []).append(cfs)
-    return out
+    def commit(self, blocks) -> StreamedTree:
+        """[(LDE log, base coefficients), ...] -> their streamed tree."""
+        return StreamedTree(_coeff_sources(blocks), self.tree_cls, self.chunk_log, self.cutoff)
+
+    @staticmethod
+    def columns(tree: StreamedTree) -> Dict[int, torch.Tensor]:
+        return {L: s.dev for L, s in tree.sources.items()}
+
+    def quotients(self, spec, blocks_by_log, samples_flat, oods, after_coeff, plog):
+        device = next(iter(blocks_by_log.values()))[0].device
+        inputs = answer_inputs(samples_flat, oods, after_coeff, device)
+        return _streamed_group_evals(spec, blocks_by_log, inputs, self.chunk_log, plog)
+
+    def layer_tree(self, cols_by_log: Dict[int, torch.Tensor]):
+        return _res_tree(cols_by_log, self.tree_cls, self.chunk_log, self.cutoff)
 
 
 # ---------------------------------------------------------------------------
 # the provers (stream.py:737-1094)
 # ---------------------------------------------------------------------------
-
-
-def _stream_flavour(channel, tree_cls, device) -> tuple:
-    """(channel, the StreamedTree flavour) of a ported flavour, picked by
-    the channel and tree class as prove.flavour picks them."""
-    channel, Tree = flavour(channel, tree_cls, device)
-    return channel, "sha256" if Tree is Sha256DeviceTree else "p31"
 
 
 def prove_streamed(
@@ -392,112 +370,8 @@ def prove_streamed(
     whose trees stream in SHA-256.  Byte for byte the proof of `prove` with
     the same flavour."""
     device = require_device(device)
-    channel, flavor = _stream_flavour(channel, tree_cls, device)
-    plog = progress or logging.getLogger(__name__).debug
-    blowup = config.fri_config.log_blowup_factor
-    tree = partial(StreamedTree, chunk_log=chunk_log, cutoff=cutoff, flavor=flavor)
-
-    ta = trace_to_torch(trace, device)
-    lp, lq = ta.log_plonk, ta.log_poseidon
-    bound = max(lp + PLONK_LOG_EXPAND, lq + POSEIDON_LOG_EXPAND)
-    spec = VerifierSpec(
-        log_size_plonk=lp,
-        log_size_poseidon=lq,
-        pow_bits=config.pow_bits,
-        log_last_layer_degree_bound=config.fri_config.log_last_layer_degree_bound,
-        log_blowup_factor=blowup,
-        n_queries=config.fri_config.n_queries,
-        n_inner_layers=bound - 2 - config.fri_config.log_last_layer_degree_bound,
-    )
-    if spec.n_inner_layers != spec.expected_n_inner_layers:
-        raise ValueError("the FRI config does not fit the trace's log sizes")
-    dm1 = bound - 1
-
-    # ---- base-domain coefficients: the only large persistent device state ----
-    c = {
-        key: circle_fft.interpolate(_domain_order(rows, log))
-        for key, rows, log in (
-            ("p_pre", ta.plonk_pre, lp), ("p_tr", ta.plonk_tr, lp),
-            ("q_pre", ta.pos_pre, lq), ("q_tr", ta.pos_tr, lq),
-        )
-    }
-    plog("base coefficients interpolated")
-
-    tree0 = tree(_coeff_sources([(lp + blowup, c["p_pre"]), (lq + blowup, c["q_pre"])]))
-    tree1 = tree(_coeff_sources([(lp + blowup, c["p_tr"]), (lq + blowup, c["q_tr"])]))
-    channel.mix_root(tree0.root)
-    plog("tree0 (preprocessed) committed")
-    channel.mix_one_felt([lp, 0, 0, 0])
-    channel.mix_one_felt([lq, 0, 0, 0])
-    channel.mix_root(tree1.root)
-    plog("tree1 (trace) committed")
-
-    z4, alpha4 = channel.draw_felts()
-    lookup = (qm31_scalar(z4), qm31_scalar(alpha4))
-
-    # ---- interaction columns + tree 2 ----
-    int_p, plonk_total = interaction_columns(ta.plonk_pre, ta.plonk_tr, lookup, vcomp.evaluate_plonk)
-    int_q, pos_total = interaction_columns(ta.pos_pre, ta.pos_tr, lookup, vcomp.evaluate_poseidon)
-    c["p_int"] = circle_fft.interpolate(_domain_order(int_p, lp))
-    c["q_int"] = circle_fft.interpolate(_domain_order(int_q, lq))
-    del ta, int_p, int_q
-    plog("interaction columns generated")
-    channel.mix_two_felts(plonk_total, pos_total)
-    tree2 = tree(_coeff_sources([(lp + blowup, c["p_int"]), (lq + blowup, c["q_int"])]))
-    channel.mix_root(tree2.root)
-    plog("tree2 (interaction) committed")
-
-    random_coeff4 = channel.draw_felt()
-
-    # ---- composition polynomial + tree 3 ----
-    c["split"] = composition_stage(
-        spec,
-        (
-            ((c["p_pre"], c["p_tr"], c["p_int"]), qm31_scalar(plonk_total), lp, vcomp.evaluate_plonk),
-            ((c["q_pre"], c["q_tr"], c["q_int"]), qm31_scalar(pos_total), lq, vcomp.evaluate_poseidon),
-        ),
-        lookup,
-        qm31_scalar(random_coeff4),
-    )
-    plog("composition coefficients computed")
-    tree3 = tree({dm1 + blowup: CoeffSource(c["split"], dm1 + blowup)})
-    channel.mix_root(tree3.root)
-    plog("tree3 (composition) committed")
-
-    oods = _oods_point(channel.draw_felt())
-
-    # ---- OODS samples ----
-    order = ((0, "p", "p_pre"), (0, "q", "q_pre"), (1, "p", "p_tr"), (1, "q", "q_tr"),
-             (2, "p", "p_int"), (2, "q", "q_int"), (3, "c", "split"))
-    shifted = {log: _add_const(oods, ccircle.point_neg(ccircle.CanonicCoset(log).step())) for log in (lp, lq)}
-    samples_at = sample.samples_at(
-        {(t, tag): c[name] for t, tag, name in order}, oods,
-        {(2, "p"): shifted[lp], (2, "q"): shifted[lq]},
-    )
-    sampled_values = _assemble_samples(spec, lp, lq, bound, samples_at)
-    plog("OODS samples computed")
-    _mix_felts(channel, [s for tree_ in sampled_values for col in tree_ for s in col])
-
-    after_coeff4 = channel.draw_felt()
-
-    # ---- FRI first-layer quotients (streamed), in tree-major block order ----
-    samples_flat = np.concatenate([col for tree_ in sampled_values for col in tree_]).astype(np.uint32)
-    group_evals = _streamed_group_evals(
-        spec, _blocks_by_log([c[name] for _, _, name in order], blowup),
-        answer_inputs(samples_flat, oods, after_coeff4, device), chunk_log, plog,
-    )
-    del c
-
-    stark_proof = _streamed_tail(spec, config, channel, [tree0, tree1, tree2, tree3], group_evals,
-                                 sampled_values, plog, flavor, chunk_log, cutoff)
-    return PlonkWithPoseidonProof(
-        log_size_plonk=lp,
-        log_size_poseidon=lq,
-        plonk_total_sum=np.array(plonk_total, np.uint32),
-        poseidon_total_sum=np.array(pos_total, np.uint32),
-        config=config,
-        stark_proof=stark_proof,
-    )
+    channel, tree_cls = flavour(channel, tree_cls, device)
+    return prove_air(PoseidonAir(), Streamed(tree_cls, chunk_log, cutoff), trace, config, progress, device, channel)
 
 
 def prove_np_streamed(
@@ -516,78 +390,6 @@ def prove_np_streamed(
     `Sha256DeviceTree`) for the Sha256MerkleChannel flavour, whose trees
     stream in SHA-256.  Byte for byte the proof of `prove_np`."""
     device = require_device(device)
-    channel, flavor = _stream_flavour(channel, tree_cls, device)
-    plog = progress or logging.getLogger(__name__).debug
-    tree = partial(StreamedTree, chunk_log=chunk_log, cutoff=cutoff, flavor=flavor)
-
-    with span("prove.air"):
-        pre_h, tr_h = air.np_columns(trace)
-    L = pre_h.shape[1].bit_length() - 1
-    if 1 << L != pre_h.shape[1]:
-        raise ValueError(f"{pre_h.shape[1]} rows is not a power of two")
-    blowup = config.fri_config.log_blowup_factor
-    spec = NoPoseidonVerifierSpec.for_rows(L, config)
-    bound = spec.composition_log_degree_bound
-    dm1 = bound - 1
-    with span("prove.upload"):
-        pre, tr = to_device(pre_h, device), to_device(tr_h, device)
-    del pre_h, tr_h
-
-    c_pre = circle_fft.interpolate(_domain_order(pre, L))
-    tree0 = tree({L + blowup: CoeffSource(c_pre, L + blowup)})
-    channel.mix_root(tree0.root)
-    plog("tree0 (preprocessed) committed")
-    channel.mix_one_felt([L, 0, 0, 0])
-
-    c_tr = circle_fft.interpolate(_domain_order(tr, L))
-    tree1 = tree({L + blowup: CoeffSource(c_tr, L + blowup)})
-    channel.mix_root(tree1.root)
-    plog("tree1 (trace) committed")
-
-    z4, alpha4 = channel.draw_felts()
-    lookup = (qm31_scalar(z4), qm31_scalar(alpha4))
-    inter, total = interaction_columns(pre, tr, lookup, vcomp.evaluate_plonk_np)
-    c_int = circle_fft.interpolate(_domain_order(inter, L))
-    del pre, tr, inter
-    plog("interaction columns generated")
-    channel.mix_one_felt(total)
-    tree2 = tree({L + blowup: CoeffSource(c_int, L + blowup)})
-    channel.mix_root(tree2.root)
-    plog("tree2 (interaction) committed")
-
-    random_coeff4 = channel.draw_felt()
-    split = composition_stage(
-        spec,
-        (((c_pre, c_tr, c_int), qm31_scalar(total), L, vcomp.evaluate_plonk_np),),
-        lookup,
-        qm31_scalar(random_coeff4),
-    )
-    plog("composition coefficients computed")
-    tree3 = tree({dm1 + blowup: CoeffSource(split, dm1 + blowup)})
-    channel.mix_root(tree3.root)
-    plog("tree3 (composition) committed")
-
-    oods = _oods_point(channel.draw_felt())
-    shifted = _add_const(oods, ccircle.point_neg(ccircle.CanonicCoset(L).step()))
-    blocks = (c_pre, c_tr, c_int, split)
-    samples_at = sample.samples_at(dict(enumerate(blocks)), oods, {2: shifted})
-    sampled_values = _assemble_samples_np(spec, bound, samples_at)
-    plog("OODS samples computed")
-    _mix_felts(channel, [s for tree_ in sampled_values for col in tree_ for s in col])
-
-    after_coeff4 = channel.draw_felt()
-    samples_flat = np.concatenate([col for tree_ in sampled_values for col in tree_]).astype(np.uint32)
-    group_evals = _streamed_group_evals(
-        spec, _blocks_by_log(blocks, blowup), answer_inputs(samples_flat, oods, after_coeff4, device),
-        chunk_log, plog,
-    )
-    del blocks, c_pre, c_tr, c_int, split
-
-    stark_proof = _streamed_tail(spec, config, channel, [tree0, tree1, tree2, tree3], group_evals,
-                                 sampled_values, plog, flavor, chunk_log, cutoff)
-    return PlonkWithoutPoseidonProof(
-        log_size=L,
-        total_sum=np.array(total, np.uint32),
-        config=config,
-        stark_proof=stark_proof,
-    )
+    channel, tree_cls = flavour(channel, tree_cls, device)
+    return prove_air(NoPoseidonAir(), Streamed(tree_cls, chunk_log, cutoff), trace, config, progress, device,
+                     channel)

@@ -133,24 +133,25 @@ def prover_tables(trace: dict, config, device, without_poseidon: bool = False) -
     `prove` (or, `without_poseidon`, of `prove_np`) for `trace` on `device`:
     the stages before it run, the stage itself is replaced by a capture that
     ends the proof."""
-    from ..prover import device_prove, prove_np
+    from ..prover import flow
     from ..prover.prove import prove
+    from ..prover.prove_np import prove_np
 
-    module, prove_fn = (prove_np, prove_np.prove_np) if without_poseidon else (device_prove, prove)
+    prove_fn = prove_np if without_poseidon else prove
     got = []
 
     def capture(spec, tables, lookup, random_coeff):
         got.append((spec, tables, lookup, random_coeff))
         raise _Stop
 
-    stage = module.composition_stage
-    module.composition_stage = capture
+    stage = flow.composition_stage
+    flow.composition_stage = capture
     try:
         prove_fn(trace, config, device=device)
     except _Stop:
         pass
     finally:
-        module.composition_stage = stage
+        flow.composition_stage = stage
     return got[0]
 
 

@@ -18,6 +18,7 @@ import pytest
 
 from recursive_stwo_tpu_torch.models import flagship
 from recursive_stwo_tpu_torch.proof.containers import FriConfig, PcsConfig
+from recursive_stwo_tpu_torch.prover import flow as flow_mod
 from recursive_stwo_tpu_torch.prover.commit import Sha256DeviceTree
 from recursive_stwo_tpu_torch.prover import prove_np as prove_np_mod
 from recursive_stwo_tpu_torch.prover import stream as stream_mod
@@ -90,15 +91,16 @@ def test_port_provers_are_accepted_by_the_reference():
 def test_np_provers_open_the_air_and_upload_spans(prover, monkeypatch):
     """Each without-Poseidon prover opens `prove.air` around the AIR columns
     and then `prove.upload` around their upload, once a proof, as the
-    PlonkWithPoseidon provers do (arrays.trace_to_torch)."""
+    PlonkWithPoseidon provers do (arrays.trace_to_torch): the upload of
+    prover/flow.py's `NoPoseidonAir`, which both run."""
     module = {"prove_np": prove_np_mod, "prove_np_streamed": stream_mod}[prover]
-    opened, real = [], module.span
+    opened, real = [], flow_mod.span
 
     def recorded(name):
         opened.append(name)
         return real(name)
 
-    monkeypatch.setattr(module, "span", recorded)
+    monkeypatch.setattr(flow_mod, "span", recorded)
     getattr(module, prover)(_small()[0], SMALL_PCS, device="cpu", **_sha_flavour())
     assert [n for n in opened if n.startswith("prove.")] == ["prove.air", "prove.upload"]
 

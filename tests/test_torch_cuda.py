@@ -385,7 +385,7 @@ def test_sha256_level_bit_exact(cuda, n, n_cols, children):
 def test_streamed_tree_on_cuda_matches_cpu(cuda, flavor):
     """A StreamedTree of mixed eval/res sources on the card against the same
     tree on the CPU: root, decommitment and pair decommitment."""
-    from test_torch_stream import TREE_CASES
+    from test_torch_stream import TREE_CASES, TREE_CLASSES
 
     from recursive_stwo_tpu_torch.prover import fri_host, stream
 
@@ -398,7 +398,7 @@ def test_streamed_tree_on_cuda_matches_cpu(cuda, flavor):
             width = L - blowup if kind == "eval" else L
             x = torch.from_numpy(np.random.default_rng(L).integers(0, P, (n_cols, 1 << width))).to(device)
             sources[L] = stream.CoeffSource(x, L) if kind == "eval" else stream.ResidentSource(x)
-        trees[device.type] = stream.StreamedTree(sources, flavor=flavor, **chunking)
+        trees[device.type] = stream.StreamedTree(sources, TREE_CLASSES[flavor], **chunking)
     assert np.array_equal(trees["cuda"].root, trees["cpu"].root)
     queries = sorted(rng.integers(0, 1 << 12, 9).tolist())
     (v1, d1), (v2, d2) = trees["cuda"].decommit(queries), trees["cpu"].decommit(queries)

@@ -29,7 +29,7 @@ from recursive_stwo_tpu.verifier.spec import VerifierSpec as RSpec
 from recursive_stwo_tpu_torch.models import flagship
 from recursive_stwo_tpu_torch.ops import fft_cuda, quotients_cuda
 from recursive_stwo_tpu_torch.prover import circle_fft as t_fft
-from recursive_stwo_tpu_torch.prover import device_prove as t_dev
+from recursive_stwo_tpu_torch.prover import flow as t_flow
 from recursive_stwo_tpu_torch.prover import prove_np as t_prove_np
 from recursive_stwo_tpu_torch.prover import quotients as t_quot
 from recursive_stwo_tpu_torch.prover import stream as t_stream
@@ -146,8 +146,7 @@ def _stage_inputs(flavour: str):
     flavour): (spec, blocks_by_log, samples_flat, oods, after_coeff) and the
     first-layer columns it returned."""
     seen = {}
-    module = t_prove_np if flavour == "np" else t_dev
-    real = module.quotients_stage
+    real = t_flow.quotients_stage
 
     def record(spec, blocks_by_log, samples_flat, oods, after_coeff):
         out = real(spec, blocks_by_log, samples_flat, oods, after_coeff)
@@ -156,7 +155,7 @@ def _stage_inputs(flavour: str):
         seen["out"] = out
         return out
 
-    module.quotients_stage = record
+    t_flow.quotients_stage = record
     try:
         if flavour == "np":
             from test_torch_chain import T_NP_CONFIG
@@ -165,7 +164,7 @@ def _stage_inputs(flavour: str):
         else:
             t_prove(flagship.demo_trace(), flagship.DEMO_CONFIG, device="cpu")
     finally:
-        module.quotients_stage = real
+        t_flow.quotients_stage = real
     return seen["args"], seen["out"]
 
 

@@ -253,7 +253,7 @@ def test_streamed_hash_span_matches_commit_chunk_jit():
     wide = _t(rng.integers(0, P, (9, 3 << 8), dtype=np.uint32))
     wide[:, 1 << 8 : 2 << 8] = _t(cols[8])
     srcs = {L: t_stream.ResidentSource(wide[:, 1 << 8 : 2 << 8] if L == 8 else _t(c)) for L, c in cols.items()}
-    tree = t_stream.StreamedTree(srcs, chunk_log=8, cutoff=4, flavor="p31")
+    tree = t_stream.StreamedTree(srcs, t_commit.DeviceTree, chunk_log=8, cutoff=4)
     M, C, K = 10, tree.C, tree.K
     assert (C, K) == (8, 3)
     plan = tuple(("res", L, w, 0) for L, w in sorted(widths.items(), reverse=True))

@@ -22,7 +22,6 @@ from recursive_stwo_tpu_torch.ops import build, sha256_cuda
 from recursive_stwo_tpu_torch.prover.commit import Sha256DeviceTree
 from recursive_stwo_tpu_torch.prover.prove import flavour
 from recursive_stwo_tpu_torch.prover.prove_sha256 import Sha256ProverChannel
-from recursive_stwo_tpu_torch.prover.stream import _stream_flavour
 from recursive_stwo_tpu_torch.utils import native
 
 SOURCE = os.path.join(build.CSRC_DIR, "sha256_grind.cu")
@@ -95,23 +94,24 @@ def test_channel_calls_the_kernel_on_its_provers_cuda_device(monkeypatch, device
 
 
 @pytest.mark.parametrize("device", ["cpu", "cuda:1"])
-@pytest.mark.parametrize("pick", [flavour, _stream_flavour], ids=["flavour", "stream_flavour"])
-def test_flavours_set_the_grind_device(pick, device):
-    """The resident and the streamed provers' flavour picks set the SHA-256
-    channel's grind device to the prover's."""
-    ch, _ = pick(Sha256ProverChannel(), Sha256DeviceTree, torch.device(device))
+def test_flavours_set_the_grind_device(device):
+    """The provers' flavour pick sets the SHA-256 channel's grind device to
+    the prover's."""
+    ch, _ = flavour(Sha256ProverChannel(), Sha256DeviceTree, torch.device(device))
     assert ch.device == torch.device(device)
 
 
-@pytest.mark.parametrize("prover", ["prove", "prove_np"])
+@pytest.mark.parametrize("prover", ["prove", "prove_np", "prove_streamed", "prove_np_streamed"])
 def test_cpu_proof_grinds_on_the_cpu(monkeypatch, prover):
-    """A SHA-256 proof with device='cpu' sets its channel to grind on the
-    host, once, and never calls the kernel's wrapper."""
+    """A SHA-256 proof with device='cpu', resident or streamed, sets its
+    channel to grind on the host, once, and never calls the kernel's
+    wrapper."""
     from test_torch_chain import T_NP_CONFIG, _np_trace
 
     from recursive_stwo_tpu_torch.models import flagship
     from recursive_stwo_tpu_torch.prover.prove import prove
     from recursive_stwo_tpu_torch.prover.prove_np import prove_np
+    from recursive_stwo_tpu_torch.prover.stream import prove_np_streamed, prove_streamed
 
     seen = []
     grind_pow = Sha256ProverChannel.grind_pow
@@ -123,7 +123,9 @@ def test_cpu_proof_grinds_on_the_cpu(monkeypatch, prover):
     monkeypatch.setattr(Sha256ProverChannel, "grind_pow", spy)
     monkeypatch.setattr(sha256_cuda, "sha256_grind", _no_kernel)
     trace, config, fn = {"prove": (flagship.demo_trace(), flagship.DEMO_CONFIG, prove),
-                         "prove_np": (_np_trace(), T_NP_CONFIG, prove_np)}[prover]
+                         "prove_np": (_np_trace(), T_NP_CONFIG, prove_np),
+                         "prove_streamed": (flagship.demo_trace(), flagship.DEMO_CONFIG, prove_streamed),
+                         "prove_np_streamed": (_np_trace(), T_NP_CONFIG, prove_np_streamed)}[prover]
     fn(trace, config, device="cpu", channel=Sha256ProverChannel(), tree_cls=Sha256DeviceTree)
     assert seen == [torch.device("cpu")]
 

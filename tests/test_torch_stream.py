@@ -46,7 +46,7 @@ from recursive_stwo_tpu_torch.prover import fri as t_fri
 from recursive_stwo_tpu_torch.prover import fri_host as t_fri_host
 from recursive_stwo_tpu_torch.prover import stream as t_stream
 from recursive_stwo_tpu_torch.prover import tiles as t_tiles
-from recursive_stwo_tpu_torch.prover.commit import Sha256DeviceTree
+from recursive_stwo_tpu_torch.prover.commit import DeviceTree, Sha256DeviceTree
 from recursive_stwo_tpu_torch.prover.composition import qm31_scalar
 from recursive_stwo_tpu_torch.prover.prove_sha256 import Sha256ProverChannel as TChannel
 from recursive_stwo_tpu_torch.verifier import verify as t_verify
@@ -62,6 +62,8 @@ T_CONFIG = TPcsConfig(pow_bits=5, fri_config=TFriConfig(1, 3, 9))
 STREAM = dict(chunk_log=9, cutoff=5)
 # the JAX streamed tests' (T, b) tile cases
 TILE_CASES = [(10, 6), (12, 9), (9, 9)]
+# a StreamedTree's hash, by the tree class of each flavour
+TREE_CLASSES = {"p31": DeviceTree, "sha256": Sha256DeviceTree}
 
 
 def _rng(seed):
@@ -184,7 +186,7 @@ def _tree_pair(sources_spec, seed, flavor, **stream):
             columns[L] = rng.integers(0, P, (n_cols, 1 << L), dtype=np.uint32)
             sources[L] = t_stream.ResidentSource(_t(columns[L]))
     host = (r_commit.Sha256CommittedTree if flavor == "sha256" else r_commit.CommittedTree)(columns)
-    return host, t_stream.StreamedTree(sources, flavor=flavor, **stream)
+    return host, t_stream.StreamedTree(sources, TREE_CLASSES[flavor], **stream)
 
 
 # tests/test_stream_prover.py:91-128: mixed eval/res sources, a single
