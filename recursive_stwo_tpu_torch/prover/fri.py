@@ -11,11 +11,11 @@ inverse in registers; on the CPU the plain version, `fold_layer_plain`
 package's streamed folds take them, stream.py:667-729).
 The last layer's interpolation and degree check stay on the layer's
 device (prover/fri_last.py: on CUDA one launch of the last-layer kernel, and
-only the kept coefficients and a count come back).  The query draws, the
-decommit plans and the witness plans are the JAX package's host code.  A
-witness plan names the positions it gathers; here the plan runs on the
-identity evaluation (`_plan_positions`) and only those rows are gathered on
-the device.
+only the kept coefficients and a count come back).  The query draws and the
+decommit plans are the JAX package's host code.  The witness plans come from
+the queries alone (prover/fri_plan.py: the positions fri_host's witness
+functions gather, in their order, in work proportional to the queries), and
+only those rows are gathered on the device.
 
 `fri_tail`'s stages are spans (utils/spans.py): `fri.layers` from the
 first-layer tree to the last layer's felts mixed (in it `fri.first_tree`,
@@ -40,7 +40,7 @@ from ..ops import fri_fold_cuda
 from ..proof.containers import FriLayerProof, FriProof, StarkProof
 from ..utils.spans import span
 from . import fri_host as host_fri
-from . import fri_last, tiles
+from . import fri_last, fri_plan, tiles
 from .arrays import to_numpy
 from .composition import qm31_scalar
 
@@ -102,13 +102,6 @@ def fold_layer(g, join, alpha: QM31, log_size: int) -> torch.Tensor:
     return fri_fold_cuda.fold_layer(g, join, alpha, log_size)
 
 
-def _plan_positions(witness_fn, n: int, *args) -> np.ndarray:
-    """The evaluation positions a host witness function reads, in its order."""
-    with span("decommit.plan"):
-        idx = np.arange(n, dtype=np.uint32)
-        return witness_fn(QM31(idx, idx, idx, idx), *args)[:, 0].astype(np.int64)
-
-
 def _gather(g: torch.Tensor, positions: np.ndarray) -> np.ndarray:
     """(k, 4) host rows of (4, N) device limbs."""
     with span("decommit.gather"):
@@ -117,18 +110,18 @@ def _gather(g: torch.Tensor, positions: np.ndarray) -> np.ndarray:
 
 
 def first_layer_witness(first_cols: Dict[int, torch.Tensor], raw_queries: List[int], max_log: int) -> np.ndarray:
-    rows = [
-        _gather(
-            first_cols[L],
-            _plan_positions(lambda ev: host_fri.first_layer_witness({L: ev}, raw_queries, max_log), 1 << L),
-        )
-        for L in sorted(first_cols, reverse=True)
-    ]
+    rows = []
+    for L in sorted(first_cols, reverse=True):
+        with span("decommit.plan"):
+            positions = fri_plan.first_layer_positions(raw_queries, max_log, L)
+        rows.append(_gather(first_cols[L], positions))
     return np.concatenate(rows).reshape(-1, 4)
 
 
 def inner_layer_witness(g: torch.Tensor, queries: List[int]) -> np.ndarray:
-    return _gather(g, _plan_positions(host_fri.inner_layer_witness, g.shape[1], queries))
+    with span("decommit.plan"):
+        positions = fri_plan.inner_layer_positions(queries)
+    return _gather(g, positions)
 
 
 def _mix_root(channel, tree) -> None:
