@@ -189,8 +189,11 @@ def prove_air(air, commitment, trace: dict, config, progress, device, channel):
 
     z4, alpha4 = channel.draw_felts()
     lookup = (qm31_scalar(z4), qm31_scalar(alpha4))
-    inter, totals = zip(*(interaction_columns(pre, tr, lookup, ev) for (pre, tr), ev in zip(columns, air.evaluators)))
-    coeffs.append(interpolate(inter))
+    with span("prove.interaction"):
+        inter, totals = zip(
+            *(interaction_columns(pre, tr, lookup, ev) for (pre, tr), ev in zip(columns, air.evaluators))
+        )
+        coeffs.append(interpolate(inter))
     del columns, inter
     plog("interaction columns generated")
     _mix_felts(channel, totals)
@@ -199,15 +202,16 @@ def prove_air(air, commitment, trace: dict, config, progress, device, channel):
     plog("tree2 (interaction) committed")
 
     random_coeff4 = channel.draw_felt()
-    split = composition_stage(
-        spec,
-        tuple(
-            ((pre, tr, it), qm31_scalar(total), L, ev)
-            for pre, tr, it, total, L, ev in zip(*coeffs, totals, logs, air.evaluators)
-        ),
-        lookup,
-        qm31_scalar(random_coeff4),
-    )
+    with span("prove.composition"):
+        split = composition_stage(
+            spec,
+            tuple(
+                ((pre, tr, it), qm31_scalar(total), L, ev)
+                for pre, tr, it, total, L, ev in zip(*coeffs, totals, logs, air.evaluators)
+            ),
+            lookup,
+            qm31_scalar(random_coeff4),
+        )
     plog("composition coefficients computed")
     tree3 = commit([split])
     channel.mix_root(tree3.root)

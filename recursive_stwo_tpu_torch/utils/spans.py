@@ -19,6 +19,9 @@ synchronizes, never reads a tensor and changes no result.
 
 The names (the contract the benchmark's readers and PERF.md use):
   prove.air, prove.upload                  the AIR columns built, uploaded
+  prove.interaction                        the interaction columns generated
+                                           and interpolated, every table
+  prove.composition                        the composition stage, every table
   tree.commit                              every Merkle tree built
   stream.chunk, stream.host_levels,        a streamed tree's chunks, its top
   stream.recompute                         levels on the host, a decommit's span

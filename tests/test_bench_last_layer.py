@@ -92,7 +92,8 @@ def test_np_provers_open_the_air_and_upload_spans(prover, monkeypatch):
     """Each without-Poseidon prover opens `prove.air` around the AIR columns
     and then `prove.upload` around their upload, once a proof, as the
     PlonkWithPoseidon provers do (arrays.trace_to_torch): the upload of
-    prover/flow.py's `NoPoseidonAir`, which both run."""
+    prover/flow.py's `NoPoseidonAir`, which both run.  The flow's own
+    `prove.interaction` and `prove.composition` follow, once each."""
     module = {"prove_np": prove_np_mod, "prove_np_streamed": stream_mod}[prover]
     opened, real = [], flow_mod.span
 
@@ -102,7 +103,8 @@ def test_np_provers_open_the_air_and_upload_spans(prover, monkeypatch):
 
     monkeypatch.setattr(flow_mod, "span", recorded)
     getattr(module, prover)(_small()[0], SMALL_PCS, device="cpu", **_sha_flavour())
-    assert [n for n in opened if n.startswith("prove.")] == ["prove.air", "prove.upload"]
+    assert [n for n in opened if n.startswith("prove.")] == ["prove.air", "prove.upload", "prove.interaction",
+                                                             "prove.composition"]
 
 
 # each fault: the named check it must fail, and the checks it cannot reach

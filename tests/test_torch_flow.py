@@ -12,13 +12,17 @@ entry point fails here.
     python -m pytest tests/test_torch_flow.py -q
 """
 
+import hashlib
+
 import pytest
 from test_torch_stream import STREAM, T_CONFIG, _np_trace
+from torch.profiler import ProfilerActivity, profile
 
 from recursive_stwo_tpu_torch.models import flagship
 from recursive_stwo_tpu_torch.prover.prove import prove
 from recursive_stwo_tpu_torch.prover.prove_np import prove_np
 from recursive_stwo_tpu_torch.prover.stream import prove_np_streamed, prove_streamed
+from recursive_stwo_tpu_torch.utils.spans import PREFIX
 from recursive_stwo_tpu_torch.verifier.spec import NoPoseidonVerifierSpec, VerifierSpec
 
 # entry point: (prover, the circuit's trace, streamed)
@@ -61,3 +65,37 @@ def test_entry_points_announce_the_flow_stages(entry):
         "decommitments gathered",
     ]
     assert stages == want
+
+
+# each entry point's proof bytes (sha256) on these traces, as the flow gave
+# them before it opened the interaction and composition spans
+PINNED = {
+    "prove": "b68840174dca51d40743a0f0404d82160cda184b4b346e57a4ed463c48f560a6",
+    "prove_np": "2ae1fba2e613a14a1d1f50044681a82c0a807455fec1eb16f30335e2c4c9391d",
+    "prove_streamed": "b68840174dca51d40743a0f0404d82160cda184b4b346e57a4ed463c48f560a6",
+    "prove_np_streamed": "2ae1fba2e613a14a1d1f50044681a82c0a807455fec1eb16f30335e2c4c9391d",
+}
+
+
+@pytest.mark.parametrize("entry", list(PROVERS))
+def test_traced_proof_opens_the_interaction_and_composition_spans(entry):
+    """Under the profiler each entry point opens `prove.interaction` and
+    then `prove.composition` once a proof, apart, each inside the stage its
+    progress message ends (the interaction columns before "interaction
+    columns generated", the composition before "composition coefficients
+    computed"), and the proof's bytes are the pinned ones."""
+    fn, trace, streamed = PROVERS[entry]
+    trace = trace()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        proof = fn(trace, T_CONFIG, device="cpu", **(STREAM if streamed else {}))
+    spans = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith(PREFIX):
+            spans.setdefault(e.name()[len(PREFIX):], []).append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    inter, comp = spans.get("prove.interaction", []), spans.get("prove.composition", [])
+    assert len(inter) == len(comp) == 1
+    assert inter[0][1] <= comp[0][0]
+    # the trees between them: tree 2's commit lies after the interaction span, before the composition's
+    commits = sorted(spans["tree.commit"])
+    assert [c for c in commits if inter[0][1] <= c[0] and c[1] <= comp[0][0]] == [commits[2]]
+    assert hashlib.sha256(flagship.proof_bytes(proof)).hexdigest() == PINNED[entry]
