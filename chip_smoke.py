@@ -5,13 +5,13 @@
 
 Phases; any failure ends the run with a non-zero exit and no result line:
   1. card: the GPU's name and power limit, as nvidia-smi prints them;
-  2. build: nvcc builds the Poseidon2-16, SHA-256, SHA-256 grind,
-     composition, fold, transcript, circle FFT, quotient, sampling,
+  2. build: nvcc builds the Poseidon2-16, Poseidon31 grind, SHA-256,
+     SHA-256 grind, composition, fold, transcript, circle FFT, quotient, sampling,
      interaction, FRI fold-layer, FRI last-layer and Merkle level kernels and
      the latency probe from csrc/ (one nvcc a source, all at once, then a
      link; seconds); ptxas' report (registers, stack frame, spills) of the
      transcript, check, domain, fold, FFT pass, quotient, sampling,
-     interaction, fold-layer, last-layer, Merkle level and SHA-256 grind
+     interaction, fold-layer, last-layer, Merkle level and both grind
      kernels on lines of their own;
   3. kernels vs plain: K1 and K2 against their plain PyTorch versions on
      the card and on the host CPU, bit for bit, at 2**20 states and at the
@@ -120,8 +120,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      (tools/chain.run_level); its m31x8 bytes must hash to level1-5.bin's
      digest in docs/chain_artifacts.txt (a51ea3f3...), the port's
      verify_batch on CUDA must accept it, the Merkle level kernel must have
-     launched while proving and K1 never (the 20-bit PoW is the host
-     scan's), the fold-layer kernel once a FRI layer and once for the first
+     launched while proving and K1 never (the 20-bit PoW is one launch of
+     the Poseidon31 grind kernel), the fold-layer kernel once a FRI layer and once for the first
      (spec.n_inner_layers + 1), the last-layer kernel once, the composition
      domain kernel once an AIR
      table (twice), the circle FFT, the quotient kernel once a first-layer
@@ -135,9 +135,12 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      fast_prover2, largest domain 2**23; level2-1.bin, 7476baa5...) and
      level 3 (the committed level2-1.pkl verified once, preset standard,
      2**23; level3-1.bin, 642d38ee...; the repo holds no level-3 proof);
-  9. grinds: the port's grind_device on CUDA at 24 bits on a seeded digest
-     must find the host native scan's nonce, K1 launched (its main path
-     since the trees left it); prints both times; the SHA-256 grind kernel
+  9. grinds: the Poseidon31 grind kernel (csrc/poseidon2_grind.cu, one
+     launch a grind, the provers' path at every bits) at 24 and 28 bits on
+     seeded digests must find grind_device's nonce (its plain version, K1
+     on blocks of 2**22 states: K1's main path since the trees left it) and
+     the host native scan's; prints the three times and the kernel's device
+     time at 28 bits beside grind_bound_ms; the SHA-256 grind kernel
      (csrc/sha256_grind.cu, one launch a grind) must find the native scan's
      nonce on seeded digests at 16, 20, 24 and 28 bits, and one from just
      below 2**32; its time at the 28-bit grind (device, under
@@ -228,12 +231,12 @@ levels 2 and 3 and phase 12's last layer; streamed_launches: phase 15's
 (b) and (c); np_launches, np_shape, np_ms, np_plain_ms and np_bound_ms:
 phase 10's launches and shapes, and the kernel's times there;
 mesh_launches: each rank's launches in phase 14 (c); launches is each
-kernel's count in its main path: phase 4's verify_batch, phase 9's device
-grind for K1, phase 15 (c) for the SHA-256 grind, phase 7's level 1 for the domain kernel, the circle FFT, the
-quotients, the sampling, the interaction, the fold-layer, the last-layer
+kernel's count in its main path: phase 4's verify_batch, phase 9's
+grind_device for K1, phase 15 (c) for the SHA-256 grind, phase 7's level 1 for the Poseidon31 grind, the domain
+kernel, the circle FFT, the quotients, the sampling, the interaction, the fold-layer, the last-layer
 and the Merkle level kernels, phase 15 (c)
 for the SHA-256 and tile kernels; K1's
-times are at 2**20 rows (the device grind hashes blocks of 2**22), with step_* at (1024,
+times are at 2**20 rows (grind_device hashes blocks of 2**22), with step_* at (1024,
 16); floor_ms the latency floors of the transcript and check kernels),
 and {"ok": true, "device": {...}}.
 """
@@ -270,11 +273,11 @@ LEVEL_SHA256 = {
     3: "642d38eed1f77f4dd577d8de0232a70590c09abe7154f53600d6b33fdb8c7c3f",
     LAST_LAYER: "71da12a3fa9ebcef7cfabfeac33b08712affbda758f0d31a5e7aba164c8d39e3",
 }
-PROVER_LEAF_ROWS = 1 << 23  # K1 at 2**23 rows, above the prover's largest call (2**22: the device grind's block)
+PROVER_LEAF_ROWS = 1 << 23  # K1 at 2**23 rows, above its largest call (2**22: grind_device's block)
 # K1's schedules are each held to the plain version at these row counts:
 # tails of a warp's 8 rows and a block's 32, and the prover's largest call
 ROWS_CHECKED = (1, 7, 8, 1023, 1024, (1 << 20) + 3, PROVER_LEAF_ROWS)
-GRIND_BITS = 24
+GRIND_BITS = (24, 28)  # phase 9's Poseidon31 grinds (digest seed SEED + bits); the timed one last
 SHA_GRIND_BITS = (16, 20, 24, 28)  # phase 9's SHA-256 grinds; the timed one last
 NP_BATCH = 512  # bench.py:187-188
 SHA_BATCH = 128  # bench.py:248
@@ -1374,7 +1377,8 @@ def check_demo_proof(torch, dev) -> None:
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t
     got = launches.counts()
-    require(got["fri_last"] == 1, f"demo proof: expected 1 fri_last launch, got {got}")
+    require(got["fri_last"] == 1 and got["p31_grind"] == 1 and got["permute_rows"] == 0,
+            f"demo proof: expected 1 fri_last launch, 1 p31_grind launch and no permute_rows launch, got {got}")
     t = time.perf_counter()
     on_cpu = flagship.proof_bytes(prove(trace, config, device="cpu"))
     require(on_card == on_cpu, "demo proof on CUDA differs from the CPU run")
@@ -1406,8 +1410,8 @@ def prove_level(dev, level: int, seen: set, proof_in=None, streamed: bool = Fals
     last layer) built, proved and verified on CUDA by tools/chain.run_level,
     which holds its bytes to the digest docs/chain_artifacts.txt lists for
     its .bin; that digest must be LEVEL_SHA256's.  The Merkle level kernel
-    must launch at levels 1-3 and K1 never (their PoW is the host scan's),
-    the SHA-256 kernel at the last layer, and the fold-layer kernel
+    must launch at levels 1-3 and K1 never (their PoW is one launch of the
+    Poseidon31 grind kernel), the SHA-256 kernel at the last layer, and the fold-layer kernel
     spec.n_inner_layers + 1 times in every flavour.  Streamed proofs run under
     a device-only trace that counts the card's kernels.  Returns the
     level's record (tools/chain.run_level)."""
@@ -1424,13 +1428,14 @@ def prove_level(dev, level: int, seen: set, proof_in=None, streamed: bool = Fals
           f"{r['circuit_s']:.2f} s; pow {r['pow_bits']}, FRI {r['fri']}")
     print_timing(label, r)
     got = r["prove_launches"]
-    require(got["sha256_grind"] == (level == chain.LAST),
-            f"{label}: expected {int(level == chain.LAST)} sha256_grind launches (the 28-bit SHA-256 grind), got {got}")
+    require((got["sha256_grind"], got["p31_grind"]) == (int(level == chain.LAST), int(level != chain.LAST)),
+            f"{label}: expected the PoW in one launch of its channel's grind kernel (sha256_grind at the last "
+            f"layer, p31_grind before), got {got}")
     if level == chain.LAST:
         require(got["sha256_level"] > 0, f"{label}: sha256_level never launched while proving")
     elif level <= 3:
-        # the Merkle level kernel hashes every Poseidon31 tree; the PoW of
-        # levels 1-3 (20 bits) is the host scan's, so K1 never runs
+        # the Merkle level kernel hashes every Poseidon31 tree and the grind
+        # kernel grinds the PoW of levels 1-3 (20 bits), so K1 never runs
         require(got["merkle_level"] > 0 and got["permute_rows"] == 0,
                 f"{label}: expected merkle_level launches and no permute_rows launch while proving, got {got}")
     tables = 1 if level == chain.LAST else 2
@@ -1529,9 +1534,11 @@ def check_streamed_demo(torch, dev) -> None:
                 else VerifierSpec.from_proof(proof))
         sha = "Sha256" in label
         require(got["fri_fold"] == spec.n_inner_layers + 1 and got["fri_last"] == 1
-                and (got["merkle_level"] > 0) != sha and got["permute_rows"] == 0,
+                and (got["merkle_level"] > 0) != sha and got["permute_rows"] == 0
+                and (got["sha256_grind"], got["p31_grind"]) == (int(sha), int(not sha)),
                 f"demo {label}: expected {spec.n_inner_layers + 1} fri_fold launches, 1 fri_last launch, "
-                f"merkle_level launches {'none' if sha else 'some'} and no permute_rows launch, got {got}")
+                f"merkle_level launches {'none' if sha else 'some'}, no permute_rows launch and one launch of "
+                f"the {'SHA-256' if sha else 'Poseidon31'} grind, got {got}")
         on_card = flagship.proof_bytes(proof)
         t = time.perf_counter()
         on_cpu = flagship.proof_bytes(fn("cpu"))
@@ -1562,29 +1569,48 @@ def check_streamed(torch, dev, seen: set, resident: dict) -> dict:
     return out
 
 
-def check_grind(torch, dev) -> dict:
-    """Phase 9: grind_device on CUDA against the host native scan; K1's main
-    path since the provers' trees left it (the device grind of levels 8-9
-    and 12-13).  Returns the grind's launches."""
-    from recursive_stwo_tpu_torch.ops import launches
+def check_grind(torch, dev) -> tuple:
+    """Phase 9: the Poseidon31 grind kernel against grind_device (K1 on
+    blocks of 2**22 states, K1's main path since the provers' trees and
+    grind left it) and the host native scan at GRIND_BITS on seeded digests
+    (seed SEED + bits), one launch a grind and no K1; the three times of
+    each, and the kernel's device time at the last bits beside
+    grind_bound_ms of the nonces up to the hit (the kernel scans a little
+    more: the chunks in flight).  Returns (grind_device's launches at the
+    first bits, {nonce, ms, events_ms, plain_ms, bound_ms, bound_by,
+    host_ms, max_abs_err, library_ms} at the last)."""
+    from recursive_stwo_tpu_torch.ops import launches, poseidon_cuda
     from recursive_stwo_tpu_torch.prover import channel
 
-    digest = np.random.default_rng(SEED).integers(0, P, 8).astype(np.uint32)
-    launches.reset()
-    t = time.perf_counter()
-    nonce = channel.grind_device(digest, GRIND_BITS, device=dev)
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t
-    got = launches.counts()
-    blocks = got["permute_rows"]
-    require(blocks > 0, f"the device grind never launched permute_rows: {got}")
-    t = time.perf_counter()
-    host = channel.grind_host(digest, GRIND_BITS)
-    host_s = time.perf_counter() - t
-    require(nonce == host, f"grind_device found {nonce}, the host scan {host}")
-    print(f"grind at {GRIND_BITS} bits: nonce {nonce} on CUDA in {card_s:.3f} s ({blocks} blocks of 2**22), "
-          f"host native scan {host_s:.3f} s")
-    return got
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    k1_launches = None
+    for bits in GRIND_BITS:
+        digest = np.random.default_rng(SEED + bits).integers(0, P, 8).astype(np.uint32)
+        launches.reset()
+        nonce, kernel_s = timed(lambda: poseidon_cuda.p31_grind(digest, bits, device=dev))
+        got = launches.counts()
+        require((got["p31_grind"], got["permute_rows"]) == (1, 0), f"p31_grind: not one launch and no K1: {got}")
+        launches.reset()
+        plain, plain_s = timed(lambda: channel.grind_device(digest, bits, device=dev))
+        k1_launches = k1_launches or launches.counts()
+        require(launches.counts()["permute_rows"] > 0, f"grind_device never launched permute_rows: {launches.counts()}")
+        host, host_s = timed(lambda: channel.grind_host(digest, bits))
+        require(nonce == plain == host, f"p31_grind found {nonce} at {bits} bits, grind_device {plain}, "
+                                        f"the host scan {host}")
+        print(f"p31 grind at {bits} bits: nonce {nonce}; the kernel {kernel_s:.4f} s (one launch and its read), "
+              f"grind_device {plain_s:.3f} s ({launches.counts()['permute_rows']} K1 blocks of 2**22), "
+              f"host native scan {host_s:.3f} s")
+    out = dict(timed_kernel(torch, "p31_grind", f"{bits} bits, nonce {nonce}",
+                            lambda: poseidon_cuda.p31_grind(digest, bits, device=dev),
+                            lambda: channel.grind_device(digest, bits, device=dev), "poseidon2_grind_kernel", 1,
+                            (poseidon_cuda.grind_bound_ms(nonce + 1), "operations"), 5),
+               nonce=nonce, host_ms=host_s * 1e3, max_abs_err=0, library_ms=None)
+    return k1_launches, out
 
 
 def check_sha_grind(torch, dev) -> dict:
@@ -1863,7 +1889,7 @@ def main() -> int:
     for name in ("transcript_kernel", "composition_check_kernel", "composition_domain_kernel", "fold_kernel",
                  "fft_pass_kernel", "fft_tile_twiddle_kernel", "quotient_coeffs_kernel", "quotient_points_kernel",
                  "sample_kernel", "sample_finish_kernel", "interaction_kernel", "fri_layer_kernel",
-                 "fri_last_kernel", "merkle_level_kernel", "sha256_grind_kernel"):
+                 "fri_last_kernel", "merkle_level_kernel", "sha256_grind_kernel", "poseidon2_grind_kernel"):
         for r in build.ptxas_report(name):
             print(f"ptxas {name} ({r['kernel']}): {r['registers']} registers, {r['smem_bytes']} bytes static smem, "
                   f"{r['stack_bytes']} bytes stack frame, "
@@ -1920,7 +1946,7 @@ def main() -> int:
     seen = set()  # shapes proved so far (tools/chain.run_level's `cold`)
     levels = {level: prove_level(dev, level, seen) for level in (1, 2, 3)}
     phase_done("7-8 (chain levels 1-3)")
-    grind_launches = check_grind(torch, dev)
+    grind_launches, kernels["p31_grind"] = check_grind(torch, dev)
     kernels["sha256_grind"] = check_sha_grind(torch, dev)
     phase_done("9 (grinds)")
 
@@ -1984,6 +2010,9 @@ def main() -> int:
                         "recursive_stwo_tpu/prover/stream.py:252 (_commit_chunk_jit, p31)",
         "sha256_grind": "no TPU kernel: the host scan of recursive_stwo_tpu/prover/prove_sha256.py (grind_pow), "
                         "on native/sha256.cpp's AVX-512 sha256_grind",
+        "p31_grind": "no TPU kernel: the fused form of recursive_stwo_tpu/prover/channel.py:20-70 "
+                     "(_grind_batch_jit, grind_device: K1 on 2**22 states a block), and of the host scan "
+                     "native/poseidon31.cpp poseidon2_grind below 22 bits",
         "fri_last": "no TPU kernel: the host numpy recursive_stwo_tpu/prover/fri.py:84 (line_interpolate) after a "
                     "copy of the folded layer, called at recursive_stwo_tpu/prover/device_prove.py:913, "
                     "prove.py:443 and stream.py:1157",
@@ -2001,18 +2030,19 @@ def main() -> int:
     sources["merkle_level"] = "recursive_stwo_tpu_torch/csrc/merkle.cu"
     sources["fri_last"] = "recursive_stwo_tpu_torch/csrc/fri_fold.cu"
     sources["sha256_grind"] = "recursive_stwo_tpu_torch/csrc/sha256_grind.cu"
+    sources["p31_grind"] = "recursive_stwo_tpu_torch/csrc/poseidon2_grind.cu"
     # the main path of each: phase 4's verify_batch for the transcript, K2,
     # scan, check and fold kernels, phase 15 (c)'s streamed last layer for
-    # the SHA-256, SHA-256 grind and tile kernels, phase 9's device grind for K1, phase 7's
-    # level-1 proof for the domain kernel, the circle FFT, the quotients, the
-    # sampling, the interaction, the fold-layer, the last-layer and the
-    # Merkle level kernels
+    # the SHA-256, SHA-256 grind and tile kernels, phase 9's grind_device for K1, phase 7's
+    # level-1 proof for the Poseidon31 grind, the domain kernel, the circle
+    # FFT, the quotients, the sampling, the interaction, the fold-layer, the
+    # last-layer and the Merkle level kernels
     main_launches = {k: launches[FIXTURES[0]][k] for k in replaces}
     for k in ("sha256_level", "eval_tiles", "sha256_grind"):
         main_launches[k] = streamed[LAST_LAYER][k]
     main_launches["permute_rows"] = grind_launches["permute_rows"]
-    for k in ("composition_domain", "circle_fft", "quotients", "sample", "interaction", "fri_fold", "fri_last",
-              "merkle_level"):
+    for k in ("p31_grind", "composition_domain", "circle_fft", "quotients", "sample", "interaction", "fri_fold",
+              "fri_last", "merkle_level"):
         main_launches[k] = levels[1]["prove_launches"][k]
     report = [
         dict(name=k, route="cuda", source=sources[k],

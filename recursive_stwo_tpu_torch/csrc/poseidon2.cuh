@@ -149,14 +149,21 @@ __device__ __forceinline__ void poseidon2_m31_permute_quad(uint32_t s[4], int q,
   for (int r = 4; r < 8; ++r) quad_full_round(s, rc_full[r][q]);
 }
 
-// The whole permutation on 16 canonical words held in registers.
-__device__ __forceinline__ void poseidon2_m31_permute16(uint32_t s[16]) {
+// The permutation after its initial mds16: the 4 + 14 + 4 rounds, on 16
+// canonical words held in registers (poseidon2_grind.cu builds the initial
+// layer itself).
+__device__ __forceinline__ void poseidon2_m31_rounds16(uint32_t s[16]) {
   using namespace poseidon2_m31;
-  mds16(s);
 #pragma unroll
   for (int r = 0; r < 4; ++r) full_round(s, FIRST_FOUR_ROUND_RC[r]);
 #pragma unroll
   for (int r = 0; r < 14; ++r) partial_round(s, PARTIAL_ROUNDS_RC[r]);
 #pragma unroll
   for (int r = 0; r < 4; ++r) full_round(s, LAST_FOUR_ROUNDS_RC[r]);
+}
+
+// The whole permutation on 16 canonical words held in registers.
+__device__ __forceinline__ void poseidon2_m31_permute16(uint32_t s[16]) {
+  poseidon2_m31::mds16(s);
+  poseidon2_m31_rounds16(s);
 }

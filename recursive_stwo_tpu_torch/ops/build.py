@@ -145,6 +145,8 @@ def load() -> ctypes.CDLL:
             lib.sha256_level.restype = ctypes.c_int
             lib.sha256_grind.argtypes = [vp, ctypes.c_uint32, ctypes.c_uint64, vp, vp]
             lib.sha256_grind.restype = ctypes.c_int
+            lib.p2_grind.argtypes = [vp, ctypes.c_uint32, ctypes.c_uint64, vp, vp]
+            lib.p2_grind.restype = ctypes.c_int
             i64p, i32 = ctypes.POINTER(i64), ctypes.c_int
             lib.composition_check.argtypes = [i32, vp, i64, vp, vp, i64, i64, i64p, i64p, vp, vp, vp]
             lib.composition_check.restype = ctypes.c_int

@@ -9,12 +9,20 @@
                      hashplan.py:206,427), in one launch: an op table of
                      (lanes, steps) micro-ops, each one permutation, whose
                      inputs are read in place through descriptors
+  p31_grind          the Poseidon31 channel's proof-of-work grind
+                     (csrc/poseidon2_grind.cu): the smallest nonce n >= start
+                     whose absorption leaves digest word 0 with `pow_bits`
+                     low zero bits (prover/channel.py
+                     `PoseidonChannel.grind_pow`), the nonce the native host
+                     scan returns: one launch on the device's current stream
+                     and one 8-byte read of the result, which waits for it
 
 They take CUDA tensors of canonical M31 residues and raise on anything
-else; the plain versions live in core/poseidon2.py and (for the scan)
-verifier/hashplan.scan_plain.  A kernel launches on the current stream of
-its tensor's device and does not synchronise.  `LAUNCHES` counts the
-launches of each kernel.
+else; the plain versions live in core/poseidon2.py, (for the scan)
+verifier/hashplan.scan_plain and (for the grind) prover/channel.py
+`grind_device`, K1 on 2**22 states a block.  A kernel launches on the
+current stream of its tensor's device and does not synchronise.
+`LAUNCHES` counts the launches of each kernel.
 
 K1 has two schedules of one arithmetic (csrc/poseidon2.cu): "quad", four
 lanes to a state, and "tile", one thread to a state with the block's rows
@@ -38,12 +46,17 @@ offset) into a device pointer.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from . import build
 
-LAUNCHES = {"permute_rows": 0, "permute_wordmajor": 0, "wordmajor_scan": 0}
+P = 2**31 - 1
+
+LAUNCHES = {"permute_rows": 0, "permute_wordmajor": 0, "wordmajor_scan": 0, "p31_grind": 0}
 ROWS_SCHEDULES = ("quad", "tile")
 
 # the scan's op table (csrc/poseidon2.cu, wordmajor_scan_kernel)
@@ -69,6 +82,16 @@ H100_INT_OPS_PER_S = 132 * 128 * 1.98e9
 H100_BYTES_PER_S = 3.35e12
 BYTES_PER_PERMUTATION = 2 * 16 * 8
 
+# int32 operations of one nonce as csrc/poseidon2_grind.cu writes it, counted
+# as INT_OPS_PER_PERMUTATION counts them, less what folds away: the initial
+# mds16 at 27 modular adds (the digest's M4s hoisted, the zero words folded;
+# 84 in mds16) and the final one at the 44 adds word 8 needs; plus the three
+# limbs from the 64-bit nonce (an and, two shifts and two ands) and the hit
+# test's mask.  tests/test_torch_p31_grind.py replays both layers to count them.
+GRIND_INT_OPS_PER_NONCE = INT_OPS_PER_PERMUTATION - (84 - 27) * 3 - (84 - 44) * 3 + 5 + 1
+_NO_HIT = 2**64 - 1  # a grind's result word until a nonce hits
+_grind_state = {}  # device -> (2,) int64 tensor: a grind's chunk counter and result
+
 
 def bound_ms(n_states: int) -> tuple:
     """(milliseconds, "operations" or "bytes"): the larger of the two floors
@@ -76,6 +99,12 @@ def bound_ms(n_states: int) -> tuple:
     ops = n_states * INT_OPS_PER_PERMUTATION / H100_INT_OPS_PER_S
     mem = n_states * BYTES_PER_PERMUTATION / H100_BYTES_PER_S
     return (ops * 1e3, "operations") if ops >= mem else (mem * 1e3, "bytes")
+
+
+def grind_bound_ms(nonces: int) -> float:
+    """The least time of `nonces` nonces of the grind at GRIND_INT_OPS_PER_NONCE;
+    the grind reads and writes nothing a nonce."""
+    return nonces * GRIND_INT_OPS_PER_NONCE / H100_INT_OPS_PER_S * 1e3
 
 
 def reset_launches() -> None:
@@ -209,3 +238,46 @@ def wordmajor_scan(ops: torch.Tensor, sources: list, n_out: int, n: int,
     if lanes * steps * n:
         LAUNCHES["wordmajor_scan"] += 1
     return out
+
+
+def p31_grind(digest_words, pow_bits: int, start: int = 0, device="cuda") -> int:
+    """The smallest nonce n >= start whose absorption, the state (n mod 2**22,
+    n >> 22 mod 2**21, n >> 43 mod 2**21, 0 x 5, digest) permuted, leaves word
+    8 with `pow_bits` low zero bits.  digest_words: the channel digest's 8
+    words in [0, p); 1 <= pow_bits <= 31; 0 <= start < 2**64; device: a CUDA
+    device.  Nonces up to 2**64 - 2 are scanned; raises if none of them hits."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the grind kernel runs on a CUDA device, got {device}")
+    if not 1 <= pow_bits <= 31:
+        raise ValueError(f"pow_bits {pow_bits} outside [1, 31]")
+    words = [int(w) for w in np.asarray(digest_words).reshape(-1)]
+    if len(words) != 8 or not all(0 <= w < P for w in words):
+        raise ValueError(f"expected a digest of 8 words in [0, {P}), got {words}")
+    if not 0 <= start < 2**64:
+        raise ValueError(f"start {start} outside [0, 2**64)")
+    return grind(LAUNCHES, "p31_grind", "p2_grind", words, pow_bits, start, device)
+
+
+def grind(launches: dict, name: str, symbol: str, words: list, pow_bits: int, start: int, device) -> int:
+    """One launch of a grind kernel with the C interface of csrc/*_grind.cu
+    (`symbol`: 8 digest words, the mask, the start, the 2-word state, the
+    stream) on `device`'s current stream, counted in launches[name], and one
+    read of its result; raises if no nonce hit.  The caller checks the
+    arguments."""
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    lib = build.load()
+    state = _grind_state.get(device)
+    if state is None:
+        state = _grind_state[device] = torch.empty(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, symbol)((ctypes.c_uint32 * 8)(*words), (1 << pow_bits) - 1, start, state.data_ptr(), stream)
+    _raise_on(err, name)
+    launches[name] += 1
+    with span("to_host"):
+        nonce = state[1].item() % 2**64
+    if nonce == _NO_HIT:
+        raise RuntimeError(f"no nonce in [{start}, 2**64 - 1) leaves {pow_bits} zero bits")
+    return nonce

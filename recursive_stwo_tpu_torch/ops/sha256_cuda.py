@@ -31,18 +31,13 @@ not synchronise.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
-from ..utils.spans import span
-from . import build
+from . import build, poseidon_cuda
 from .poseidon_cuda import H100_BYTES_PER_S, H100_INT_OPS_PER_S, _raise_on
 
 LAUNCHES = {"sha256_level": 0, "sha256_grind": 0}
-_NO_HIT = 2**64 - 1  # the grind's result word until a nonce hits
-_grind_state = {}  # device -> (2,) int64 tensor: the grind's chunk counter and result
 
 # int32 operations of one compression as csrc/sha256.cu writes it: 48
 # schedule steps (two sigmas of two rotations, a shift and two xors, and
@@ -156,19 +151,4 @@ def sha256_grind(digest_words, pow_bits: int, start: int = 0, device="cuda") -> 
         raise ValueError(f"expected a digest of 8 words in [0, 2**32), got {words}")
     if not 0 <= start < 2**64:
         raise ValueError(f"start {start} outside [0, 2**64)")
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    lib = build.load()
-    state = _grind_state.get(device)
-    if state is None:
-        state = _grind_state[device] = torch.empty(2, dtype=torch.int64, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.sha256_grind((ctypes.c_uint32 * 8)(*words), (1 << pow_bits) - 1, start, state.data_ptr(), stream)
-    _raise_on(err, "sha256_grind")
-    LAUNCHES["sha256_grind"] += 1
-    with span("to_host"):
-        nonce = state[1].item() % 2**64
-    if nonce == _NO_HIT:
-        raise RuntimeError(f"no nonce in [{start}, 2**64 - 1) leaves {pow_bits} zero bits")
-    return nonce
+    return poseidon_cuda.grind(LAUNCHES, "sha256_grind", "sha256_grind", words, pow_bits, start, device)

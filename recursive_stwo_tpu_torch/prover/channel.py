@@ -1,11 +1,13 @@
-"""Poseidon31 Fiat-Shamir channel of the prover, with the PoW grind on K1.
+"""Poseidon31 Fiat-Shamir channel of the prover, with the PoW grind on the card.
 
 `PoseidonChannel` is the host channel (channel_host.py, a copy of
-recursive_stwo_tpu/prover/channel.py:73-149) with `grind_pow` routed as the JAX package routes it (:115-131): at
-GRIND_DEVICE_BITS bits or more on a CUDA device, `grind_device`; otherwise
-the host native scan.
+recursive_stwo_tpu/prover/channel.py:73-149) with `grind_pow` on a CUDA
+device, at any bits, one launch of the grind kernel
+(ops/poseidon_cuda.py `p31_grind`, csrc/poseidon2_grind.cu); on the CPU, and
+at 0 bits, the host native scan.
 
-`grind_device` is the twin of `_grind_batch_jit` / `grind_device` (:20-70).
+`grind_device` is the kernel's plain version, the twin of the JAX package's
+`_grind_batch_jit` / `grind_device` (:20-70), which the tests hold the kernel to.
 A nonce n is absorbed as the limbs (n mod 2**22, n >> 22 mod 2**21,
 n >> 43 mod 2**21).  Blocks of 2**block_log nonces (block_log <= 22) start
 at multiples of their size, so inside a block only limb 0 moves, by the
@@ -20,11 +22,11 @@ import numpy as np
 import torch
 
 from ..core import poseidon2
+from ..ops import poseidon_cuda
 from ..utils import native
 from ..utils.spans import span
 from .channel_host import PoseidonChannel as HostPoseidonChannel
 
-GRIND_DEVICE_BITS = 22
 _LIMB0 = 22
 _LIMB = 21
 
@@ -57,8 +59,8 @@ def grind_device(digest, pow_bits: int, block_log: int = 22, device="cuda") -> i
 
 
 def grind_host(digest, pow_bits: int) -> int:
-    """The host native scan (utils/native.py `grind`), as the JAX package's
-    channel calls it below the device threshold."""
+    """The host native scan (utils/native.py `grind`): a prover's grind on
+    the CPU."""
     if not native.available():
         raise RuntimeError("the host PoW scan needs the native library (utils/native.py)")
     return native.grind(np.asarray(digest, np.uint32), pow_bits)
@@ -70,6 +72,6 @@ class PoseidonChannel(HostPoseidonChannel):
         self.device = torch.device(device)
 
     def grind_pow(self, pow_bits: int) -> int:
-        if pow_bits >= GRIND_DEVICE_BITS and self.device.type == "cuda":
-            return grind_device(self.digest, pow_bits, device=self.device)
+        if pow_bits and self.device.type == "cuda":
+            return poseidon_cuda.p31_grind(self.digest, pow_bits, device=self.device)
         return grind_host(self.digest, pow_bits)

@@ -6,7 +6,8 @@ Imports recursive_stwo_tpu_torch from DIR (default: the checkout holding this
 script), so that two checkouts can be timed in one process on one card, and
 times, at the shapes the port calls them with:
   K1 (permute_rows): (1024, 16), a transcript step; 2**12 to 2**23 rows
-     (the device grind permutes blocks of 2**22; the provers' Merkle
+     (channel.grind_device, the grind kernel's plain version, permutes
+     blocks of 2**22; the provers' Merkle
      levels ran on K1 at these sizes before the Merkle level kernel, and
      still do in a parent checkout).  Each of K1's schedules
      separately where the checkout has more than one, and the one

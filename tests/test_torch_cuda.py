@@ -38,7 +38,7 @@ def _verifier_launches(got: dict) -> None:
     assert (got["transcript"], got["permute_rows"]) == (1, 0), got
     assert (got["wordmajor_scan"], got["permute_wordmajor"]) == (2, 1), got
     assert (got["composition_check"], got["fold_phase"], got["composition_domain"], got["sha256_level"],
-            got["sha256_grind"]) == (1, 1, 0, 0, 0), got
+            got["sha256_grind"], got["p31_grind"]) == (1, 1, 0, 0, 0, 0), got
 
 
 def _states(seed, n):
@@ -152,8 +152,8 @@ def test_prove_on_cuda_matches_host(cuda, monkeypatch):
     got = t_prove(trace, flagship.DEMO_CONFIG, device=cuda)
     torch.cuda.synchronize()
     counts = launches.counts()
-    # the Merkle level kernel commits the trees; the demo's PoW is the host's
-    assert counts["merkle_level"] > 0 and counts["permute_rows"] == 0, counts
+    # the Merkle level kernel commits the trees; the grind kernel grinds the PoW once
+    assert counts["merkle_level"] > 0 and counts["permute_rows"] == 0 and counts["p31_grind"] == 1, counts
     # the JAX package's host flow (its device flow would take jax to the GPU)
     monkeypatch.setenv("RSTPU_DEVICE_PROVER", "0")
     assert flagship.proof_bytes(got) == flagship.proof_bytes(r_prove(trace, flagship.DEMO_CONFIG))
@@ -222,6 +222,81 @@ def test_sha256_grind_kernel_keeps_every_value_in_registers(cuda):
 
     build.load()
     report = build.ptxas_report("sha256_grind_kernel")
+    assert len(report) == 1, report
+    assert (report[0]["stack_bytes"], report[0]["spill_stores"], report[0]["spill_loads"]) == (0, 0, 0), report
+
+
+# (pow_bits, start): seeded digests (seed pow_bits, or 1000 with a start) whose
+# smallest nonces are 0, 193, 4,501, 290,544, 107,514 and 54,660,961, the last
+# three past the first chunk of 2**11 nonces, the last past the first wave; and
+# from 4,096 below 2**22, 2**32 and 2**43 nonces 10,494, 71,742 and 76,370 past
+# the start, across the limb or word boundary
+P31_GRINDS = {"1": (1, 0), "8": (8, 0), "12": (12, 0), "16": (16, 0), "20": (20, 0), "24": (24, 0),
+              "across 2**22": (16, (1 << 22) - 4096), "across 2**32": (16, 2**32 - 4096),
+              "across 2**43": (16, (1 << 43) - 4096)}
+
+
+def _p31_digest(seed):
+    return np.random.default_rng(seed).integers(0, P, 8).astype(np.uint32)
+
+
+@pytest.mark.parametrize("case", list(P31_GRINDS))
+def test_p31_grind_matches_native_scan(cuda, case):
+    """The Poseidon31 grind kernel returns the native host scan's nonce, in
+    one launch, from any start."""
+    from recursive_stwo_tpu_torch.utils import native
+
+    pow_bits, start = P31_GRINDS[case]
+    digest = _p31_digest(1000 if start else pow_bits)
+    launches.reset()
+    nonce = poseidon_cuda.p31_grind(digest, pow_bits, start, device=cuda)
+    assert launches.counts()["p31_grind"] == 1 and launches.counts()["permute_rows"] == 0
+    assert nonce == native.grind(digest, pow_bits, start)
+    if start:
+        assert nonce >= start + 4096
+
+
+@pytest.mark.parametrize("pow_bits", [22, 24])
+def test_p31_grind_matches_k1_block_grind(cuda, pow_bits):
+    """The kernel's nonce is grind_device's, K1 on blocks of 2**22 states, its
+    plain version on the card."""
+    from recursive_stwo_tpu_torch.prover.channel import grind_device
+
+    digest = _p31_digest(pow_bits)
+    launches.reset()
+    nonce = poseidon_cuda.p31_grind(digest, pow_bits, device=cuda)
+    assert (launches.counts()["p31_grind"], launches.counts()["permute_rows"]) == (1, 0)
+    assert nonce == grind_device(digest, pow_bits, device=cuda)
+
+
+def test_poseidon_channel_grinds_on_the_card(cuda):
+    """The PoseidonChannel of a prover on the card grinds 20 bits there, one
+    launch and no K1, and finds the host channel's nonce on the same
+    transcript."""
+    from recursive_stwo_tpu_torch.prover.channel import PoseidonChannel
+
+    chans = []
+    for device in (cuda, torch.device("cpu")):
+        ch = PoseidonChannel(device)
+        ch.mix_root(np.arange(8, dtype=np.uint32) * 77_777)
+        ch.mix_one_felt([1, 2, 3, 4])
+        chans.append(ch)
+    launches.reset()
+    nonce = chans[0].grind_pow(20)
+    assert (launches.counts()["p31_grind"], launches.counts()["permute_rows"]) == (1, 0)
+    assert nonce == chans[1].grind_pow(20)
+    assert launches.counts()["p31_grind"] == 1
+    chans[1].mix_u64(nonce)
+    assert int(chans[1].digest[0]) % (1 << 20) == 0
+
+
+def test_p31_grind_kernel_keeps_every_value_in_registers(cuda):
+    """ptxas' report of the build: the grind kernel has no stack frame and
+    spills nothing."""
+    from recursive_stwo_tpu_torch.ops import build
+
+    build.load()
+    report = build.ptxas_report("poseidon2_grind_kernel")
     assert len(report) == 1, report
     assert (report[0]["stack_bytes"], report[0]["spill_stores"], report[0]["spill_loads"]) == (0, 0, 0), report
 
@@ -1103,9 +1178,9 @@ def _demo_prover(prover):
 def test_provers_run_folds_and_merkle_levels_on_the_kernels(cuda, monkeypatch, prover):
     """On CUDA every prover folds in spec.n_inner_layers + 1 launches of the
     fold-layer kernel and hashes its Poseidon31 trees on the Merkle level
-    kernel, never the plain versions and never K1 (the demo's 5-bit PoW is
-    the host's in the Poseidon31 flavour), the SHA-256 grind kernel once in
-    the Sha256Poseidon31 flavour; the proof equals the CPU run's."""
+    kernel, never the plain versions and never K1; it grinds the demo's
+    5-bit PoW in one launch of its channel's grind kernel, Poseidon31's or,
+    in the Sha256Poseidon31 flavour, SHA-256's; the proof equals the CPU run's."""
     from recursive_stwo_tpu_torch.prover import commit, fri
     from recursive_stwo_tpu_torch.verifier.spec import NoPoseidonVerifierSpec, VerifierSpec
 
@@ -1126,7 +1201,8 @@ def test_provers_run_folds_and_merkle_levels_on_the_kernels(cuda, monkeypatch, p
             else VerifierSpec.from_proof(got))
     assert counts["fri_fold"] == spec.n_inner_layers + 1, counts
     assert (counts["merkle_level"] > 0) == (prover != "prove_sha256p31"), counts
-    assert counts["permute_rows"] == 0 and counts["sha256_grind"] == (prover == "prove_sha256p31"), counts
+    sha = prover == "prove_sha256p31"
+    assert (counts["permute_rows"], counts["p31_grind"], counts["sha256_grind"]) == (0, int(not sha), int(sha)), counts
 
 
 # ---- the FRI last-layer kernel (csrc/fri_fold.cu `fri_last_kernel`) ----
